@@ -1,0 +1,82 @@
+"""Serve SAX cine segmentation with a finetuned ConvUNetR
+(port of examples/inference/segmentation_sax.py:47-81).
+
+Each frame is min-max scaled to [0, 1] and end-padded to the model's patch
+size, the frames run through the model in chunks of 8, the argmax labels
+are cropped back to the input's shape.
+
+Usage:
+    python -m cinema_tpu_torch.serve --config config.yaml --model model.safetensors \
+        --video cine.npy --out labels.npy [--device cuda]
+
+``--video`` is a (x, y, z, t) array in .npy; ``--out`` receives uint8
+labels of the same shape. NIfTI input and output are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+from pathlib import Path
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from cinema_tpu_torch.factory import from_finetuned
+from cinema_tpu_torch.inference import video_forward
+from cinema_tpu_torch.models.convunetr import ConvUNetR
+from cinema_tpu_torch.ops.window import crop_start
+
+CHUNK = 8
+
+
+def scale_intensity(x: np.ndarray) -> np.ndarray:
+    """Min-max rescale to [0, 1] (cinema_tpu/data/transforms.py ScaleIntensityd)."""
+    x = x.astype(np.float32)
+    lo, hi = x.min(), x.max()
+    return (x - lo) / (hi - lo) if hi > lo else np.zeros_like(x)
+
+
+def spatial_pad(x: np.ndarray, spatial_size: Sequence[int]) -> np.ndarray:
+    """End-pad the spatial axes of (*spatial, ch) to at least ``spatial_size``
+    (cinema_tpu/data/transforms.py SpatialPadd)."""
+    pads = [(0, max(0, t - s)) for s, t in zip(x.shape[:-1], spatial_size)]
+    return np.pad(x, [*pads, (0, 0)])
+
+
+def preprocess(video: np.ndarray, patch_size: Sequence[int]) -> np.ndarray:
+    """(x, y, z, t) cine -> (t, *patch-padded spatial, 1) float32 frames."""
+    return np.stack(
+        [spatial_pad(scale_intensity(video[..., t])[..., None], patch_size) for t in range(video.shape[-1])]
+    )
+
+
+@torch.no_grad()
+def segment_cine(model: ConvUNetR, video: np.ndarray, chunk: int = CHUNK) -> np.ndarray:
+    """Segment every frame of a (x, y, z, t) SAX cine; returns (x, y, z, t) uint8 labels."""
+    device = next(model.parameters()).device
+    frames = torch.from_numpy(preprocess(video, model.image_size_dict["sax"])).to(device)
+    labels = video_forward(lambda x: model.predict_labels({"sax": x})["sax"], frames, chunk)
+    labels = crop_start(labels.cpu().numpy(), (video.shape[-1], *video.shape[:3]))
+    return np.moveaxis(labels, 0, -1)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--config", required=True, type=Path, help="config.yaml of the finetuned model")
+    parser.add_argument("--model", required=True, type=Path, help="safetensors weights")
+    parser.add_argument("--video", required=True, type=Path, help="(x, y, z, t) SAX cine as .npy")
+    parser.add_argument("--out", required=True, type=Path, help="output .npy of uint8 labels")
+    parser.add_argument("--device", default="cuda")
+    args = parser.parse_args()
+
+    dtype = torch.bfloat16 if torch.device(args.device).type == "cuda" else torch.float32
+    model = from_finetuned("convunetr", args.model, args.config, dtype=dtype, device=args.device)
+    labels = segment_cine(model, np.load(args.video))
+    args.out.parent.mkdir(parents=True, exist_ok=True)
+    np.save(args.out, labels)
+    print(f"Saved labels {labels.shape} to {args.out}.")
+
+
+if __name__ == "__main__":
+    main()
