@@ -3,8 +3,8 @@
 Each source in ``csrc/`` is compiled on first use into a shared library with
 a plain C interface (no PyTorch headers: a build takes seconds, not minutes)
 under ``build/kernels/`` at the checkout root, or ``$CINEMA_TORCH_BUILD_DIR``.
-The file name carries a hash of the source and the flags, so an edited
-kernel is rebuilt and a stale library is never loaded.
+The file name carries a hash of the source, the shared headers and the
+flags, so an edited kernel is rebuilt and a stale library is never loaded.
 """
 
 from __future__ import annotations
@@ -20,7 +20,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file in csrc/
-SOURCES = {"flash_attention_packed": "flash_attention_packed.cu"}
+SOURCES = {
+    "flash_attention_packed": "flash_attention_packed.cu",
+    "flash_attention_packed_bwd": "flash_attention_packed_bwd.cu",
+}
+# headers the sources include: hashed into every library's name
+HEADERS = ("flash_attention_common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -48,8 +53,9 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    source = CSRC / SOURCES[name]
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    files = [CSRC / SOURCES[name], *(CSRC / h for h in HEADERS)]
+    content = b"".join(f.read_bytes() for f in files)
+    digest = hashlib.sha256(content + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return build_dir() / f"{name}-{digest}.so"
 
 

@@ -3,8 +3,9 @@
 The port's module names are the reference checkpoint's, so a reference
 safetensors file loads with no renaming. This module holds:
 
-- :func:`load_safetensors`: a small numpy reader of the safetensors format
-  (the machine with the card need not have the ``safetensors`` package);
+- :func:`load_safetensors` / :func:`save_safetensors`: a small numpy reader
+  and writer of the safetensors format (the machine with the card need not
+  have the ``safetensors`` package);
 - :func:`state_dict_from_jax`: a flax param tree (nested dicts of arrays)
   to the port's ``state_dict``, the inverse of the JAX bridge's
   ``flax_path_to_torch_key`` / ``_convert_tensor``;
@@ -46,10 +47,34 @@ def load_safetensors(path: Union[str, Path]) -> Dict[str, np.ndarray]:
     return out
 
 
-# ConvUNetR's flax dict attributes, whose next path component is a view name
+def save_safetensors(path: Union[str, Path], tensors: Mapping[str, np.ndarray]) -> None:
+    """Write arrays as a safetensors file, keys sorted, header padded to 8 bytes as the format's
+    own writer does."""
+    codes = {np.dtype(v): k for k, v in _ST_DTYPES.items()}
+    header, chunks, offset = {}, [], 0
+    for key in sorted(tensors):
+        arr = np.ascontiguousarray(tensors[key])
+        if arr.dtype not in codes:
+            raise ValueError(f"Unsupported dtype {arr.dtype} for {key}.")
+        data = arr.astype(arr.dtype.newbyteorder("<"), copy=False).tobytes()
+        header[key] = {
+            "dtype": codes[arr.dtype], "shape": list(arr.shape), "data_offsets": [offset, offset + len(data)],
+        }
+        chunks.append(data)
+        offset += len(data)
+    head = json.dumps(header, separators=(",", ":")).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for data in chunks:
+            f.write(data)
+
+
+# the models' flax dict attributes, whose next path component is a view name
 _DICT_PREFIXES = (
-    "enc_down_dict", "pred_head_dict", "dec_image_conv_block_dict", "dec_down_blocks_dict",
-    "dec_conv_blocks_dict", "decoder_dict",
+    "enc_down_dict", "enc_fusion_dict", "dec_embed_dict", "pred_head_dict", "dec_image_conv_block_dict",
+    "dec_down_blocks_dict", "dec_conv_blocks_dict", "decoder_dict",
 )
 _DICT_KEYS = ("sax", "lax_2c", "lax_3c", "lax_4c")
 
@@ -79,7 +104,7 @@ def torch_key(path: Tuple[str, ...]) -> Optional[str]:
     *parts, leaf = path
     if leaf in ("kernel", "scale"):
         name = "weight"
-    elif leaf in ("bias", "cls_token"):
+    elif leaf in ("bias", "cls_token", "mask_token"):
         name = leaf
     else:
         return None

@@ -29,37 +29,13 @@
 // the kernel is bounded by tensor-core operations. This first version uses
 // mma.sync without cp.async pipelining, wgmma or TMA; those come later.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
-#include <stdint.h>
+#include "flash_attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
 constexpr int kBlockQ = kWarps * 16;  // bf16 path: query rows per block
 constexpr int kBlockK = 64;           // bf16 path: keys per tile
-constexpr int kPad = 8;               // bf16 elements of row padding (bank spread)
 constexpr int kBlockKF32 = 32;        // f32 path: keys per tile
-
-__device__ __forceinline__ void mma_bf16_16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                               uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* row, int col, bool valid) {
-  return valid ? *reinterpret_cast<const uint32_t*>(row + col) : 0u;
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -67,7 +43,7 @@ __global__ void __launch_bounds__(kThreads)
                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int n_q,
                     int n_k, long long q_sb, long long q_st, long long k_sb, long long k_st,
                     long long v_sb, long long v_st, long long o_sb, long long o_st,
-                    float scale_log2) {
+                    float scale_log2, float* __restrict__ lse) {
   static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   __shared__ __align__(16) __nv_bfloat16 k_tile[kBlockK][D + kPad];   // [key][d]
   __shared__ __align__(16) __nv_bfloat16 vt_tile[D][kBlockK + kPad];  // [d][key]
@@ -208,6 +184,12 @@ __global__ void __launch_bounds__(kThreads)
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
+  if (lse != nullptr && t == 0) {
+    // row log-sum-exp of the scaled scores, log2 domain, (batch, head, n_q): what the backward recomputes P from
+    float* lse_row = lse + ((long long)batch * gridDim.y + head) * n_q;
+    if (ok0) lse_row[row0] = m0 + log2f(l0);
+    if (ok1) lse_row[row1] = m1 + log2f(l1);
+  }
   __nv_bfloat16* ob = o + batch * o_sb + head * D;
 #pragma unroll
   for (int dt = 0; dt < D / 8; ++dt) {
@@ -228,7 +210,8 @@ __global__ void __launch_bounds__(kThreads)
     packed_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ o, int n_q, int n_k,
                    long long q_sb, long long q_st, long long k_sb, long long k_st, long long v_sb,
-                   long long v_st, long long o_sb, long long o_st, float scale_log2) {
+                   long long v_st, long long o_sb, long long o_st, float scale_log2,
+                   float* __restrict__ lse) {
   static_assert(D % 4 == 0, "head_dim must be a multiple of 4");
   __shared__ __align__(16) float k_tile[kBlockKF32][D];
   __shared__ __align__(16) float v_tile[kBlockKF32][D];
@@ -300,6 +283,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   if (ok) {
+    if (lse != nullptr) lse[((long long)batch * gridDim.y + head) * n_q + row] = m + log2f(l);
     const float inv = 1.f / l;
     float* orow = o + batch * o_sb + head * D + (long long)row * o_st;
 #pragma unroll
@@ -315,15 +299,18 @@ __global__ void __launch_bounds__(kThreads)
 // Plain C entry point, bound from Python with ctypes.
 //   dtype: 0 = float32, 1 = bfloat16; strides are in elements:
 //   strides[0..7] = q batch, q row, k batch, k row, v batch, v row, out batch, out row.
+//   lse: null, or (batch, n_heads, n_q) float32 that receives each row's
+//   log-sum-exp of the scaled scores in the log2 domain (saved for the backward).
 // Returns cudaGetLastError() after the launch, or -1 for an unsupported
 // dtype/head_dim combination (the Python wrapper checks before calling).
 extern "C" int cinema_flash_attention_packed_fwd(const void* q, const void* k, const void* v,
                                                  void* o, int dtype, int batch, int n_q, int n_k,
                                                  int n_heads, int head_dim,
                                                  const long long* strides, float scale_log2,
-                                                 void* stream) {
+                                                 void* lse, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long* s = strides;
+  float* lp = static_cast<float*>(lse);
   if (n_q <= 0 || n_k <= 0 || batch <= 0 || n_heads <= 0) return -1;
   if (dtype == 1) {
     const dim3 grid((n_q + kBlockQ - 1) / kBlockQ, n_heads, batch);
@@ -333,10 +320,10 @@ extern "C" int cinema_flash_attention_packed_fwd(const void* q, const void* k, c
     auto* op = static_cast<__nv_bfloat16*>(o);
     if (head_dim == 64) {
       packed_fwd_bf16<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, n_q, n_k, s[0], s[1], s[2],
-                                                     s[3], s[4], s[5], s[6], s[7], scale_log2);
+                                                     s[3], s[4], s[5], s[6], s[7], scale_log2, lp);
     } else if (head_dim == 32) {
       packed_fwd_bf16<32><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, n_q, n_k, s[0], s[1], s[2],
-                                                     s[3], s[4], s[5], s[6], s[7], scale_log2);
+                                                     s[3], s[4], s[5], s[6], s[7], scale_log2, lp);
     } else {
       return -1;
     }
@@ -348,10 +335,10 @@ extern "C" int cinema_flash_attention_packed_fwd(const void* q, const void* k, c
     auto* op = static_cast<float*>(o);
     if (head_dim == 64) {
       packed_fwd_f32<64><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, n_q, n_k, s[0], s[1], s[2],
-                                                    s[3], s[4], s[5], s[6], s[7], scale_log2);
+                                                    s[3], s[4], s[5], s[6], s[7], scale_log2, lp);
     } else if (head_dim == 32) {
       packed_fwd_f32<32><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, n_q, n_k, s[0], s[1], s[2],
-                                                    s[3], s[4], s[5], s[6], s[7], scale_log2);
+                                                    s[3], s[4], s[5], s[6], s[7], scale_log2, lp);
     } else {
       return -1;
     }

@@ -1,15 +1,16 @@
 """Model factories from config + finetuned loading (port of cinema_tpu/factory.py,
-the ConvUNetR part; reference cinema/segmentation/convunetr.py:164-210, 487-521).
+the ConvUNetR and CineMA parts; reference cinema/segmentation/convunetr.py:164-210,
+487-521 and cinema/mae/mae.py:231-282).
 
 Weights are float32 parameters on ``device``; ``dtype`` is the compute
-dtype of the activations (bfloat16 on the card for serving).
+dtype of the activations (bfloat16 on the card).
 """
 
 from __future__ import annotations
 
 import math
 from pathlib import Path
-from typing import Dict, Union
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ from torch import nn
 from cinema_tpu_torch.config import Config, load_config
 from cinema_tpu_torch.convert import drop_frozen_pos_embeds, load_safetensors
 from cinema_tpu_torch.models.convunetr import ConvUNetR
+from cinema_tpu_torch.models.mae import CineMA
 from cinema_tpu_torch.models.vit import get_vit_config
 from cinema_tpu_torch.ops.pos_embed import get_nd_sincos_pos_embed
 
@@ -79,11 +81,48 @@ def get_convunetr_model(
     return model.to(device).eval()
 
 
+def get_mae_model(
+    config: Config,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+    remat: Optional[bool] = None,
+) -> CineMA:
+    """Build CineMA from the pretrain config schema (reference mae.py:231-282), in train mode on ``device``.
+
+    ``remat`` defaults to the config's ``grad_ckpt``. Parameters hold torch's
+    default initialisation; call :func:`init_weights` for the JAX package's
+    seeded scheme or load a checkpoint.
+    """
+    device = resolve_device(device)
+    views = list(config.model.get("views", ["sax", "lax_2c", "lax_3c", "lax_4c"]))
+    vit = get_vit_config(config.model.size)
+    image_size_dict, in_chans_dict, patch_dict, scale_dict = {}, {}, {}, {}
+    for v in views:
+        data = config.data.sax if v == "sax" else config.data.lax
+        nd = 3 if v == "sax" else 2
+        image_size_dict[v] = tuple(data.patch_size)
+        in_chans_dict[v] = data.in_chans
+        patch_dict[v] = tuple(config.model.patch_size[:nd])
+        scale_dict[v] = tuple(config.model.scale_factor[:nd])
+    model = CineMA(
+        image_size_dict=image_size_dict,
+        in_chans_dict=in_chans_dict,
+        enc_patch_size_dict=patch_dict,
+        enc_scale_factor_dict=scale_dict,
+        enc_conv_chans=tuple(config.model.enc_conv_chans),
+        enc_conv_n_blocks=config.model.enc_conv_n_blocks,
+        remat=bool(config.get("grad_ckpt", False)) if remat is None else remat,
+        dtype=dtype,
+        **vit,
+    )
+    return model.to(device).train()
+
+
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     """Seeded initialisation with the JAX package's scheme (cinema_tpu/models/layers.py):
     Linear xavier-uniform + zero bias; Conv/ConvTranspose torch default
-    U(+-1/sqrt(fan_in)); norms ones/zeros; cls token N(0, 0.02).
+    U(+-1/sqrt(fan_in)); norms ones/zeros; cls and mask tokens N(0, 0.02).
 
     Drawn on the CPU from one ``torch.Generator``, so the weights depend on
     the seed only, not on the device.
@@ -109,7 +148,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
             module.weight.fill_(1.0)
             module.bias.zero_()
     for name, p in model.named_parameters():
-        if name.endswith("cls_token"):
+        if name.endswith(("cls_token", "mask_token")):
             p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
     return model
 

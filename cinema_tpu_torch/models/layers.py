@@ -12,13 +12,14 @@ Conventions of the port:
   erf, abs err 1.5e-7, which the parity tolerances absorb).
 
 Only the plain convolutions are ported: the JAX package's z-fold and g-fold
-rewrites (``_ZFoldConv3``, ``_ZFoldConvT``, ``_FoldedClassMajorHead``) are TPU
+rewrites (``_ZFoldConv3``, ``_ZFoldConvT``, ``_FoldedClassMajorHead``, and the
+``segments`` argument of its LayerNorm that serves them) are TPU
 lane-padding layouts of the same ops with the same parameters.
 """
 
 from __future__ import annotations
 
-from typing import Sequence, Union
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -161,9 +162,12 @@ class ConvResBlock(nn.Module):
 
 
 class MaskedConvBlock(nn.Module):
-    """ConvMAE block without a mask (reference conv.py:349-415):
-    x += drop_path(conv2(dw_conv5(conv1(norm1(x))))); x += drop_path(mlp(norm2(x))).
-    The masked form belongs to MAE pretraining and is not ported yet."""
+    """ConvMAE block with the mask multiply (reference conv.py:349-415):
+    x += drop_path(conv2(dw_conv5(mask * conv1(norm1(x))))); x += drop_path(mlp(norm2(x))).
+
+    The mask multiply keeps masked-patch pixels from leaking through the
+    5^nd depthwise conv, the only op of the block that crosses positions.
+    """
 
     def __init__(self, nd: int, chans: int, mlp_ratio: int = 4, drop_path: float = 0.0,
                  norm: str = "layer") -> None:
@@ -177,6 +181,23 @@ class MaskedConvBlock(nn.Module):
         self.mlp = ConvMlp(nd, chans, chans * mlp_ratio)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.drop_path1(self.conv2(self.dw_conv(self.conv1(self.norm1(x)))))
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, dense_ctx=None) -> torch.Tensor:
+        """x: (batch, chans, *spatial); mask: (batch, *spatial), True or 1 = visible.
+
+        With ``dense_ctx`` (ops.sparse_cells.CellDenseCtx) x holds the visible
+        cells only, (batch * k, chans, *cell): the depthwise conv runs on the
+        densified image and the scatter's zeros at masked cells play the mask
+        multiply's part, so ``mask`` must be None then.
+        """
+        if dense_ctx is not None and mask is not None:
+            raise ValueError("mask and dense_ctx are mutually exclusive.")
+        h = self.conv1(self.norm1(x))
+        if mask is not None:
+            h = h * mask[:, None].to(h.dtype)
+        if dense_ctx is not None:
+            h = dense_ctx.densify(h)
+        h = self.dw_conv(h)
+        if dense_ctx is not None:
+            h = dense_ctx.sparsify(h)
+        x = x + self.drop_path1(self.conv2(h))
         return x + self.drop_path2(self.mlp(self.norm2(x)))

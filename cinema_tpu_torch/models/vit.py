@@ -1,10 +1,17 @@
 """Vision Transformer core (port of cinema_tpu/models/vit.py; reference cinema/vit.py).
 
 Attention keeps the packed (batch, tokens, embed) layout: q and the fused kv
-projection feed the packed flash-attention kernel directly, k and v being
-column slices of kv, so no (batch, heads, tokens, head_dim) copy is made.
+projection feed the packed flash-attention kernels directly, k and v being
+the column halves of kv, so no (batch, heads, tokens, head_dim) copy is made
+and the backward kernel writes the gradient of kv in one piece.
 Module names follow the reference checkpoints (blocks.{i}.attn.{q,kv,proj},
 blocks.{i}.mlp.{fc1,fc2}).
+
+``remat`` recomputes each block in the backward pass
+(``torch.utils.checkpoint``, non-reentrant) instead of keeping its
+activations. The JAX package's ``scan_blocks`` (one traced block body for
+the whole stack) is a compile-time lever of XLA and has no counterpart in
+eager PyTorch.
 """
 
 from __future__ import annotations
@@ -12,12 +19,15 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from cinema_tpu_torch.models.layers import Dense, DropPath, LayerNorm, gelu
-from cinema_tpu_torch.ops.flash_attention import flash_attention_packed
+from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv
 from cinema_tpu_torch.ops.patch import patchify
+from cinema_tpu_torch.ops.pos_embed import get_nd_sincos_pos_embed
 
 
 def get_vit_config(size: str) -> dict[str, int]:
@@ -92,10 +102,8 @@ class Attention(nn.Module):
                 "attention dropout needs the per-head flash kernel with dropout, "
                 "not ported yet: ROADMAP.md Queue 2, kernel row 1."
             )
-        dim = q.shape[-1]
-        kv = self.kv(q if k is None else k)
         # the fused kv projection orders outputs (2, n_heads, head_dim)
-        x = flash_attention_packed(self.q(q), kv[..., :dim], kv[..., dim:], self.n_heads)
+        x = flash_attention_packed_kv(self.q(q), self.kv(q if k is None else k), self.n_heads)
         return self.proj(x)
 
 
@@ -117,12 +125,24 @@ class Block(nn.Module):
         return q + self.drop_path2(self.mlp(self.norm2(q)))
 
 
+def _run_blocks(blocks: nn.ModuleList, q: torch.Tensor, k: Optional[torch.Tensor], remat: bool) -> torch.Tensor:
+    """The block stack; with ``remat`` under autograd each block is recomputed in the backward pass."""
+    for block in blocks:
+        if remat and torch.is_grad_enabled():
+            q = checkpoint(block, q, k, use_reentrant=False)
+        else:
+            q = block(q, k)
+    return q
+
+
 class ViTEncoder(nn.Module):
     """Prepend the cls token, N blocks, final norm (reference vit.py:612-698)."""
 
     def __init__(self, embed_dim: int, depth: int, n_heads: int, mlp_ratio: float = 4,
-                 qkv_bias: bool = True, norm_eps: float = 1e-5, drop_path: float = 0.0) -> None:
+                 qkv_bias: bool = True, norm_eps: float = 1e-5, drop_path: float = 0.0,
+                 remat: bool = False) -> None:
         super().__init__()
+        self.remat = remat
         self.cls_token = nn.Parameter(torch.zeros(1, 1, embed_dim))
         self.blocks = nn.ModuleList(
             Block(embed_dim, n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path) for _ in range(depth)
@@ -133,6 +153,33 @@ class ViTEncoder(nn.Module):
         """(batch, n, E) -> (batch, 1 + n, E)."""
         cls = self.cls_token.to(x.dtype).expand(x.shape[0], -1, -1)
         x = torch.cat([cls, x], dim=1)
-        for block in self.blocks:
-            x = block(x)
-        return self.norm(x)
+        return self.norm(_run_blocks(self.blocks, x, None, self.remat))
+
+
+class ViTDecoder(nn.Module):
+    """ViT decoder with optional CrossMAE-style cross-attention (reference vit.py:701-781)."""
+
+    def __init__(self, embed_dim: int, depth: int, n_heads: int, mlp_ratio: float = 4,
+                 qkv_bias: bool = True, norm_eps: float = 1e-5, drop_path: float = 0.0,
+                 remat: bool = False) -> None:
+        super().__init__()
+        self.remat = remat
+        self.blocks = nn.ModuleList(
+            Block(embed_dim, n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path) for _ in range(depth)
+        )
+        # the reference keeps torch's default eps for the decoder norm (vit.py:738)
+        self.norm = LayerNorm(embed_dim, eps=1e-5)
+
+    def forward(self, x_q: torch.Tensor, x_k: Optional[torch.Tensor], n_enc_masked: int) -> torch.Tensor:
+        """Decode and return the trailing ``n_enc_masked`` tokens, normed."""
+        if n_enc_masked <= 0:
+            # the reference's x[:, -0:, :] returns ALL tokens and the masked
+            # loss then averages no element to NaN: fail loudly instead
+            raise ValueError(f"ViTDecoder needs n_enc_masked > 0, got {n_enc_masked} (is enc_mask_ratio 0?).")
+        x_q = _run_blocks(self.blocks, x_q, x_k, self.remat)
+        return self.norm(x_q[:, -n_enc_masked:, :])
+
+
+def get_pos_embed_array(embed_dim: int, grid_size: Sequence[int]) -> np.ndarray:
+    """Frozen (1, N, E) sincos positional embedding (reference vit.py:426-443), numpy."""
+    return get_nd_sincos_pos_embed(embed_dim, tuple(grid_size))[None]

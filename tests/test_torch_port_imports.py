@@ -24,16 +24,26 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinema_tpu"))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+# every module that the pretraining slice added must be among those imported
+PRETRAIN_MODULES = {
+    "cinema_tpu_torch.models.mae", "cinema_tpu_torch.ops.masking", "cinema_tpu_torch.ops.sparse_cells",
+    "cinema_tpu_torch.tasks.pretrain", "cinema_tpu_torch.train.checkpoint", "cinema_tpu_torch.train.fused_optim",
+    "cinema_tpu_torch.train.loop", "cinema_tpu_torch.train.optim", "cinema_tpu_torch.train.state",
+}
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True, text=True, timeout=300, check=True
     )
-    n_modules, bad = proc.stdout.split(" ", 1)
-    assert int(n_modules) >= 15, proc.stdout
+    first, names = proc.stdout.splitlines()
+    n_modules, bad = first.split(" ", 1)
+    assert int(n_modules) >= 28, proc.stdout
     assert bad.strip() == "[]", proc.stdout
+    assert PRETRAIN_MODULES <= set(names.split()), proc.stdout
 
 
 def _no_card():
@@ -45,6 +55,27 @@ def test_model_factory_defaults_to_the_card():
     _no_card()
     with pytest.raises(RuntimeError, match="CUDA"):
         factory.get_convunetr_model(from_dict(PACKAGED["segmentation/acdc"]))
+
+
+def test_mae_factory_and_pretraining_default_to_the_card(tmp_path):
+    _no_card()
+    from cinema_tpu_torch.tasks import pretrain
+
+    config = from_dict(PACKAGED["mae"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory.get_mae_model(config)
+    config.data.dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain.run(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pretrain.main([f"data.dir={tmp_path}"])
+
+
+def test_packaged_mae_config_is_the_jax_packages_yaml():
+    import yaml
+
+    with open(REPO / "cinema_tpu" / "configs" / "mae.yaml") as f:
+        assert yaml.safe_load(f) == PACKAGED["mae"]
 
 
 def test_from_finetuned_defaults_to_the_card():
