@@ -1,16 +1,19 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's two paths (``cinema_tpu_torch``), serving and MAE
-pretraining, at full width and holds every hand-written kernel of those
-paths against its plain PyTorch version on the card:
+Drives the port's three paths (``cinema_tpu_torch``), serving, MAE
+pretraining and ConvViT fine-tuning, at full width and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
    (one process per source, all at once);
-3. kernels: the attention forward and backward kernels against their plain
-   versions at the serving and training shapes and at ragged and
-   cross-attention shapes, with each one's time, the plain version's, one
-   PyTorch library call's (a yardstick only) and the card's lower bound;
+3. kernels: the packed and the per-head attention forward and backward
+   kernels against their plain versions at the paths' shapes and at ragged
+   and cross-attention shapes (the per-head ones with v as the strided v
+   half of a fused kv projection and through transposed views), with each
+   one's time, the plain version's, one PyTorch library call's (a yardstick
+   only) and the card's lower bound;
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
@@ -23,7 +26,16 @@ paths against its plain PyTorch version on the card:
    timed steps of ``make_mae_train_step`` with the launch counts, losses and
    counters checked, a NaN batch that must leave the state bit-identical,
    and one f32 step at batch 2 whose loss and gradients through the kernels
-   are held against the plain attention path.
+   are held against the plain attention path;
+6. fine-tuning: ConvViT-base from the packaged ACDC classification config
+   (SAX 192x192x16, two frames as channels, 2305 tokens, batch 4, bf16,
+   seeded weights, seeded synthetic studies): steps of the default model
+   through the packed kernels, then of the ``rotary=True`` model through the
+   per-head kernels (timed, with the launch counts, one step with block
+   recomputation, a NaN batch, an f32 step against the plain attention
+   path), a short ``run_train`` with evaluations whose checkpoint and
+   safetensors are reloaded, and the regression task for one step and one
+   evaluation.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -31,8 +43,8 @@ kernels JSON line and ``{"ok": true, "device": {...}}``.
 Usage:
     python3 chip_smoke.py [--out report.json] [--profile]
 
-``--profile`` adds a torch.profiler pass over one serving chunk and one
-training step and prints the device time by kernel.
+``--profile`` adds a torch.profiler pass over one serving chunk, one
+pretraining step and one fine-tuning step and prints the device time by kernel.
 """
 
 from __future__ import annotations
@@ -208,6 +220,9 @@ def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_sc
 # (batch, n_q, n_k, embed, n_heads) of the two attention calls of a CineMA-base pretraining step
 TRAIN_ENCODER = (16, 769, 769, 768, 12)
 TRAIN_DECODER = (16, 2305, 768, 512, 16)
+# the attention call of default ConvViT-base: a fine-tuning micro-batch and an evaluation study
+FINETUNE_PACKED = (4, 2305, 2305, 768, 12)
+EVAL_PACKED = (1, 2305, 2305, 768, 12)
 RAGGED = [(2, 1, 1, 768, 12), (2, 127, 127, 768, 12), (2, 129, 129, 768, 12), (2, 129, 200, 512, 16)]
 
 
@@ -221,23 +236,176 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
         rows.append(check_attention(2, 2305, 2305, 768, 12, dtype, gen, timed))  # sliding window
         rows.append(check_attention(*TRAIN_ENCODER, dtype, gen, timed))
         rows.append(check_attention(*TRAIN_DECODER, dtype, gen, timed))
+        rows.append(check_attention(*FINETUNE_PACKED, dtype, gen, timed))
+        rows.append(check_attention(*EVAL_PACKED, dtype, gen, timed))
         for shape in RAGGED:
             rows.append(check_attention(*shape, dtype, gen, False))
     return rows
 
 
 def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
-    """The backward kernel against its plain version at the two train shapes
-    (the first two rows), with sharp scores, and at ragged and cross shapes; bf16 then f32."""
+    """The backward kernel against its plain version at the two pretraining shapes (the first two
+    rows) and the fine-tuning shape, with sharp scores, and at ragged and cross shapes; bf16 then f32."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, timed))
         rows.append(check_attention_bwd(*TRAIN_DECODER, dtype, gen, timed))
+        rows.append(check_attention_bwd(*FINETUNE_PACKED, dtype, gen, timed))
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, False, q_scale=SHARP_Q))
         rows.append(check_attention_bwd(*TRAIN_DECODER, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention_bwd(*shape, dtype, gen, False))
     return rows
+
+
+# (batch, n_q, n_k, heads, head_dim) of the per-head attention calls of ConvViT-base with rotary:
+# a fine-tuning micro-batch and an evaluation study
+FINETUNE_HEADS = (4, 2305, 2305, 12, 64)
+EVAL_HEADS = (1, 2305, 2305, 12, 64)
+# ragged and cross shapes: (shape, layout); "bhtd" reads (batch, heads, tokens, head_dim) storage through
+# transposed views, "mixed" only k and v, so that q's strides differ from theirs
+HEADS_RAGGED = [((2, 129, 200, 16, 32), "kvhalf"), ((2, 130, 77, 12, 64), "bhtd"), ((2, 130, 77, 12, 64), "mixed"),
+                ((2, 1, 1, 12, 64), "kvhalf"), ((2, 127, 127, 12, 64), "kvhalf")]
+
+
+def _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout):
+    """q, k fresh tensors; v the strided v half of a fused kv projection, as the model's per-head path passes it."""
+    q = (torch.randn(batch, n_q, heads, d, device="cuda", generator=gen) * q_scale).to(dtype)
+    k = torch.randn(batch, n_k, heads, d, device="cuda", generator=gen).to(dtype)
+    if layout == "kvhalf":
+        v = torch.randn(batch, n_k, 2, heads, d, device="cuda", generator=gen).to(dtype)[:, :, 1]
+    else:
+        k = k.transpose(1, 2).contiguous().transpose(1, 2)
+        v = torch.randn(batch, heads, n_k, d, device="cuda", generator=gen).to(dtype).transpose(1, 2)
+        if layout == "bhtd":
+            q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    return q, k, v
+
+
+def heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products: int) -> tuple[float, str]:
+    """Least time on an H100 for per-head attention: ``products`` matrix products of 2*B*Tq*Tk*H*D flop
+    (2 forward, 5 backward) against each operand read once and each result written once
+    (forward q, k, v, out; backward also g, dq, dk, dv)."""
+    flop_s = products * 2 * batch * n_q * n_k * heads * d / PEAK_FLOPS[dtype]
+    n_tensors = 2 if products == 2 else 4  # tensors of q's size, and as many of k's size
+    byte_s = n_tensors * batch * (n_q + n_k) * heads * d * torch.finfo(dtype).bits / 8 / PEAK_BYTES
+    return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
+
+
+def check_heads(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layout="kvhalf"):
+    """Per-head forward kernel against its plain version: the output and the saved row log-sum-exp."""
+    from cinema_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout)
+    out = fa.flash_attention(q, k, v)
+    out_lse, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_plain(q, k, v)
+    check(out.dtype == dtype and out.shape == q.shape and out.is_contiguous(), f"kernel output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "per-head kernel output is not finite")
+    check(torch.equal(out, out_lse), "the per-head forward output changes when the log-sum-exp is saved")
+    err = (out.float() - want.float()).abs().max().item()
+    want_max = want.float().abs().max().item()
+    tol = ATOL_F32 if dtype == torch.float32 else BF16_REL * want_max
+    lse_err = (lse - fa.flash_attention_lse_plain(q, k)).abs().max().item()
+    row = {"shape": [batch, n_q, n_k, heads, d], "dtype": str(dtype).split(".")[-1], "q_scale": q_scale,
+           "layout": layout, "v_strides": list(v.stride()), "max_abs_err": err, "tol": tol,
+           "max_abs_plain": want_max, "lse_err": lse_err, "lse_tol": LSE_ATOL}
+    if timed:
+        qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
+        row["ms"] = median_ms(lambda: fa.flash_attention(q, k, v))
+        row["plain_ms"] = median_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5)
+        row["library_ms"] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
+        row["bound_ms"], row["bound_by"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=2)
+    print("heads_attention", json.dumps(row), flush=True)
+    check(err <= tol, f"per-head kernel disagrees with the plain version at {row}")
+    check(lse_err <= LSE_ATOL, f"per-head saved log-sum-exp disagrees with the plain one at {row}")
+    return row
+
+
+def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layout="kvhalf"):
+    """Per-head backward kernel against flash_attention_bwd_plain on the same q, k, v, out, g."""
+    from cinema_tpu_torch.ops import flash_attention as fa
+
+    q, k, v = _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout)
+    g = torch.randn(batch, n_q, heads, d, device="cuda", generator=gen).to(dtype)
+    out, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
+    got = fa.flash_attention_backward(q, k, v, out, lse, g)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_plain(q, k, v, out, g)
+    row = {"shape": [batch, n_q, n_k, heads, d], "dtype": str(dtype).split(".")[-1], "q_scale": q_scale,
+           "layout": layout, "dv_strides": list(got[2].stride())}
+    if layout == "kvhalf":  # dv lands in the v half of a buffer shaped like the fused kv projection
+        check(got[2].stride() == v.stride(), f"dv strides {got[2].stride()} are not those of v {v.stride()}")
+    worst = 0.0
+    for name, x, w, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+        check(x.dtype == dtype and x.shape == ref.shape, f"{name} is {x.dtype} {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{name} is not finite at {row}")
+        w_max = w.float().abs().max().item()
+        err = (x.float() - w.float()).abs().max().item()
+        # the tolerances of the packed backward, see check_attention_bwd
+        tol = ATOL_F32 * max(1.0, w_max) if dtype == torch.float32 else max(BF16_REL * w_max, ATOL_F32)
+        row[name] = {"max_abs_err": err, "tol": tol, "max_abs_plain": w_max}
+        worst = max(worst, err)
+    row["max_abs_err"] = worst
+    again = fa.flash_attention_backward(q, k, v, out, lse, g)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)), f"the per-head backward changes from run to run at {row}")
+    if timed:
+        row["ms"] = median_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, g))
+        row["plain_ms"] = median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g), reps=5)
+        qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
+        gh = g.transpose(1, 2)
+        row["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True))
+        row["bound_ms"], row["bound_by"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5)
+    print("heads_attention_bwd", json.dumps(row), flush=True)
+    for name in ("dq", "dk", "dv"):
+        check(row[name]["max_abs_err"] <= row[name]["tol"], f"per-head backward kernel's {name} disagrees with the "
+                                                           f"plain version at {row}")
+    return row
+
+
+def check_heads_shapes(gen, timed=True) -> tuple[list[dict], list[dict]]:
+    """The per-head kernels against their plain versions at the fine-tuning and evaluation shapes
+    (the first rows), with sharp scores, and at ragged, cross and transposed shapes; bf16 then f32."""
+    fwd, bwd = [], []
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows, fn in ((fwd, check_heads), (bwd, check_heads_bwd)):
+            rows.append(fn(*FINETUNE_HEADS, dtype, gen, timed))
+            rows.append(fn(*EVAL_HEADS, dtype, gen, timed))
+            rows.append(fn(*FINETUNE_HEADS, dtype, gen, False, q_scale=SHARP_Q))
+            for shape, layout in HEADS_RAGGED:
+                rows.append(fn(*shape, dtype, gen, False, layout=layout))
+    return fwd, bwd
+
+
+def check_kv_gradient(gen) -> dict:
+    """The gradient of the fused kv projection on the per-head path: ``split_kv`` hands on the buffer
+    that already holds dv and copies dk into it; autograd's own slicing zero-fills and adds two
+    buffers of kv's size. Both must give the same bits; both are timed (forward + backward)."""
+    from cinema_tpu_torch.ops import flash_attention as fa
+
+    batch, n, heads, d = FINETUNE_HEADS[0], FINETUNE_HEADS[1], FINETUNE_HEADS[3], FINETUNE_HEADS[4]
+    q = torch.randn(batch, n, heads, d, device="cuda", generator=gen).bfloat16().requires_grad_()
+    kv = torch.randn(batch, n, 2 * heads * d, device="cuda", generator=gen).bfloat16().requires_grad_()
+
+    def run(split: bool):
+        if split:
+            k, v = fa.split_kv(kv, heads)
+        else:
+            kv5 = kv.unflatten(-1, (2, heads, d))
+            k, v = kv5[:, :, 0], kv5[:, :, 1]
+        out = fa.flash_attention(q, k * 1.0, v)  # k changed per head, as qk-norm and rotary change it
+        return torch.autograd.grad(out.float().square().mean(), (q, kv))
+
+    reused = fa.split_kv.reused
+    a, b = run(True), run(False)
+    check(fa.split_kv.reused == reused + 1, "split_kv did not take over the buffer that held dv")
+    check(all(torch.equal(x, y) for x, y in zip(a, b)), "split_kv's gradient differs from autograd's slicing")
+    row = {"shape": list(FINETUNE_HEADS), "split_kv_ms": median_ms(lambda: run(True)),
+           "autograd_slicing_ms": median_ms(lambda: run(False))}
+    print("kv_gradient", json.dumps(row), flush=True)
+    return row
 
 
 def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> int:
@@ -395,8 +563,9 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
 
         model = init_weights(get_mae_model(config, dtype=torch.bfloat16, device="cuda"), seed=config.seed)
         initial = {k: v.clone() for k, v in model.state_dict().items()}
+        # a slow warm-up, as the packaged config's ten epochs of it: seeded random weights stay well conditioned
         tx = build_optimizer(dict(model.named_parameters()), lr=config.train.lr, min_lr=config.train.min_lr,
-                             warmup_steps=4, max_n_steps=100, betas=tuple(config.train.betas),
+                             warmup_steps=100, max_n_steps=1000, betas=tuple(config.train.betas),
                              weight_decay=config.train.weight_decay, clip_grad=config.train.clip_grad)
         state = load_checkpoint(ckpt, TrainState.create(model, tx))
         check(state.step == steps and state.n_samples == n_studies and int(state.opt_state.count) == steps,
@@ -495,6 +664,249 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     return fwd, bwd
 
 
+def write_edes_studies(data_dir: Path, n: int, size: tuple, seed: int) -> None:
+    """Seeded synthetic ED + ES studies, one .npz each: ``sax_image`` (x, y, z, 2) of noise with one
+    slab along z brightened by the class, ``label`` the class of five, ``ef`` a target that follows it."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        label = i % 5
+        image = rng.random((*size, 2), dtype=np.float32) * 100
+        image[:, :, 3 * label : 3 * label + 3] += 150 + 30 * label
+        np.savez(data_dir / f"study_{i:04d}.npz", sax_image=image.astype(np.float16), label=np.int64(label),
+                 ef=np.float32(20 + 8 * label + rng.normal()))
+
+
+def _snapshot(model, state):
+    return [t.clone() for t in (*model.state_dict().values(), *state.opt_state.mu, *state.opt_state.nu,
+                                state.opt_state.count)]
+
+
+def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
+    """ConvViT-base fine-tuning and evaluation at full width; returns each kernel's launches on this path."""
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.convert import load_safetensors
+    from cinema_tpu_torch.factory import get_convvit_model, init_weights
+    from cinema_tpu_torch.ops import attention
+    from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed, flash_attention_plain
+    from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
+    from cinema_tpu_torch.tasks.classification import classification_loss_fn
+    from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
+    from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+    from cinema_tpu_torch.train.loop import to_device
+    from cinema_tpu_torch.train.optim import build_optimizer
+    from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
+
+    counters = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0}
+
+    def reset() -> None:
+        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+        flash_attention.launches = flash_attention.bwd_launches = 0
+
+    def read() -> tuple:
+        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
+               flash_attention.launches, flash_attention.bwd_launches)
+        for key, n in zip(counters, got):
+            counters[key] += n
+        return got
+
+    def rotary_model(config, dtype=torch.float32, device="cuda", **kwargs):
+        """What a user passes as ``get_model_fn`` to train ConvViT with rotary embedding: no config key sets it."""
+        return get_convvit_model(config, dtype=dtype, device=device, rotary=True, **kwargs)
+
+    batch_size, n_studies, n_timed, depth = 4, 30, 6, 12
+    config = from_dict(PACKAGED["classification/acdc"])
+    config.grad_ckpt = False  # recomputation off: one forward launch per attention call
+    config.train.batch_size = batch_size  # no accumulation: every step is an update
+    size = tuple(config.data.sax.patch_size)
+
+    def make_step(model, **opt):
+        # a slow warm-up, as the packaged config's ten epochs of it: seeded random weights stay well conditioned
+        tx = build_optimizer(dict(model.named_parameters()), lr=config.train.lr, min_lr=config.train.min_lr,
+                             warmup_steps=100, max_n_steps=1000, betas=tuple(config.train.betas),
+                             weight_decay=config.train.weight_decay, clip_grad=config.train.clip_grad, **opt)
+        return TrainState.create(model, tx), make_supervised_train_step(model, tx, classification_loss_fn, seed=0)
+
+    def timed_steps(model, state, step_fn, batches, n, expected: tuple, what: str) -> dict:
+        state, _ = step_fn(state, batches[0])  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: v.clone() for k, v in model.state_dict().items()}
+        reset()
+        losses, skipped, seconds = [], [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            state, metrics = step_fn(state, batches[(i + 1) % len(batches)])
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            losses.append(float(metrics["loss"]))
+            skipped.append(float(metrics["skipped_nan"]))
+        got = read()
+        check(got == tuple(n * x for x in expected),
+              f"{n} {what} steps launched (packed fwd, packed bwd, per-head fwd, per-head bwd) = {got}, "
+              f"expected {expected} per step")
+        check(all(x == x and abs(x) < 1e4 for x in losses), f"{what} losses not finite: {losses}")
+        check(sum(skipped) == 0, f"{what} steps skipped: {skipped}")
+        moved = sum(not torch.equal(before[k], v) for k, v in model.state_dict().items())
+        check(moved == len(before), f"only {moved} of {len(before)} parameters moved in the {what} steps")
+        step_s = statistics.median(seconds)
+        row = {"batch": batch_size, "steps": n, "launches": dict(zip(counters, got)), "losses": losses,
+               "seconds": seconds, "ms_per_step": step_s * 1e3, "samples_per_s": batch_size / step_s,
+               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print(f"finetune_{what}", json.dumps(row), f"on {smi}", flush=True)
+        return row
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = Path(tmp) / "studies"
+        data_dir.mkdir()
+        write_edes_studies(data_dir, n_studies, size, seed=4)
+        config.data.dir = str(data_dir)
+        train_ds, val_ds = clf_acdc.load_dataset(config)
+        check((len(train_ds), len(val_ds)) == (n_studies - 10, 10), f"split {len(train_ds)} / {len(val_ds)}")
+        from cinema_tpu_torch.data import BatchLoader
+
+        batches = [to_device(b, torch.device("cuda")) for b in BatchLoader(train_ds, batch_size, seed=0).epoch(0)]
+        check(batches[0]["sax_image"].shape == (batch_size, *size, 2), f"batch {tuple(batches[0]['sax_image'].shape)}")
+
+        # a. the default model: the packed kernels, as users run it
+        model = init_weights(get_convvit_model(config, dtype=torch.bfloat16, device="cuda"), seed=config.seed)
+        state, step_fn = make_step(model)
+        report["finetune_default"] = timed_steps(model, state, step_fn, batches, 3, (depth, depth, 0, 0), "default")
+        del state, step_fn
+
+        # b. rotary=True through get_model_fn: the per-head kernels and no packed launch
+        rotary = rotary_model(config, dtype=torch.bfloat16, device="cuda")
+        rotary.load_state_dict(model.state_dict())
+        del model
+        state, step_fn = make_step(rotary)
+        report["finetune_rotary"] = timed_steps(rotary, state, step_fn, batches, n_timed, (0, 0, depth, depth), "rotary")
+        check(flash_attention.grad_copies == 0, "the per-head backward copied a gradient it should read in place")
+
+        # a NaN batch leaves parameters, moments and count bit-identical
+        snapshot = _snapshot(rotary, state)
+        steps_before = state.step
+        bad = dict(batches[0], sax_image=torch.full_like(batches[0]["sax_image"], float("nan")))
+        reset()
+        state, metrics = step_fn(state, bad)
+        read()
+        check(float(metrics["skipped_nan"]) == 1.0, "the NaN fine-tuning batch was not skipped")
+        check(all(torch.equal(a, b) for a, b in zip(snapshot, _snapshot(rotary, state))),
+              "the NaN fine-tuning batch changed parameters, moments or count")
+        check(state.step == steps_before + 1, "the NaN batch did not advance the step counter")
+        print("finetune_nan_guard: a NaN batch left parameters, moments and count bit-identical", flush=True)
+        if profile:
+            reset()
+            report["finetune_profile"] = profile_call("finetune_profile", lambda: step_fn(state, batches[0]), smi)
+            read()
+        del snapshot, state, step_fn
+
+        # the same step with the blocks recomputed in the backward pass: two forward launches per block
+        remat = rotary_model(config, dtype=torch.bfloat16, device="cuda", remat=True)
+        remat.load_state_dict(rotary.state_dict())
+        state, step_fn = make_step(remat)
+        report["finetune_rotary_remat"] = timed_steps(remat, state, step_fn, batches, 2, (0, 0, 2 * depth, depth),
+                                                      "rotary_remat")
+        del remat, state, step_fn
+
+        # c. one f32 step at batch 2: loss and gradients through the per-head kernels against the plain attention
+        rotary32 = rotary_model(config, dtype=torch.float32, device="cuda").train()
+        rotary32.load_state_dict(rotary.state_dict())
+        for module in rotary32.modules():  # no drop-path noise: both passes see the same network
+            if hasattr(module, "rate"):
+                module.rate = 0.0
+        small = {k: v[:2] for k, v in batches[1].items()}
+        params = list(rotary32.parameters())
+
+        def loss_and_grads():
+            loss = classification_loss_fn(rotary32, small)[0]
+            return loss.detach(), torch.autograd.grad(loss, params)
+
+        reset()
+        loss_k, grads_k = loss_and_grads()
+        check(read() == (0, 0, depth, depth), "the f32 step did not go through the per-head kernels")
+        attention.flash_attention = flash_attention_plain
+        try:
+            reset()
+            loss_p, grads_p = loss_and_grads()
+            check(read() == (0, 0, 0, 0), "the plain attention path launched a kernel")
+        finally:
+            attention.flash_attention = flash_attention
+        norm_k, norm_p = (torch.linalg.vector_norm(torch.stack([g.norm() for g in gs])).item()
+                          for gs in (grads_k, grads_p))
+        errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item() for a, b in zip(grads_k, grads_p)]
+        worst = max(errs)
+        worst_name = [name for name, _ in rotary32.named_parameters()][errs.index(worst)]
+        report["finetune_f32"] = {"loss": loss_k.item(), "loss_plain": loss_p.item(), "grad_norm": norm_k,
+                                  "grad_norm_plain": norm_p, "max_rel_grad_err": worst, "worst_parameter": worst_name,
+                                  "worst_parameter_max_grad": grads_p[errs.index(worst)].abs().max().item(),
+                                  "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
+        print("finetune_f32", json.dumps(report["finetune_f32"]), flush=True)
+        check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_RTOL * abs(loss_p.item()), "f32 fine-tuning losses differ")
+        check(abs(norm_k - norm_p) <= TRAIN_GRAD_RTOL * norm_p, "f32 fine-tuning gradient norms differ")
+        check(worst <= TRAIN_GRAD_RTOL, f"f32 gradients through the per-head kernels differ by {worst} of a "
+                                        f"parameter's largest")
+        del rotary32, params, grads_k, grads_p, rotary
+
+        # d. the entry point: a short run_train of the rotary model with an evaluation per epoch
+        n_epochs = 3
+        config.logging.dir = str(Path(tmp) / "runs")
+        config.train.update(n_epochs=n_epochs, n_warmup_epochs=0, eval_interval=1, lr=1.0e-4)
+        reset()
+        t0 = time.perf_counter()
+        out_dir = clf_acdc.run(config, device="cuda", get_model_fn=rotary_model)
+        run_s = time.perf_counter() - t0
+        got = read()
+        steps = n_epochs * (len(train_ds) // batch_size)
+        evals = n_epochs * len(val_ds)  # batch 1: one per-head forward launch per block and study
+        check(got == (0, 0, depth * (steps + evals), depth * steps),
+              f"run_train launched {got}, expected {depth} per-head forward launches per step and per evaluated "
+              f"study and {depth} backward launches per step")
+        records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        train_loss = [r["train_loss"] for r in records if "train_loss" in r]
+        val = [r for r in records if "val_accuracy" in r]
+        check(len(train_loss) == n_epochs and len(val) == n_epochs, f"metrics.jsonl holds {records}")
+        check(all(x == x and abs(x) < 1e4 for x in train_loss), f"run_train losses not finite: {train_loss}")
+        check(train_loss[-1] < train_loss[0], f"run_train's loss did not decrease: {train_loss}")
+        check(all(0.0 <= r["val_accuracy"] <= 1.0 and r["val_entropy"] == r["val_entropy"] for r in val), f"{val}")
+        ckpt = latest_checkpoint(out_dir)
+        check(ckpt is not None and Path(f"{ckpt}.meta.json").exists(), "checkpoint or its sidecar missing")
+        epoch = json.loads(Path(f"{ckpt}.meta.json").read_text())["epoch"]
+        reloaded = rotary_model(config, dtype=torch.bfloat16, device="cuda")
+        state, _ = make_step(reloaded)
+        state = load_checkpoint(ckpt, state)
+        check(state.step == (epoch + 1) * (len(train_ds) // batch_size), f"reloaded step counter {state.step}")
+        exported = load_safetensors(out_dir / f"model_{epoch}.safetensors")
+        check(set(exported) == set(reloaded.state_dict()), "model safetensors keys differ from the model's")
+        check(all(torch.equal(torch.from_numpy(exported[k]).cuda(), v) for k, v in reloaded.state_dict().items()),
+              "model safetensors differs from the checkpoint's parameters")
+        report["finetune_run"] = {"epochs": n_epochs, "steps": steps, "evaluated_studies": evals, "seconds": run_s,
+                                  "train_loss": train_loss, "val_accuracy": [r["val_accuracy"] for r in val],
+                                  "launches": dict(zip(counters, got)), "saved_epoch": epoch}
+        print("finetune_run", json.dumps(report["finetune_run"]), f"on {smi}", flush=True)
+        del reloaded, state
+
+        # e. the regression task, default model: one step and one evaluation of four studies
+        reg = from_dict(PACKAGED["regression/acdc"])
+        reg.grad_ckpt = False
+        reg.data.dir = str(data_dir)
+        reg.data.max_n_samples = 4
+        reg.logging.dir = str(Path(tmp) / "runs_reg")
+        reg.train.update(n_epochs=1, n_warmup_epochs=0, eval_interval=1, batch_size=4)
+        reset()
+        out_dir = reg_acdc.run(reg, device="cuda")
+        got = read()
+        check(got == (depth * (1 + 4), depth, 0, 0), f"the regression task launched {got}")
+        records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        val = next(r for r in records if "val_mae" in r)
+        check(val["val_mae"] == val["val_mae"] and abs(val["val_denormalised_mae"] - val["val_mae"] * reg.data.ef.std)
+              <= 1e-6 * abs(val["val_denormalised_mae"]), f"regression evaluation {val}")
+        check((out_dir / "model_0.safetensors").exists(), "the regression run saved no model")
+        report["finetune_regression"] = {"train_loss": records[0]["train_loss"], "val_mae": val["val_mae"],
+                                         "launches": dict(zip(counters, got))}
+        print("finetune_regression", json.dumps(report["finetune_regression"]), f"on {smi}", flush=True)
+    report["finetune_launches"] = counters
+    return counters
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
@@ -546,17 +958,28 @@ def main() -> None:
     fwd_rows = check_attention_shapes(gen)
     bwd_rows = check_attention_bwd_shapes(gen)
     report["attention"], report["attention_bwd"] = fwd_rows, bwd_rows
+    heads_fwd_rows, heads_bwd_rows = check_heads_shapes(gen)
+    report["heads_attention"], report["heads_attention_bwd"] = heads_fwd_rows, heads_bwd_rows
+    report["kv_gradient"] = check_kv_gradient(gen)
 
-    # 4. and 5. the two paths at full width, launch counts set to 0 before each and read after
+    # 4. to 6. the three paths at full width, launch counts set to 0 before each and read after
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
+    tune = finetune_phase(report, smi, args.profile)
 
     kernels = [
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_packed.cu",
-                   "cinema_tpu/ops/pallas/flash_attention.py:483", serve_launches + train_fwd,
-                   {"serve": serve_launches, "train": train_fwd}, fwd_rows),
+                   "cinema_tpu/ops/pallas/flash_attention.py:483", serve_launches + train_fwd + tune["packed_fwd"],
+                   {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"]}, fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_packed_bwd.cu",
-                   "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd, {"train": train_bwd}, bwd_rows),
+                   "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"],
+                   {"train": train_bwd, "finetune": tune["packed_bwd"]}, bwd_rows),
+        kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_heads.cu",
+                   "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
+                   {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
+        kernel_row("flash_attention_heads_bwd", "cinema_tpu_torch/csrc/flash_attention_heads_bwd.cu",
+                   "cinema_tpu/ops/pallas/flash_attention.py:285", tune["heads_bwd"],
+                   {"finetune": tune["heads_bwd"]}, heads_bwd_rows),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched")
     report["kernels"] = kernels
@@ -570,22 +993,29 @@ def main() -> None:
 
 
 def profile_call(label: str, fn, smi: str) -> dict:
-    """Device time by kernel over one call of ``fn`` (torch.profiler), after one warm-up call."""
+    """Device time by kernel over one call of ``fn`` (torch.profiler), after one warm-up call and one
+    call timed on the host clock without the profiler."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
+        profiled_wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(kernels), "the profiler recorded no device time")
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in kernels), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
     result = {
-        "device_ms": total,
-        "attention_fwd_ms": sum(ms for key, ms, _ in rows if "packed_fwd" in key),
-        "attention_bwd_ms": sum(ms for key, ms, _ in rows if "packed_bwd" in key),
+        "device_ms": total, "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
+        "attention_fwd_ms": sum(ms for key, ms, _ in rows if "packed_fwd" in key or "heads_fwd" in key),
+        "attention_bwd_ms": sum(ms for key, ms, _ in rows if "packed_bwd" in key or "heads_bwd" in key),
         "top": [{"kernel": key[:100], "ms": ms, "calls": n} for key, ms, n in rows[:25]],
     }
     print(label, json.dumps(result), f"on {smi}", flush=True)

@@ -23,6 +23,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "flash_attention_packed": "flash_attention_packed.cu",
     "flash_attention_packed_bwd": "flash_attention_packed_bwd.cu",
+    "flash_attention_heads": "flash_attention_heads.cu",
+    "flash_attention_heads_bwd": "flash_attention_heads_bwd.cu",
 }
 # headers the sources include: hashed into every library's name
 HEADERS = ("flash_attention_common.cuh",)

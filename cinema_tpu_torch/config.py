@@ -141,4 +141,88 @@ MAE_PRETRAIN = {
     },
 }
 
-PACKAGED = {"segmentation/acdc": ACDC_SEGMENTATION, "mae": MAE_PRETRAIN}
+
+
+def _acdc_finetune(task: str, data: Dict[str, Any], early_stopping: Dict[str, Any]) -> Dict[str, Any]:
+    """cinema_tpu/configs/{classification,regression}/acdc.yaml: ConvViT (ViT-base) on the
+    ED + ES frames of ACDC; the two files differ in the data columns and the early-stopping metric."""
+    return {
+        "task": task,
+        "seed": 0,
+        "grad_ckpt": True,
+        "logging": {"dir": "runs"},
+        "data": {
+            "name": "acdc",
+            "dir": "~/.cache/cinema_datasets/acdc/processed",
+            "sax": {"spacing": [1.0, 1.0, 10.0], "patch_size": [192, 192, 16], "in_chans": 1},
+            "lax": {"spacing": [1.0, 1.0], "patch_size": [256, 256], "in_chans": 1},
+            "max_n_samples": -1,
+            "proportion": 1.0,
+            **data,
+        },
+        "transform": {
+            "prob": 0.5,
+            "gamma": [0.5, 1.5],
+            "scale_range": 0.2,
+            "sax": {"rotate_range": [0, 0, 180], "translate_range": [60, 60, 0]},
+            "lax": {"rotate_range": [180], "translate_range": [64, 64]},
+        },
+        "train": {
+            "n_workers": 4,
+            "clip_grad": 5.0,
+            "weight_decay": 0.05,
+            "layer_decay": 0.75,
+            "betas": [0.9, 0.95],
+            "label_smoothing": 0.1,
+            "lr": 1.0e-3,
+            "min_lr": 1.0e-5,
+            "n_warmup_epochs": 10,
+            "n_epochs": 800,
+            "max_n_ckpts": 1,
+            "batch_size": 64,
+            "batch_size_per_device": 4,
+            "eval_interval": 20,
+            "early_stopping": {**early_stopping, "patience": 5, "min_delta": 1.0e-4},
+        },
+        "model": {
+            "name": "convvit",
+            "ckpt_path": None,
+            "freeze_pretrained": False,
+            "views": "sax",
+            "n_frames": 2,
+            "out_chans": 1,
+            "convvit": {
+                "size": "base",
+                "enc_patch_size": [4, 4, 1],
+                "enc_scale_factor": [2, 2, 1],
+                "enc_conv_chans": [64, 128],
+                "enc_conv_n_blocks": 2,
+                "dropout": 0.1,
+                "drop_path": 0.1,
+            },
+            "resnet": {"depth": 50, "layers": [3, 4, 6, 3], "layer_inplanes": [64, 128, 256, 512]},
+        },
+    }
+
+
+ACDC_CLASSIFICATION = _acdc_finetune(
+    "classification",
+    {"class_column": "pathology", "pathology": ["DCM", "HCM", "MINF", "NOR", "RV"]},
+    {"metric": "val_accuracy", "mode": "max"},
+)
+ACDC_REGRESSION = _acdc_finetune(
+    "regression",
+    {
+        "regression_column": "ef",
+        "ef": {"mean": 27.698811590282546, "std": 10.848138374627386},
+        "bmi": {"mean": 25.561040294207242, "std": 4.732639548868183},
+    },
+    {"metric": "val_mae", "mode": "min"},
+)
+
+PACKAGED = {
+    "segmentation/acdc": ACDC_SEGMENTATION,
+    "mae": MAE_PRETRAIN,
+    "classification/acdc": ACDC_CLASSIFICATION,
+    "regression/acdc": ACDC_REGRESSION,
+}

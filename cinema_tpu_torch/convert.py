@@ -10,7 +10,10 @@ safetensors file loads with no renaming. This module holds:
   to the port's ``state_dict``, the inverse of the JAX bridge's
   ``flax_path_to_torch_key`` / ``_convert_tensor``;
 - :func:`drop_frozen_pos_embeds`: the checkpoint's frozen sincos tables are
-  checked against the recomputed ones and dropped (the port recomputes them).
+  checked against the recomputed ones and dropped (the port recomputes them);
+- :func:`load_pretrain_weights`: the MAE -> downstream transfer (reference
+  convvit.py:616-704): key drops per target model, patch-embed channel
+  inflation for stacked frames, and the loaded keys for the freeze mask.
 """
 
 from __future__ import annotations
@@ -19,9 +22,11 @@ import json
 import re
 import struct
 from pathlib import Path
-from typing import Any, Dict, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
+import torch
+from torch import nn
 
 _ST_DTYPES = {
     "F64": np.float64, "F32": np.float32, "F16": np.float16, "I64": np.int64, "I32": np.int32,
@@ -76,7 +81,7 @@ _DICT_PREFIXES = (
     "enc_down_dict", "enc_fusion_dict", "dec_embed_dict", "pred_head_dict", "dec_image_conv_block_dict",
     "dec_down_blocks_dict", "dec_conv_blocks_dict", "decoder_dict",
 )
-_DICT_KEYS = ("sax", "lax_2c", "lax_3c", "lax_4c")
+_DICT_KEYS = ("sax", "lax_2c", "lax_3c", "lax_4c", "cls")
 
 
 def _torch_part(part: str) -> str:
@@ -104,7 +109,7 @@ def torch_key(path: Tuple[str, ...]) -> Optional[str]:
     *parts, leaf = path
     if leaf in ("kernel", "scale"):
         name = "weight"
-    elif leaf in ("bias", "cls_token", "mask_token"):
+    elif leaf in ("bias", "cls_token", "mask_token", "ls1_gamma", "ls2_gamma"):
         name = leaf
     else:
         return None
@@ -162,3 +167,51 @@ def drop_frozen_pos_embeds(
             continue
         out[key] = value
     return out
+
+
+# keys dropped when MAE weights go into a downstream model (reference convvit.py:640-651)
+_TRANSFER_DROP_SUBSTRINGS = (
+    "mask", "decoder", "_head", "sax", "lax_2c", "lax_3c", "lax_4c", "fusion", "dec_linear", "pos_embed",
+)
+
+
+@torch.no_grad()
+def load_pretrain_weights(
+    model: nn.Module, views: Union[str, Sequence[str]], state_dict: Mapping[str, np.ndarray],
+    keep_fusion: bool = False,
+) -> List[str]:
+    """Copy pretrained MAE weights into a downstream model, in place.
+
+    Keys holding a dropped substring are left out (the stems of the views
+    the target lacks, the decoder, the heads, mask tokens, the frozen
+    pos-embeds and, unless ``keep_fusion``, the fusion). A first conv whose
+    input channels are a multiple of the checkpoint's (``n_frames`` stacked as
+    channels) gets the weight repeated along the input axis. A kept key the
+    model lacks raises.
+
+    Returns:
+        the loaded keys, sorted: they feed :func:`loaded_freeze_mask`.
+    """
+    views = [views] if isinstance(views, str) else list(views)
+    drops = [d for d in _TRANSFER_DROP_SUBSTRINGS if d not in views and not (keep_fusion and d == "fusion")]
+    filtered = {k: np.asarray(v) for k, v in state_dict.items() if not any(d in k for d in drops)}
+    target = model.state_dict()
+    unused = sorted(set(filtered) - set(target))
+    if unused:
+        raise ValueError(f"Unexpected keys in checkpoint after filtering: {unused}")
+    for key, value in filtered.items():
+        want = target[key]
+        if "patch_embed" in key and key.endswith("conv.weight") and value.ndim > 2 and value.shape[1] != want.shape[1]:
+            if want.shape[1] % value.shape[1] != 0:
+                raise ValueError(f"Cannot inflate {key}: {value.shape[1]} -> {want.shape[1]}.")
+            value = np.tile(value, [1, want.shape[1] // value.shape[1]] + [1] * (value.ndim - 2))
+        if tuple(value.shape) != tuple(want.shape):
+            raise ValueError(f"Shape mismatch at {key}: checkpoint {value.shape} vs model {tuple(want.shape)}.")
+        want.copy_(torch.from_numpy(np.ascontiguousarray(value)))
+    return sorted(filtered)
+
+
+def loaded_freeze_mask(model: nn.Module, loaded_keys: Sequence[str]) -> Dict[str, bool]:
+    """Parameter name -> True where the parameter was loaded (to be frozen)."""
+    loaded = set(loaded_keys)
+    return {name: name in loaded for name, _ in model.named_parameters()}

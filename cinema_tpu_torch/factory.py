@@ -1,6 +1,6 @@
 """Model factories from config + finetuned loading (port of cinema_tpu/factory.py,
-the ConvUNetR and CineMA parts; reference cinema/segmentation/convunetr.py:164-210,
-487-521 and cinema/mae/mae.py:231-282).
+the ConvUNetR, CineMA and ConvViT parts; reference cinema/segmentation/convunetr.py:164-210,
+487-521, cinema/mae/mae.py:231-282 and cinema/convvit.py:294-332, 558-592).
 
 Weights are float32 parameters on ``device``; ``dtype`` is the compute
 dtype of the activations (bfloat16 on the card).
@@ -19,6 +19,7 @@ from torch import nn
 from cinema_tpu_torch.config import Config, load_config
 from cinema_tpu_torch.convert import drop_frozen_pos_embeds, load_safetensors
 from cinema_tpu_torch.models.convunetr import ConvUNetR
+from cinema_tpu_torch.models.convvit import ConvViT
 from cinema_tpu_torch.models.mae import CineMA
 from cinema_tpu_torch.models.vit import get_vit_config
 from cinema_tpu_torch.ops.pos_embed import get_nd_sincos_pos_embed
@@ -48,9 +49,10 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def get_convunetr_model(
-    config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda"
+    config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda", **model_kwargs
 ) -> ConvUNetR:
-    """Build ConvUNetR from a segmentation config, in eval mode on ``device``.
+    """Build ConvUNetR from a segmentation config, in eval mode on ``device``. ``model_kwargs``
+    go to the constructor for what no config key sets (``rotary``, ``mlp_type``).
 
     Parameters hold torch's default initialisation; call :func:`init_weights`
     for the JAX package's seeded scheme or load a checkpoint.
@@ -77,6 +79,54 @@ def get_convunetr_model(
         dropout=m.get("dropout", 0.0),
         drop_path=m.get("drop_path", 0.0),
         dtype=dtype,
+        **model_kwargs,
+    )
+    return model.to(device).eval()
+
+
+def get_convvit_model(
+    config: Config,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+    remat: Optional[bool] = None,
+    **model_kwargs,
+) -> ConvViT:
+    """Build ConvViT from a classification or regression config (reference convvit.py:294-332),
+    in eval mode on ``device``; ``remat`` defaults to the config's ``grad_ckpt``.
+    ``model_kwargs`` go to the constructor for what no config key sets (``rotary``,
+    ``mlp_type``), as ``.clone(rotary=True)`` does on the JAX package's module.
+
+    The width of the head follows the data section: one logit per class of
+    ``data.class_column``, one output for ``data.regression_column``, else
+    ``model.out_chans``.
+    """
+    device = resolve_device(device)
+    views = _views(config)
+    vit = get_vit_config(config.model.convvit.size)
+    if "class_column" in config.data:
+        out_chans = len(config.data[config.data.class_column])
+    elif "regression_column" in config.data:
+        out_chans = 1
+    else:
+        out_chans = config.model.out_chans
+    ndim = {v: 3 if v == "sax" else 2 for v in views}
+    m = config.model.convvit
+    model = ConvViT(
+        image_size_dict={v: tuple(_view_data_config(config, v).patch_size) for v in views},
+        in_chans_dict={v: _view_data_config(config, v).in_chans for v in views},
+        n_frames=config.model.n_frames,
+        out_chans=out_chans,
+        enc_patch_size_dict={v: tuple(m.enc_patch_size[: ndim[v]]) for v in views},
+        enc_scale_factor_dict={v: tuple(m.enc_scale_factor[: ndim[v]]) for v in views},
+        enc_conv_chans=tuple(m.enc_conv_chans),
+        enc_conv_n_blocks=m.enc_conv_n_blocks,
+        enc_embed_dim=vit["enc_embed_dim"],
+        enc_depth=vit["enc_depth"],
+        enc_n_heads=vit["enc_n_heads"],
+        drop_path=m.get("drop_path", 0.0),
+        remat=bool(config.get("grad_ckpt", False)) if remat is None else remat,
+        dtype=dtype,
+        **model_kwargs,
     )
     return model.to(device).eval()
 
@@ -86,8 +136,10 @@ def get_mae_model(
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device] = "cuda",
     remat: Optional[bool] = None,
+    **model_kwargs,
 ) -> CineMA:
     """Build CineMA from the pretrain config schema (reference mae.py:231-282), in train mode on ``device``.
+    ``model_kwargs`` go to the constructor for what no config key sets (``rotary``, ``mlp_type``).
 
     ``remat`` defaults to the config's ``grad_ckpt``. Parameters hold torch's
     default initialisation; call :func:`init_weights` for the JAX package's
@@ -114,6 +166,7 @@ def get_mae_model(
         remat=bool(config.get("grad_ckpt", False)) if remat is None else remat,
         dtype=dtype,
         **vit,
+        **model_kwargs,
     )
     return model.to(device).train()
 
@@ -153,7 +206,7 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
-def expected_frozen_pos_embeds(model: ConvUNetR) -> Dict[str, np.ndarray]:
+def expected_frozen_pos_embeds(model: Union[ConvUNetR, ConvViT]) -> Dict[str, np.ndarray]:
     """The checkpoint's frozen ``enc_down_dict.{view}.pos_embed`` tables, recomputed."""
     return {
         f"enc_down_dict.{view}.pos_embed": get_nd_sincos_pos_embed(enc.embed_dim, enc.grid_size)[None]
@@ -167,12 +220,16 @@ def from_finetuned(
     config_path: Union[str, Path],
     dtype: torch.dtype = torch.float32,
     device: Union[str, torch.device] = "cuda",
-) -> ConvUNetR:
-    """Rebuild a finetuned ConvUNetR from local config.yaml + safetensors paths."""
-    if kind != "convunetr":
-        raise NotImplementedError(f"kind {kind!r} is not ported; only 'convunetr' is.")
+) -> Union[ConvUNetR, ConvViT]:
+    """Rebuild a finetuned ConvUNetR or ConvViT (``kind`` 'convunetr' or 'convvit') from
+    local config.yaml + safetensors paths, in eval mode."""
+    if kind not in ("convunetr", "convvit"):
+        raise ValueError(f"kind must be 'convunetr' or 'convvit', got {kind}.")
     device = resolve_device(device)
-    model = get_convunetr_model(load_config(config_path), dtype=dtype, device=device)
+    if kind == "convunetr":
+        model = get_convunetr_model(load_config(config_path), dtype=dtype, device=device)
+    else:
+        model = get_convvit_model(load_config(config_path), dtype=dtype, device=device, remat=False)
     state = drop_frozen_pos_embeds(load_safetensors(model_path), expected_frozen_pos_embeds(model))
     model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
     return model

@@ -131,6 +131,8 @@ class ConvUNetR(nn.Module):
         dropout: float = 0.0,
         drop_path: float = 0.0,
         norm: str = "layer",
+        rotary: bool = False,
+        mlp_type: str = "mlp",
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
@@ -161,7 +163,8 @@ class ConvUNetR(nn.Module):
                 for v in self.views
             }
         )
-        self.encoder = ViTEncoder(enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path)
+        self.encoder = ViTEncoder(enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path,
+                                  rotary=rotary, mlp_type=mlp_type)
 
         self.dec_image_conv_block_dict = nn.ModuleDict()
         self.dec_down_blocks_dict = nn.ModuleDict()

@@ -11,13 +11,13 @@ same values at visible positions for a quarter of the work at ratio 0.75.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
 from cinema_tpu_torch.models.layers import Conv, ConvNormActBlock, Dense, LayerNorm, MaskedConvBlock
-from cinema_tpu_torch.models.vit import PatchEmbed
+from cinema_tpu_torch.models.vit import PatchEmbed, ViTEncoder
 from cinema_tpu_torch.ops.masking import PatchMask, gather_tokens, upsample_mask
 from cinema_tpu_torch.ops.pos_embed import get_nd_sincos_pos_embed, interpolate_pos_embed
 
@@ -192,6 +192,119 @@ class MultiScaleFusion(nn.Module):
                     down = gather_tokens(down, mask.keep_ids)
             x = x + down
         return self.norm(x)
+
+
+class ConvViT(nn.Module):
+    """Multi-view ConvViT for classification and regression (reference convvit.py:335-613).
+
+    ``n_frames`` frames are stacked as channels (ED + ES = 2), so a view's
+    input is (batch, *image_size, n_frames * in_chans). ``dtype`` is the
+    compute dtype of the activations, parameters stay float32.
+    """
+
+    def __init__(
+        self,
+        image_size_dict: Dict[str, Tuple[int, ...]],
+        in_chans_dict: Dict[str, int],
+        n_frames: int,
+        out_chans: int,
+        enc_patch_size_dict: Dict[str, Tuple[int, ...]],
+        enc_scale_factor_dict: Dict[str, Tuple[int, ...]],
+        enc_conv_chans: Tuple[int, ...],
+        enc_conv_n_blocks: int,
+        enc_embed_dim: int,
+        enc_depth: int,
+        enc_n_heads: int,
+        mlp_ratio: float = 4,
+        qkv_bias: bool = True,
+        norm_eps: float = 1e-5,
+        rotary: bool = False,
+        drop_path: float = 0.0,
+        norm: str = "layer",
+        mlp_type: str = "mlp",
+        remat: bool = False,
+        use_head: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ) -> None:
+        super().__init__()
+        self.views = list(image_size_dict)
+        self.image_size_dict = {v: tuple(s) for v, s in image_size_dict.items()}
+        self.in_chans_dict = dict(in_chans_dict)
+        self.n_frames = n_frames
+        self.enc_embed_dim = enc_embed_dim
+        self.enc_depth = enc_depth
+        self.dtype = dtype
+        self.enc_down_dict = nn.ModuleDict(
+            {
+                v: DownsampleEncoder(
+                    image_size_dict[v], n_frames * in_chans_dict[v], enc_patch_size_dict[v],
+                    enc_scale_factor_dict[v], enc_conv_chans, enc_conv_n_blocks, enc_embed_dim, norm,
+                )
+                for v in self.views
+            }
+        )
+        self.enc_fusion_dict = nn.ModuleDict(
+            {
+                v: MultiScaleFusion(
+                    image_size_dict[v], enc_patch_size_dict[v], enc_scale_factor_dict[v], enc_conv_chans,
+                    enc_embed_dim, norm_eps,
+                )
+                for v in self.views
+            }
+        )
+        self.encoder = ViTEncoder(
+            enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path, remat=remat,
+            rotary=rotary, mlp_type=mlp_type,
+        )
+        if use_head:
+            self.pred_head_dict = nn.ModuleDict({v: Dense(enc_embed_dim, out_chans) for v in [*self.views, "cls"]})
+
+    def feature_forward(
+        self, image_dict: Dict[str, torch.Tensor], mask_dict: Optional[Dict[str, PatchMask]] = None
+    ) -> Dict[str, torch.Tensor]:
+        """Per-view stems -> shared encoder -> per-view fusion.
+
+        Returns 'cls' (batch, 1, E) and per view (batch, n_patches, E). A mask
+        zeroes the masked patches inside the dense stem only; the encoder and
+        the fusion (its own mask is None, reference convvit.py:459-503) still
+        see every token, so the output keeps its full size.
+        """
+        views = list(image_dict)
+        for v in views:
+            if v not in self.views:
+                raise ValueError(f"views {views} must be in {self.views}.")
+        xs, ns_patch, skips_view = [], [], {}
+        for view in views:
+            image = image_dict[view].to(self.dtype).contiguous().movedim(-1, 1)
+            mask_view = mask_dict[view] if mask_dict is not None else None
+            skips_view[view], x_view = self.enc_down_dict[view](image, mask_view)
+            ns_patch.append(x_view.shape[1])
+            xs.append(x_view)
+        x = self.encoder(torch.cat(xs, dim=1))
+        bounds = np_cumsum([1, *ns_patch])
+        xs = [x[:, s:e] for s, e in zip([0, *bounds[:-1]], bounds)]
+        x_dict = dict(zip(["cls", *views], xs))
+        for view in views:
+            x_dict[view] = self.enc_fusion_dict[view](skips_view[view], x_dict[view], None)
+        return x_dict
+
+    def forward(
+        self,
+        image_dict: Dict[str, torch.Tensor],
+        mask_dict: Optional[Dict[str, PatchMask]] = None,
+        reduce: str = "all",
+    ) -> torch.Tensor:
+        """Logits (batch, out_chans); ``reduce`` in {'patch', 'all', 'cls'}."""
+        x_dict = self.feature_forward(image_dict, mask_dict)
+        views = [v for v in x_dict if v != "cls"]
+        if reduce in ("patch", "all"):
+            logits = [self.pred_head_dict[v](x_dict[v].mean(dim=1, keepdim=True)) for v in views]
+            if reduce == "all":
+                logits.append(self.pred_head_dict["cls"](x_dict["cls"]))
+            return torch.cat(logits, dim=1).mean(dim=1)
+        if reduce == "cls":
+            return self.pred_head_dict["cls"](x_dict["cls"])[:, 0]
+        raise NotImplementedError(f"Unsupported reduce method {reduce}.")
 
 
 def get_layer_id_for_vit(key: str, n_layers: int) -> int:

@@ -19,7 +19,8 @@ lane-padding layouts of the same ops with the same parameters.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Union
+from contextlib import contextmanager
+from typing import Iterator, Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -28,6 +29,31 @@ from torch.nn import functional as F
 KernelSize = Union[int, Sequence[int]]
 
 gelu = F.gelu
+
+# the generator that dropout, drop-path and attention dropout draw from inside
+# sampling_from(); None outside it: torch's default generator
+_generator: Optional[torch.Generator] = None
+
+
+@contextmanager
+def sampling_from(generator: Optional[torch.Generator]) -> Iterator[None]:
+    """Within the block, the stochastic layers draw from ``generator`` (on the
+    tensors' device), so a train step's noise is a function of its seed alone."""
+    global _generator
+    previous, _generator = _generator, generator
+    try:
+        yield
+    finally:
+        _generator = previous
+
+
+def current_generator() -> Optional[torch.Generator]:
+    return _generator
+
+
+def keep_mask(shape: Sequence[int], keep_prob: float, device: torch.device) -> torch.Tensor:
+    """Bernoulli(keep_prob) bool mask from the current generator."""
+    return torch.rand(tuple(shape), device=device, generator=_generator) < keep_prob
 
 
 class LayerNorm(nn.LayerNorm):
@@ -112,9 +138,22 @@ class DropPath(nn.Module):
         if self.rate == 0.0 or not self.training:
             return x
         keep_prob = 1.0 - self.rate
-        shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-        keep = torch.rand(shape, device=x.device) < keep_prob
+        keep = keep_mask((x.shape[0],) + (1,) * (x.ndim - 1), keep_prob, x.device)
         return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
+class Dropout(nn.Module):
+    """Elementwise dropout drawing from the current generator; identity in eval mode."""
+
+    def __init__(self, rate: float = 0.0) -> None:
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        keep_prob = 1.0 - self.rate
+        return x * keep_mask(x.shape, keep_prob, x.device).to(x.dtype) / keep_prob
 
 
 class ConvMlp(nn.Module):
@@ -151,7 +190,7 @@ class ConvResBlock(nn.Module):
         self.norm1 = get_conv_norm(norm, in_chans)
         self.conv1 = Conv(nd, in_chans, out_chans, kernel_size, padding="same")
         self.norm2 = get_conv_norm(norm, out_chans)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
         self.conv2 = Conv(nd, out_chans, out_chans, kernel_size, padding="same")
         self.shortcut = Conv(nd, in_chans, out_chans, 1) if in_chans != out_chans else nn.Identity()
 

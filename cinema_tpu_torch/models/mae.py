@@ -132,6 +132,8 @@ class CineMA(nn.Module):
         norm: str = "layer",
         remat: bool = False,
         sparse_masking: bool = True,
+        rotary: bool = False,
+        mlp_type: str = "mlp",
         dtype: torch.dtype = torch.float32,
     ) -> None:
         """``sparse_masking`` runs the stems on the visible cells only during
@@ -170,14 +172,16 @@ class CineMA(nn.Module):
             }
         )
         self.encoder = ViTEncoder(
-            enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path, remat=remat
+            enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path, remat=remat,
+            rotary=rotary, mlp_type=mlp_type,
         )
         self.dec_linear = Dense(enc_embed_dim, dec_embed_dim)
         self.dec_embed_dict = nn.ModuleDict(
             {v: DecoderEmbedding(self.enc_down_dict[v].grid_size, dec_embed_dim) for v in self.views}
         )
         self.decoder = ViTDecoder(
-            dec_embed_dim, dec_depth, dec_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path, remat=remat
+            dec_embed_dim, dec_depth, dec_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path, remat=remat,
+            rotary=rotary, mlp_type=mlp_type,
         )
         self.pred_head_dict = nn.ModuleDict(
             {

@@ -1,6 +1,15 @@
-"""Packed multi-head flash attention: the CUDA kernels' wrappers and their plain versions.
+"""Flash attention, packed and per-head: the CUDA kernels' wrappers and their plain versions.
 
-Replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_attention_packed``:
+Two layouts of the same function, softmax(q k^T / sqrt(d)) v per head:
+
+- packed ``(batch, tokens, embed)`` operands with the heads split inside the
+  kernel (:func:`flash_attention_packed`, :func:`flash_attention_packed_kv`),
+  the model's default path, described first below;
+- per-head ``(batch, tokens, heads, head_dim)`` operands
+  (:func:`flash_attention`), the path attention takes once q and k were
+  changed per head (qk-norm, rotary embedding), described at its section.
+
+The packed layout replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_attention_packed``:
 the forward (``_packed_forward`` / ``_packed_fwd_kernel``) and the backward
 (``_packed_bwd_rule`` / ``_packed_bwd_kernel``).
 
@@ -121,14 +130,16 @@ def flash_attention_packed_bwd_plain(
 
 
 def _bind(name: str):
-    """The kernel library's C entry point with its argument types set."""
+    """The C entry point ``"<library>.fwd"`` or ``"<library>.bwd"`` with its argument types set;
+    the packed and the per-head entry points take the same arguments (the strides array differs in length)."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    if name == "fwd":
-        fn = build.load("flash_attention_packed").cinema_flash_attention_packed_fwd
+    library, direction = name.split(".")
+    if direction == "fwd":
+        fn = getattr(build.load(library), f"cinema_{library}_fwd")
         argtypes = [p, p, p, p, i, i, i, i, i, i, strides, f, p, p]
     else:
-        fn = build.load("flash_attention_packed_bwd").cinema_flash_attention_packed_bwd
+        fn = getattr(build.load(f"{library}_bwd"), f"cinema_{library}_bwd")
         argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, f, p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
@@ -172,7 +183,7 @@ def flash_attention_packed_forward(
     lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("fwd")(
+        rc = _bind("flash_attention_packed.fwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
             batch, n_q, k.shape[1], n_heads, head_dim, _strides(q, k, v, out), head_dim**-0.5 * _LOG2E,
             lse.data_ptr() if save_lse else None, stream,
@@ -200,7 +211,7 @@ def _launch_bwd(
     none = q  # strides of an absent gradient are never read
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("bwd")(
+        rc = _bind("flash_attention_packed.bwd")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
             _DTYPE_CODES[q.dtype], batch, n_q, k.shape[1], n_heads, head_dim,
@@ -371,3 +382,307 @@ def flash_attention_packed_kv_plain(q: torch.Tensor, kv: torch.Tensor, n_heads: 
 flash_attention_packed.launches = 0
 flash_attention_packed.bwd_launches = 0
 flash_attention_packed.grad_copies = 0
+
+
+# ---------------------------------------------------------------------------
+# Per-head layout: (batch, tokens, heads, head_dim).
+#
+# Replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_attention``:
+# the forward (``_flash_forward`` / ``_flash_kernel``) and the backward
+# (``_bwd`` / ``_flash_bwd_kernel``), as ``csrc/flash_attention_heads.cu`` and
+# ``csrc/flash_attention_heads_bwd.cu``. Same design as the packed kernels
+# (a block per q tile with an online softmax; delta, dk/dv and dq passes with
+# no atomics), but every operand and gradient is addressed through its own
+# (batch, token, head) strides with a contiguous head_dim axis: q and k are
+# fresh tensors there, v is still a strided view of the fused kv projection,
+# a (batch, heads, tokens, head_dim) transpose is read in place, and dv is
+# written into the v half of a buffer shaped like kv (see :func:`split_kv`).
+# The TPU kernel's transposes, its padding to 128 and ``_auto_block_q*`` are
+# VMEM tiling and are not ported.
+#
+# Bounds on an H100, bf16, at ConvViT-base fine-tuning (B=4, Tq=Tk=2305, H=12,
+# D=64): forward 4*B*Tq*Tk*H*D flop = 0.066 ms, backward 10*B*Tq*Tk*H*D =
+# 0.165 ms at 989 TFLOP/s, against 0.017 and 0.034 ms for the bytes: both are
+# bounded by tensor-core operations.
+# ---------------------------------------------------------------------------
+
+
+def _check_heads(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"q, k, v must be (batch, tokens, heads, head_dim), got {q.shape}, {k.shape}, {v.shape}.")
+    if k.shape != v.shape or k.shape[0] != q.shape[0] or k.shape[2:] != q.shape[2:]:
+        raise ValueError(f"Incompatible shapes q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}.")
+
+
+def _bhtd(x: torch.Tensor) -> torch.Tensor:
+    """(batch, tokens, heads, head_dim) -> f32 (batch, heads, tokens, head_dim)."""
+    return x.float().transpose(1, 2)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v per head in plain torch, f32 softmax.
+
+    Args:
+        q: (batch, n_q, heads, head_dim); k, v: (batch, n_k, heads, head_dim).
+
+    Returns:
+        (batch, n_q, heads, head_dim) in q's dtype, contiguous.
+    """
+    _check_heads(q, k, v)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * q.shape[-1] ** -0.5
+    probs = torch.softmax(scores, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v.float()).to(q.dtype).contiguous()
+
+
+def flash_attention_lse_plain(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Row log-sum-exp of the scaled scores in the log2 domain, (batch, heads, n_q) f32."""
+    scores = _bhtd(q) @ _bhtd(k).transpose(-1, -2) * q.shape[-1] ** -0.5
+    return torch.logsumexp(scores, dim=-1) * _LOG2E
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients of :func:`flash_attention_plain` by the backward kernel's own formula
+    (P recomputed, delta = rowsum(g * out), dS = P * (g v^T - delta), f32 sums, one cast).
+
+    Returns:
+        (dq, dk, dv), contiguous, shaped and typed like (q, k, v).
+    """
+    _check_heads(q, k, v)
+    scale = q.shape[-1] ** -0.5
+    qh, kh, vh, oh, gh = (_bhtd(x) for x in (q, k, v, out, g))
+    probs = torch.softmax(qh @ kh.transpose(-1, -2) * scale, dim=-1)
+    delta = (gh * oh).sum(-1, keepdim=True)
+    ds = probs * (gh @ vh.transpose(-1, -2) - delta)
+    dq = (ds @ kh) * scale
+    dk = (ds.transpose(-1, -2) @ qh) * scale
+    dv = probs.transpose(-1, -2) @ gh
+    return tuple(x.transpose(1, 2).contiguous().to(ref.dtype) for x, ref in ((dq, q), (dk, k), (dv, v)))
+
+
+def _kernel_ready(x: torch.Tensor) -> bool:
+    """Whether a kernel reads this tensor in place: any leading strides that keep
+    rows 16-byte aligned, and a contiguous last axis."""
+    align = 16 // x.element_size()
+    return x.stride(-1) == 1 and all(s % align == 0 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0
+
+
+def _check_cuda_heads(**tensors: torch.Tensor) -> int:
+    """Raise on what the per-head kernels do not take; returns head_dim."""
+    first = next(iter(tensors.values()))
+    for name, x in tensors.items():
+        if not x.is_cuda or x.device != first.device:
+            devices = ", ".join(str(t.device) for t in tensors.values())
+            raise ValueError(f"All operands must be on one CUDA device or all on the CPU, got {devices}.")
+        if x.dtype not in _DTYPE_CODES or x.dtype != first.dtype:
+            dtypes = ", ".join(str(t.dtype) for t in tensors.values())
+            raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {dtypes}.")
+        if x.ndim != 4 or not _kernel_ready(x):
+            raise ValueError(f"{name} must be 4-D with a contiguous head_dim axis and 16-byte aligned "
+                             f"(batch, token, head) strides, got shape {tuple(x.shape)} strides {x.stride()}.")
+    head_dim = first.shape[3]
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
+    return head_dim
+
+
+def _strides3(*tensors: torch.Tensor):
+    flat = [s for x in tensors for s in x.stride()[:3]]
+    return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def flash_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One launch of the per-head forward kernel on CUDA tensors: (out, lse), lse None unless ``save_lse``."""
+    _check_heads(q, k, v)
+    head_dim = _check_cuda_heads(q=q, k=k, v=v)
+    batch, n_q, n_heads, _ = q.shape
+    out = torch.empty((batch, n_q, n_heads, head_dim), dtype=q.dtype, device=q.device)
+    lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bind("flash_attention_heads.fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
+            batch, n_q, k.shape[1], n_heads, head_dim, _strides3(q, k, v, out), head_dim**-0.5 * _LOG2E,
+            lse.data_ptr() if save_lse else None, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {rc}.")
+    flash_attention.launches += 1
+    return out, lse
+
+
+def _launch_heads_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
+    dq: Optional[torch.Tensor], dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
+) -> None:
+    """Fill the given gradient buffers (None: not computed; dk and dv go together).
+    The stream and the device are taken on the thread that autograd runs the backward on."""
+    wanted = {name: x for name, x in (("dq", dq), ("dk", dk), ("dv", dv)) if x is not None}
+    head_dim = _check_cuda_heads(q=q, k=k, v=v, out=out, g=g, **wanted)
+    batch, n_q, n_heads, _ = q.shape
+    delta = torch.empty_like(lse)
+    none = q  # strides of an absent gradient are never read
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bind("flash_attention_heads.bwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
+            _DTYPE_CODES[q.dtype], batch, n_q, k.shape[1], n_heads, head_dim,
+            _strides3(q, k, v, out, g, *(none if x is None else x for x in (dq, dk, dv))),
+            head_dim**-0.5 * _LOG2E, head_dim**-0.5, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA error {rc}.")
+    flash_attention.bwd_launches += 1
+
+
+def _is_v_half(v: torch.Tensor) -> bool:
+    """Whether v is laid out as ``kv.view(batch, n_k, 2, heads, head_dim)[:, :, 1]`` of a fused kv projection."""
+    batch, n_k, n_heads, head_dim = v.shape
+    row = 2 * n_heads * head_dim
+    return v.stride() == (n_k * row, row, head_dim, 1) and v.storage_offset() >= n_heads * head_dim
+
+
+def _empty_like_v(v: torch.Tensor) -> torch.Tensor:
+    """Where dv is written: for the v half of a fused kv projection the v half of a new
+    (batch, n_k, 2, heads, head_dim) buffer (which :func:`split_kv`'s backward completes
+    with dk and hands on as the gradient of kv), else a contiguous tensor."""
+    batch, n_k, n_heads, head_dim = v.shape
+    if _is_v_half(v):
+        return torch.empty((batch, n_k, 2, n_heads, head_dim), dtype=v.dtype, device=v.device)[:, :, 1]
+    return torch.empty(v.shape, dtype=v.dtype, device=v.device)
+
+
+def flash_attention_backward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One launch of the per-head backward kernels on CUDA tensors: (dq, dk, dv); dq and dk
+    contiguous, dv laid out like v where v is the v half of a fused kv projection."""
+    dq, dk = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k))
+    dv = _empty_like_v(v)
+    if not _kernel_ready(g):
+        flash_attention.grad_copies += 1
+        g = g.contiguous()
+    _launch_heads_bwd(q, k, v, out, lse, g, dq, dk, dv)
+    return dq, dk, dv
+
+
+class _HeadsAttention(torch.autograd.Function):
+    """Per-head attention with the kernels (or plain versions) both ways."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        if q.is_cuda:
+            out, lse = flash_attention_forward(q, k, v, save_lse=True)
+        else:
+            out, lse = flash_attention_plain(q, k, v), None
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        need_q, need_k, need_v = ctx.needs_input_grad
+        if not q.is_cuda:
+            dq, dk, dv = flash_attention_bwd_plain(q, k, v, out, g)
+            if need_v and _is_v_half(v):
+                dv = _empty_like_v(v).copy_(dv)
+        else:
+            dq = torch.empty(q.shape, dtype=q.dtype, device=q.device) if need_q else None
+            dk = dv = None
+            if need_k or need_v:
+                dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+                dv = _empty_like_v(v)
+            if not _kernel_ready(g):
+                flash_attention.grad_copies += 1
+                g = g.contiguous()
+            _launch_heads_bwd(q, k, v, out, lse, g, dq, dk, dv)
+        return (dq if need_q else None), (dk if need_k else None), (dv if need_v else None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Multi-head attention on (batch, tokens, heads, head_dim) tensors, differentiable.
+
+    CUDA tensors go to the hand-written per-head kernels: each forward launch
+    adds one to ``flash_attention.launches`` and each backward one to
+    ``flash_attention.bwd_launches``. CPU tensors go to
+    :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`. Any
+    other case raises: there is no fallback from the card to the plain versions.
+
+    Each operand may be any strided view with a contiguous head_dim axis (the
+    v half of a fused kv projection, a (batch, heads, tokens, head_dim)
+    transpose): nothing is copied. n_q and n_k may differ. The row
+    log-sum-exp is written only when a gradient is needed. The gradient of a
+    v that is the v half of a fused kv projection comes back as the v half of
+    a buffer shaped like that projection (see :func:`split_kv`).
+
+    Returns:
+        (batch, n_q, heads, head_dim) in q's dtype, contiguous.
+    """
+    _check_heads(q, k, v)
+    on_cpu = _check_devices(q, k, v)
+    if _needs_grad(q, k, v):
+        return _HeadsAttention.apply(q, k, v)
+    if on_cpu:
+        return flash_attention_plain(q, k, v)
+    return flash_attention_forward(q, k, v, save_lse=False)[0]
+
+
+flash_attention.launches = 0
+flash_attention.bwd_launches = 0
+flash_attention.grad_copies = 0
+
+
+class _SplitKV(torch.autograd.Function):
+    """kv (batch, n_k, 2 * heads * head_dim) -> its k and v halves as
+    (batch, n_k, heads, head_dim) views. The backward assembles the gradient of
+    kv in one buffer: where the gradient of v already is the v half of a buffer
+    shaped like kv (as :func:`flash_attention`'s backward returns it), the
+    gradient of k is copied into that buffer's k half and the buffer is the
+    result; autograd's own slicing would zero-fill and add two such buffers."""
+
+    @staticmethod
+    def forward(ctx, kv, n_heads):
+        batch, n_k, width = kv.shape
+        kv5 = kv.view(batch, n_k, 2, n_heads, width // (2 * n_heads))
+        return kv5[:, :, 0], kv5[:, :, 1]
+
+    @staticmethod
+    def backward(ctx, gk, gv):
+        batch, n_k, n_heads, head_dim = gk.shape if gk is not None else gv.shape
+        shape = (batch, n_k, 2, n_heads, head_dim)
+        base = None if gv is None else gv._base
+        if base is not None and base.shape == shape and base.is_contiguous() and _is_v_half(gv):
+            split_kv.reused += 1
+            buf = base
+        else:
+            ref = gk if gv is None else gv
+            buf = torch.empty(shape, dtype=ref.dtype, device=ref.device)
+            if gv is None:
+                buf[:, :, 1].zero_()
+            else:
+                buf[:, :, 1].copy_(gv)
+        if gk is None:
+            buf[:, :, 0].zero_()
+        else:
+            buf[:, :, 0].copy_(gk)
+        return buf.view(batch, n_k, 2 * n_heads * head_dim), None
+
+
+def split_kv(kv: torch.Tensor, n_heads: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k and v halves of the fused kv projection (batch, n_k, 2 * embed), each a
+    (batch, n_k, heads, head_dim) view; the outputs order (2, heads, head_dim) along the
+    last axis. Under autograd the gradient of kv is assembled in one buffer
+    (``split_kv.reused`` counts the backward calls that took over the buffer that already held dv)."""
+    if kv.ndim != 3 or kv.shape[-1] % (2 * n_heads) != 0:
+        raise ValueError(f"kv must be (batch, n_k, 2 * embed) with embed divisible by {n_heads}, got {tuple(kv.shape)}.")
+    if _needs_grad(kv) and kv.is_contiguous():
+        return _SplitKV.apply(kv, n_heads)
+    kv5 = kv.unflatten(-1, (2, n_heads, -1))
+    return kv5[:, :, 0], kv5[:, :, 1]
+
+
+split_kv.reused = 0

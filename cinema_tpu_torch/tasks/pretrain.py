@@ -24,16 +24,14 @@ JAX package are not ported yet.
 from __future__ import annotations
 
 import argparse
-import json
-import queue
-import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterator, List, Sequence, Union
+from typing import Dict, List, Sequence, Union
 
 import numpy as np
 import torch
 
+from cinema_tpu_torch.data import BatchLoader, fit_to_size
 from cinema_tpu_torch.config import PACKAGED, Config, apply_overrides, from_dict, load_config
 from cinema_tpu_torch.factory import get_mae_model, init_weights, resolve_device
 from cinema_tpu_torch.serve import scale_intensity
@@ -43,15 +41,9 @@ from cinema_tpu_torch.train.checkpoint import (
     save_checkpoint,
     save_params_safetensors,
 )
-from cinema_tpu_torch.train.loop import MetricsLogger
+from cinema_tpu_torch.train.loop import MetricsLogger, init_run_dir
 from cinema_tpu_torch.train.optim import build_optimizer, get_n_accum_steps
 from cinema_tpu_torch.train.state import TrainState, make_mae_train_step
-
-
-def fit_to_size(x: np.ndarray, size: Sequence[int]) -> np.ndarray:
-    """End-pad with zeros or crop the leading axes of ``x`` to ``size``."""
-    x = x[tuple(slice(0, s) for s in size)]
-    return np.pad(x, [(0, s - n) for n, s in zip(x.shape, size)] + [(0, 0)] * (x.ndim - len(size)))
 
 
 class NpzCineDataset:
@@ -80,57 +72,6 @@ class NpzCineDataset:
                 frame = scale_intensity(study[view][..., t])
                 item[view] = fit_to_size(frame, self.sizes[view])[..., None]
         return item
-
-
-class BatchLoader:
-    """Seeded shuffled batches per epoch, incomplete last batch dropped; a
-    background thread loads ``depth`` batches ahead of the training step."""
-
-    def __init__(self, dataset: NpzCineDataset, batch_size: int, seed: int = 0, depth: int = 2) -> None:
-        self.dataset, self.batch_size, self.seed, self.depth = dataset, batch_size, seed, depth
-
-    def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
-
-    def _batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        order = np.random.default_rng([self.seed, epoch]).permutation(len(self.dataset))
-        for b in range(len(self)):
-            items = [self.dataset.load(int(i), epoch) for i in order[b * self.batch_size : (b + 1) * self.batch_size]]
-            yield {view: np.stack([item[view] for item in items]) for view in self.dataset.views}
-
-    def epoch(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
-        """The batches of one epoch."""
-        out: queue.Queue = queue.Queue(maxsize=self.depth)
-
-        def work() -> None:
-            try:
-                for batch in self._batches(epoch):
-                    out.put(batch)
-                out.put(None)
-            except Exception as e:  # handed to the consumer, which raises it
-                out.put(e)
-
-        thread = threading.Thread(target=work, daemon=True)
-        thread.start()
-        while True:
-            batch = out.get()
-            if batch is None:
-                break
-            if isinstance(batch, Exception):
-                raise batch
-            yield batch
-        thread.join()
-
-
-def init_run_dir(config: Config, tags: List[str]) -> Path:
-    """Create ``<logging.dir>/<timestamp>-<tags>/`` with the run record ``run.json`` (tags + config)."""
-    base = Path(config.get("logging", {}).get("dir") or "runs")
-    out_dir = base / "-".join([time.strftime("%Y%m%d-%H%M%S"), *tags[:3]])
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "run.json", "w") as f:
-        json.dump({"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S"), "config": config}, f, indent=2,
-                  default=str)
-    return out_dir
 
 
 def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:

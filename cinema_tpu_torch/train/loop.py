@@ -1,10 +1,32 @@
-"""Training-loop helpers (port of cinema_tpu/train/loop.py: the metrics log)."""
+"""Generic fine-tune training loop (port of cinema_tpu/train/loop.py; reference cinema/train.py:171-351).
+
+The host orchestration around one train step: data loading, evaluation
+intervals, early stopping, checkpoint retention and the metrics log. One
+process drives one card; the JAX package's mesh, multi-host batches and
+ahead-of-time executable cache have no counterpart here.
+"""
 
 from __future__ import annotations
 
 import json
+import time
 from pathlib import Path
-from typing import Any, Dict
+from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from cinema_tpu_torch.config import Config, from_dict
+from cinema_tpu_torch.data import BatchLoader
+from cinema_tpu_torch.factory import init_weights, resolve_device
+from cinema_tpu_torch.train.checkpoint import (
+    CheckpointRetention,
+    load_checkpoint,
+    save_checkpoint,
+    save_params_safetensors,
+)
+from cinema_tpu_torch.train.optim import EarlyStopping, build_optimizer, get_n_accum_steps
+from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
 
 
 class MetricsLogger:
@@ -18,3 +40,171 @@ class MetricsLogger:
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in metrics.items()}
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
+
+
+def init_run_dir(config: Config, tags: List[str], out_dir: Optional[Path] = None) -> Path:
+    """Create the run directory (default ``<logging.dir>/<timestamp>-<tags>/``) with the
+    run record ``run.json`` (tags + config)."""
+    if out_dir is None:
+        base = Path(config.get("logging", {}).get("dir") or "runs")
+        out_dir = base / "-".join([time.strftime("%Y%m%d-%H%M%S"), *tags[:3]])
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    with open(out_dir / "run.json", "w") as f:
+        json.dump({"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S"), "config": config}, f, indent=2,
+                  default=str)
+    return out_dir
+
+
+def maybe_reduce_batch_size(config: Config, n: int) -> Config:
+    """Halve the batch size until it fits the dataset (reference train.py:26-46)."""
+    batch_size = config.train.batch_size
+    if n >= batch_size:
+        return config
+    while n < batch_size:
+        batch_size //= 2
+    if batch_size == 0:
+        raise ValueError(f"Dataset size is too small {n}.")
+    print(f"Using batch size {batch_size} instead.", flush=True)
+    config = from_dict(config)
+    config.train.batch_size = batch_size
+    config.train.batch_size_per_device = min(config.train.batch_size_per_device, batch_size)
+    return config
+
+
+def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
+    """The array entries of a loader batch as tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items() if hasattr(v, "dtype")}
+
+
+def run_train(
+    config: Config,
+    load_dataset: Callable[[Config], Tuple[Any, Any]],
+    get_model_fn: Callable[..., nn.Module],
+    loss_fn: Callable[[nn.Module, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+    eval_dataloader_fn: Callable[[nn.Module, BatchLoader, Config], Dict[str, float]],
+    load_pretrained_fn: Optional[Callable[[nn.Module, Config], Optional[Dict[str, bool]]]] = None,
+    out_dir: Optional[Path] = None,
+    device: Union[str, torch.device] = "cuda",
+) -> Path:
+    """Fine-tune a model: train, evaluate, early-stop, save (reference run_train, train.py:171-351).
+
+    Args:
+        config: task config (reference YAML schema).
+        load_dataset: config -> (train_dataset, val_dataset), each with ``__len__`` and
+            ``load(index, epoch) -> dict of arrays``.
+        get_model_fn: (config, dtype=..., device=...) -> model.
+        loss_fn: (model, batch) -> (loss, metrics), run inside the train step.
+        eval_dataloader_fn: (model, val_loader, config) -> metrics.
+        load_pretrained_fn: (model, config) -> freeze mask (name -> loaded) or None; loads the
+            weights in place; applied when ``config.model.ckpt_path`` is set.
+        out_dir: run directory; defaults to ``config.logging.dir`` / timestamp.
+        device: the card, unless the caller asks for the CPU (float32 there, bfloat16 on the card).
+
+    Returns:
+        the run directory, holding ``run.json``, ``metrics.jsonl`` and for each saved epoch
+        ``ckpt_{epoch}.pt``, its early-stopping sidecar ``ckpt_{epoch}.pt.meta.json`` and
+        ``model_{epoch}.safetensors``. ``config.train.resume_path`` names a checkpoint to resume from.
+    """
+    device = resolve_device(device)
+    train_dataset, val_dataset = load_dataset(config)
+    for ds in (train_dataset, val_dataset):
+        if hasattr(ds, "seed"):
+            ds.seed = config.seed  # reproducible per-item choices
+    config = maybe_reduce_batch_size(config, len(train_dataset))
+    train_loader = BatchLoader(train_dataset, config.train.batch_size_per_device, seed=config.seed)
+    val_loader = BatchLoader(val_dataset, 1, shuffle=False, drop_last=False)
+    n_accum_steps = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device, 1)
+    steps_per_epoch = max(len(train_loader) // n_accum_steps, 1)
+
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    model = init_weights(get_model_fn(config, dtype=dtype, device=device), seed=config.seed)
+    freeze_mask = None
+    pretrained = config.model.get("ckpt_path") is not None and load_pretrained_fn is not None
+    if pretrained:
+        loaded = load_pretrained_fn(model, config)
+        if config.model.get("freeze_pretrained"):
+            freeze_mask = loaded
+
+    tx = build_optimizer(
+        dict(model.named_parameters()),
+        lr=config.train.lr,
+        min_lr=config.train.min_lr,
+        warmup_steps=config.train.n_warmup_epochs * steps_per_epoch,
+        max_n_steps=config.train.n_epochs * steps_per_epoch,
+        betas=tuple(config.train.betas),
+        weight_decay=config.train.weight_decay,
+        clip_grad=config.train.clip_grad if config.train.clip_grad > 0 else None,
+        layer_decay=config.train.get("layer_decay") if pretrained else None,
+        n_blocks=getattr(model, "enc_depth", 0),
+        freeze_mask=freeze_mask,
+        accum_steps=n_accum_steps,
+    )
+    state = TrainState.create(model, tx)
+
+    # resume: the whole train state, and early stopping's best metric and patience from
+    # the checkpoint's sidecar, so the saved best stays monotone
+    early_stop = EarlyStopping(
+        min_delta=config.train.early_stopping.min_delta, patience=config.train.early_stopping.patience
+    )
+    start_epoch = 0
+    resumed_meta = False
+    if config.train.get("resume_path"):
+        resume = Path(config.train.resume_path)
+        if not resume.exists():
+            raise FileNotFoundError(f"train.resume_path {resume} does not exist.")
+        state = load_checkpoint(resume, state)
+        # state.step counts micro-batches
+        start_epoch = state.step // len(train_loader)
+        meta_path = resume.parent / f"{resume.name}.meta.json"
+        if meta_path.exists():
+            early_stop.load_state_dict(json.loads(meta_path.read_text()))
+            resumed_meta = True
+        print(f"Resumed from {resume} at epoch {start_epoch}.", flush=True)
+
+    step_fn = make_supervised_train_step(model, tx, loss_fn, seed=config.seed)
+    out_dir = init_run_dir(config, [config.get("task", "train"), config.data.get("name", "data")], out_dir)
+    metrics_logger = MetricsLogger(out_dir)
+    retention = CheckpointRetention(config.train.max_n_ckpts)
+    saved_any = False
+
+    for epoch in range(start_epoch, config.train.n_epochs):
+        epoch_metrics: Dict[str, list] = {}
+        for batch in train_loader.epoch(epoch):
+            state, metrics = step_fn(state, to_device(batch, device))
+            for k, v in metrics.items():
+                epoch_metrics.setdefault(k, []).append(v)
+        # the epoch's one read from the device
+        logged = {f"train_{k}": float(torch.stack(v).float().mean()) for k, v in epoch_metrics.items()}
+        logged.update({"epoch": epoch, "n_samples": state.n_samples})
+        metrics_logger.log(logged)
+
+        if (epoch + 1) % config.train.eval_interval != 0:
+            continue
+
+        val_metrics = {f"val_{k}": v for k, v in eval_dataloader_fn(model, val_loader, config).items()}
+        val_metrics["epoch"] = epoch
+        metrics_logger.log(val_metrics)
+        print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items() if isinstance(v, float)),
+              flush=True)
+
+        early_metric = val_metrics[config.train.early_stopping.metric]
+        if config.train.early_stopping.mode == "max":
+            early_metric = -early_metric
+        early_stop.update(early_metric)
+
+        # the first evaluation of a fresh run always saves (the reference's epoch-0 save,
+        # train.py:335-342): a metric that is NaN at every epoch never improves
+        if early_stop.has_improved or not (saved_any or resumed_meta):
+            saved_any = True
+            path = save_checkpoint(out_dir, state, epoch)
+            (path.parent / f"{path.name}.meta.json").write_text(
+                json.dumps({**early_stop.state_dict(), "epoch": epoch})
+            )
+            save_params_safetensors(state.params, out_dir / f"model_{epoch}.safetensors")
+            retention.add(path, epoch)
+            print(f"Saved checkpoint of epoch {epoch} at {path}.", flush=True)
+        if early_stop.should_stop:
+            print("Met early stopping criteria, breaking.", flush=True)
+            break
+    return out_dir

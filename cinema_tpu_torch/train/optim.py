@@ -99,3 +99,34 @@ def get_n_accum_steps(batch_size: int, batch_size_per_device: int, world_size: i
     if batch_size % batch_size_per_step != 0:
         raise ValueError(f"batch_size {batch_size} should be divisible by batch_size_per_step {batch_size_per_step}.")
     return batch_size // batch_size_per_step
+
+
+class EarlyStopping:
+    """Early stopping on a minimised metric (reference optim.py:297-330). The state goes
+    through :meth:`state_dict` / :meth:`load_state_dict`, so a resumed fine-tune keeps its
+    best metric and its patience."""
+
+    def __init__(self, min_delta: float, patience: int) -> None:
+        self.min_delta = min_delta
+        self.best_metric = float("inf")
+        self.patience = patience
+        self.patience_count = 0
+        self.should_stop = False
+        self.has_improved = False
+
+    def update(self, metric: float) -> None:
+        self.has_improved = self.best_metric > metric
+        if self.has_improved and self.best_metric >= metric + self.min_delta:
+            self.best_metric = metric
+            self.patience_count = 0
+        else:
+            self.patience_count += 1
+            self.should_stop = self.patience_count >= self.patience
+
+    def state_dict(self) -> dict:
+        return {"best_metric": self.best_metric, "patience_count": self.patience_count}
+
+    def load_state_dict(self, state: dict) -> None:
+        self.best_metric = float(state.get("best_metric", float("inf")))
+        self.patience_count = int(state.get("patience_count", 0))
+        self.should_stop = self.patience_count >= self.patience

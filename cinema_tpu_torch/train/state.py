@@ -1,4 +1,4 @@
-"""Train state and the MAE train step (port of cinema_tpu/train/state.py).
+"""Train state, the MAE train step and the supervised train step (port of cinema_tpu/train/state.py).
 
 One step: draw the masks, forward in the model's compute dtype, gradients,
 the fused AdamW update with its NaN guard. Nothing is read back to the
@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Tuple
 import torch
 from torch import nn
 
+from cinema_tpu_torch.models.layers import sampling_from
 from cinema_tpu_torch.ops.masking import PatchMask
 from cinema_tpu_torch.train.fused_optim import FusedAdamW, FusedAdamWState
 
@@ -51,9 +52,7 @@ def make_mae_train_step(
     ``metrics`` are device tensors: the model's, ``grad_norm`` and
     ``skipped_nan`` (1.0 when the loss or the gradient norm was not finite and the batch was skipped).
     """
-    params = list(model.parameters())
-    if [id(p) for p in params] != [id(p) for p in tx.params]:
-        raise ValueError("The optimizer was not built over this model's parameters.")
+    params = _optimizer_params(model, tx)
 
     def step_fn(
         state: TrainState, batch: Dict[str, torch.Tensor], mask_dict: Optional[Dict[str, PatchMask]] = None
@@ -61,14 +60,54 @@ def make_mae_train_step(
         first = next(iter(batch.values()))
         generator = mask_generator(seed, state.step, first.device)
         loss, _preds, _masks, metrics = model(batch, enc_mask_ratio, mask_dict, generator=generator)
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        ok = torch.isfinite(loss.detach())
-        metrics = dict(metrics)
-        metrics["grad_norm"] = tx.step(grads, state.opt_state, ok)
-        metrics["skipped_nan"] = (~(ok & torch.isfinite(metrics["grad_norm"]))).float()
-        state.step += 1
-        state.n_samples += first.shape[0]
-        return state, metrics
+        return _guarded_update(state, tx, params, loss, metrics, first.shape[0])
+
+    return step_fn
+
+
+def _optimizer_params(model: nn.Module, tx: FusedAdamW) -> list:
+    params = list(model.parameters())
+    if [id(p) for p in params] != [id(p) for p in tx.params]:
+        raise ValueError("The optimizer was not built over this model's parameters.")
+    return params
+
+
+def _guarded_update(
+    state: TrainState, tx: FusedAdamW, params: list, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
+    batch_size: int,
+) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """Gradients of ``loss``, the guarded optimizer step, the counters."""
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    ok = torch.isfinite(loss.detach())
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    metrics["grad_norm"] = tx.step(grads, state.opt_state, ok)
+    metrics["skipped_nan"] = (~(ok & torch.isfinite(metrics["grad_norm"]))).float()
+    state.step += 1
+    state.n_samples += batch_size
+    return state, metrics
+
+
+def make_supervised_train_step(
+    model: nn.Module,
+    tx: FusedAdamW,
+    loss_fn: Callable[[nn.Module, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
+    seed: int = 0,
+) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
+    """Build the supervised step ``step_fn(state, batch) -> (state, metrics)``.
+
+    ``loss_fn(model, batch) -> (loss, metrics)`` runs the model in train
+    mode; drop-path and dropout draw from a generator that is a function of
+    (seed, state.step) alone. ``metrics`` are device tensors: the loss
+    function's, ``grad_norm`` and ``skipped_nan``.
+    """
+    params = _optimizer_params(model, tx)
+
+    def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        first = next(iter(batch.values()))
+        model.train()
+        with sampling_from(mask_generator(seed, state.step, first.device)):
+            loss, metrics = loss_fn(model, batch)
+        return _guarded_update(state, tx, params, loss, metrics, first.shape[0])
 
     return step_fn

@@ -34,6 +34,13 @@ PRETRAIN_MODULES = {
     "cinema_tpu_torch.train.loop", "cinema_tpu_torch.train.optim", "cinema_tpu_torch.train.state",
 }
 
+# and every module that the fine-tuning slice added
+FINETUNE_MODULES = {
+    "cinema_tpu_torch.data", "cinema_tpu_torch.losses", "cinema_tpu_torch.metrics", "cinema_tpu_torch.ops.rotary",
+    "cinema_tpu_torch.tasks.classification", "cinema_tpu_torch.tasks.classification.acdc",
+    "cinema_tpu_torch.tasks.regression", "cinema_tpu_torch.tasks.regression.acdc",
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -41,9 +48,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 28, proc.stdout
+    assert int(n_modules) >= 36, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    assert PRETRAIN_MODULES <= set(names.split()), proc.stdout
+    assert PRETRAIN_MODULES | FINETUNE_MODULES <= set(names.split()), proc.stdout
 
 
 def _no_card():
@@ -76,6 +83,33 @@ def test_packaged_mae_config_is_the_jax_packages_yaml():
 
     with open(REPO / "cinema_tpu" / "configs" / "mae.yaml") as f:
         assert yaml.safe_load(f) == PACKAGED["mae"]
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_packaged_finetune_configs_are_the_jax_packages_yamls(task):
+    import yaml
+
+    with open(REPO / "cinema_tpu" / "configs" / task / "acdc.yaml") as f:
+        assert yaml.safe_load(f) == PACKAGED[f"{task}/acdc"]
+
+
+@pytest.mark.parametrize("task", ["classification", "regression"])
+def test_finetune_factory_and_entry_points_default_to_the_card(task, tmp_path):
+    _no_card()
+    import importlib
+
+    acdc = importlib.import_module(f"cinema_tpu_torch.tasks.{task}.acdc")
+    config = from_dict(PACKAGED[f"{task}/acdc"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory.get_convvit_model(config)
+    config.data.dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acdc.run(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acdc.main([f"data.dir={tmp_path}"])
+    clf = next((REPO / "tests" / "fixtures" / "example_ckpts").glob("clf-*"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory.from_finetuned("convvit", clf / "clf.safetensors", clf / "clf.yaml")
 
 
 def test_from_finetuned_defaults_to_the_card():

@@ -1,15 +1,15 @@
 """Planted-fault check of chip_smoke.py's attention-kernel gates (needs a CUDA card).
 
 For each fault below, copies ``cinema_tpu_torch/`` and ``chip_smoke.py`` into
-a temporary directory, edits the bf16 path of one kernel source there
-(``csrc/flash_attention_packed.cu`` or ``csrc/flash_attention_packed_bwd.cu``),
-builds that copy into its own build directory and runs chip_smoke's bf16
-checks of that kernel on it. The unedited copy ("none") must pass every
-check of both kernels; each fault must fail at least one. The checkout
+a temporary directory, edits the bf16 path of one kernel source there (the
+packed or the per-head forward or backward under ``csrc/``), builds that
+copy into its own build directory and runs chip_smoke's bf16 checks of
+that kernel on it. The unedited copy ("none") must pass every check of
+all four kernels; each fault must fail at least one. The checkout
 itself is never edited.
 
 Usage (from the repository root):
-    python3 tools/torch_kernel_fault_check.py [--only forward|backward] [--out summary.json]
+    python3 tools/torch_kernel_fault_check.py [--only forward|backward|heads_forward|heads_backward] [--out summary.json]
 
 Prints one line per check and a summary line per fault (``--out`` also
 writes the summaries as JSON); exits non-zero if the unedited kernel fails
@@ -29,6 +29,9 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 FWD, BWD = "flash_attention_packed.cu", "flash_attention_packed_bwd.cu"
+HFWD, HBWD = "flash_attention_heads.cu", "flash_attention_heads_bwd.cu"
+HLOOP = "for (int k0 = 0; k0 < n_k; k0 += kTile) {"
+V_BASE = "const __nv_bfloat16* vb = v + batch * vs.b + head * vs.h;"
 LOOP = "for (int k0 = 0; k0 < n_k; k0 += kBlockK) {"
 ENTRY = "cudaStream_t st = static_cast<cudaStream_t>(stream);"
 # fault -> (source file, which checks to run, [(text, replacement, occurrences)] edits of the bf16 kernels)
@@ -52,6 +55,20 @@ FAULTS = {
     "bwd_q_tail_lse_minus_inf": (BWD, "backward", [
         ("lse_s[threadIdx.x] = row < n_q ? lse[stat + row] : CUDART_INF_F;",
          "lse_s[threadIdx.x] = row < n_q ? lse[stat + row] : -CUDART_INF_F;", 2)]),
+    "heads_skip_last_key_tile": (HFWD, "heads_forward", [
+        (HLOOP, "for (int k0 = 0; k0 + kTile < n_k; k0 += kTile) {", 1)]),
+    "heads_v_head_stride_of_q": (HFWD, "heads_forward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 1)]),
+    "heads_v_token_stride_of_k": (HFWD, "heads_forward", [
+        ("(long long)(k0 + r) * vs.t + c);\n", "(long long)(k0 + r) * ks.t + c);\n", 2)]),
+    "heads_scale_plus_3pct": (HFWD, "heads_forward", [
+        ("s[nt][j] * scale_log2", "s[nt][j] * (scale_log2 * 1.03f)", 1)]),
+    "heads_bwd_skip_last_key_tile": (HBWD, "heads_backward", [
+        (HLOOP, "for (int k0 = 0; k0 + kTile < n_k; k0 += kTile) {", 1)]),
+    "heads_bwd_v_head_stride_of_q": (HBWD, "heads_backward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
+    "heads_bwd_delta_dropped": (HBWD, "heads_backward", [
+        ("dp[h][j] = p * (dp[h][j] - delta_s[r]);", "dp[h][j] = p * dp[h][j];", 1),
+        ("s[h][j] = p * (dp[h][j] - delta_r[j >> 1]);", "s[h][j] = p * dp[h][j];", 1)]),
+    "heads_bwd_scale_plus_3pct": (HBWD, "heads_backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
 }
 # runs in the copy: chip_smoke's bf16 checks, one per shape, counting failures
 CHECKS = r'''
@@ -75,6 +92,17 @@ for fn, (shape, q_scale) in runs:
         fn(*shape, torch.bfloat16, gen, False, q_scale=q_scale)
     except SystemExit:
         caught.append([fn.__name__, *shape, q_scale])
+heads_runs = [(cs.FINETUNE_HEADS, 1.0, "kvhalf"), (cs.EVAL_HEADS, 1.0, "kvhalf"), (cs.FINETUNE_HEADS, sharp, "kvhalf"),
+              *((shape, 1.0, layout) for shape, layout in cs.HEADS_RAGGED if shape[1] > 1)]
+for name, fn in (("heads_forward", cs.check_heads), ("heads_backward", cs.check_heads_bwd)):
+    if which not in (name, "both"):
+        continue
+    for shape, q_scale, layout in heads_runs:
+        runs.append(None)
+        try:
+            fn(*shape, torch.bfloat16, gen, False, q_scale=q_scale, layout=layout)
+        except SystemExit:
+            caught.append([fn.__name__, *shape, q_scale, layout])
 print(f"RAN {len(runs)} CAUGHT " + json.dumps(caught), flush=True)
 '''
 
@@ -104,7 +132,7 @@ def run_fault(name: str) -> tuple[int, list]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["forward", "backward"], help="plant the faults of one kernel only")
+    parser.add_argument("--only", choices=["forward", "backward", "heads_forward", "heads_backward"], help="plant the faults of one kernel only")
     parser.add_argument("--out", help="also write the per-fault summaries as JSON to this path")
     args = parser.parse_args()
     ok = True
