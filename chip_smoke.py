@@ -210,6 +210,12 @@ def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_sc
         sdpa = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
         row["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True))
         row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(batch, n_q, n_k, embed, dtype)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the passes apart, through the same entry point: each call also runs the delta pre-pass
+        dq, dk, dv = got
+        row["dkdv_ms"] = median_ms(lambda: fa._launch_bwd(q, k, v, out, lse, g, n_heads, None, dk, dv))
+        row["dq_ms"] = median_ms(lambda: fa._launch_bwd(q, k, v, out, lse, g, n_heads, dq, None, None))
+        row["delta_ms"] = median_ms(lambda: fa._launch_bwd(q, k, v, out, lse, g, n_heads, None, None, None))
     print("attention_bwd", json.dumps(row), flush=True)
     for name in ("dq", "dk", "dv"):
         check(row[name]["max_abs_err"] <= row[name]["tol"], f"backward kernel's {name} disagrees with the plain "
@@ -358,6 +364,12 @@ def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, l
         gh = g.transpose(1, 2)
         row["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True))
         row["bound_ms"], row["bound_by"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5)
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        # the passes apart, as check_attention_bwd
+        dq, dk, dv = got
+        row["dkdv_ms"] = median_ms(lambda: fa._launch_heads_bwd(q, k, v, out, lse, g, None, dk, dv))
+        row["dq_ms"] = median_ms(lambda: fa._launch_heads_bwd(q, k, v, out, lse, g, dq, None, None))
+        row["delta_ms"] = median_ms(lambda: fa._launch_heads_bwd(q, k, v, out, lse, g, None, None, None))
     print("heads_attention_bwd", json.dumps(row), flush=True)
     for name in ("dq", "dk", "dv"):
         check(row[name]["max_abs_err"] <= row[name]["tol"], f"per-head backward kernel's {name} disagrees with the "
@@ -915,7 +927,8 @@ def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: di
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         **{k: timed[0][k] for k in keys}, "launches_by_path": by_path,
-        "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **{k: r[k] for k in keys}} for r in timed],
+        "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **{k: r[k] for k in keys},
+                    **{k: r[k] for k in ("bound_share", "dkdv_ms", "dq_ms", "delta_ms") if k in r}} for r in timed],
     }
 
 
@@ -971,13 +984,13 @@ def main() -> None:
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_packed.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483", serve_launches + train_fwd + tune["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"]}, fwd_rows),
-        kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_packed_bwd.cu",
+        kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_heads.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
-        kernel_row("flash_attention_heads_bwd", "cinema_tpu_torch/csrc/flash_attention_heads_bwd.cu",
+        kernel_row("flash_attention_heads_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:285", tune["heads_bwd"],
                    {"finetune": tune["heads_bwd"]}, heads_bwd_rows),
     ]
@@ -1015,7 +1028,7 @@ def profile_call(label: str, fn, smi: str) -> dict:
     result = {
         "device_ms": total, "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
         "attention_fwd_ms": sum(ms for key, ms, _ in rows if "packed_fwd" in key or "heads_fwd" in key),
-        "attention_bwd_ms": sum(ms for key, ms, _ in rows if "packed_bwd" in key or "heads_bwd" in key),
+        "attention_bwd_ms": sum(ms for key, ms, _ in rows if "flash_bwd" in key),
         "top": [{"kernel": key[:100], "ms": ms, "calls": n} for key, ms, n in rows[:25]],
     }
     print(label, json.dumps(result), f"on {smi}", flush=True)

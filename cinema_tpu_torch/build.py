@@ -22,9 +22,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file in csrc/
 SOURCES = {
     "flash_attention_packed": "flash_attention_packed.cu",
-    "flash_attention_packed_bwd": "flash_attention_packed_bwd.cu",
     "flash_attention_heads": "flash_attention_heads.cu",
-    "flash_attention_heads_bwd": "flash_attention_heads_bwd.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",  # the backward of both layouts
 }
 # headers the sources include: hashed into every library's name
 HEADERS = ("flash_attention_common.cuh",)

@@ -18,9 +18,13 @@ the forward (``_packed_forward`` / ``_packed_fwd_kernel``) and the backward
   cores (``mma.sync``) and f32 on the CUDA cores. When a gradient is needed
   it also writes each row's log-sum-exp (log2 domain, (batch, heads, n_q)
   f32), which the backward recomputes the probabilities from;
-- backward, ``csrc/flash_attention_packed_bwd.cu``: three launches with no
-  atomics (delta = rowsum(g * o); dk and dv per key tile; dq per q tile), so
-  gradients do not change from run to run.
+- backward, ``csrc/flash_attention_bwd.cu``, shared with the per-head
+  layout (a packed operand is a per-head one with head stride head_dim):
+  three launches with no atomics (delta = rowsum(g * o); dk and dv per
+  128-key tile; dq per 128-row q tile), so gradients do not change from run
+  to run; bf16 products on ``wgmma`` with tiles streamed by ``cp.async``
+  through a ring of shared-memory stages. :func:`bwd_launch_description`
+  is what both layouts hand to it.
 
 Bounds on an H100, bf16 (989 TFLOP/s dense, 3.35 TB/s): the forward does
 4*B*Tq*Tk*E flop, the backward 10*B*Tq*Tk*E (five products). At the serving
@@ -45,7 +49,7 @@ the kernel launches per direction.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -130,17 +134,17 @@ def flash_attention_packed_bwd_plain(
 
 
 def _bind(name: str):
-    """The C entry point ``"<library>.fwd"`` or ``"<library>.bwd"`` with its argument types set;
-    the packed and the per-head entry points take the same arguments (the strides array differs in length)."""
+    """The C entry point of a library (``"flash_attention_packed"``, ``"flash_attention_heads"``: their
+    forwards, which take the same arguments but for the strides array's length; ``"flash_attention_bwd"``:
+    the backward of both layouts) with its argument types set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    library, direction = name.split(".")
-    if direction == "fwd":
-        fn = getattr(build.load(library), f"cinema_{library}_fwd")
-        argtypes = [p, p, p, p, i, i, i, i, i, i, strides, f, p, p]
-    else:
-        fn = getattr(build.load(f"{library}_bwd"), f"cinema_{library}_bwd")
+    if name == "flash_attention_bwd":
+        fn = build.load(name).cinema_flash_attention_bwd
         argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, f, p]
+    else:
+        fn = getattr(build.load(name), f"cinema_{name}_fwd")
+        argtypes = [p, p, p, p, i, i, i, i, i, i, strides, f, p, p]
     if fn.argtypes is None:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
@@ -183,7 +187,7 @@ def flash_attention_packed_forward(
     lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_packed.fwd")(
+        rc = _bind("flash_attention_packed")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
             batch, n_q, k.shape[1], n_heads, head_dim, _strides(q, k, v, out), head_dim**-0.5 * _LOG2E,
             lse.data_ptr() if save_lse else None, stream,
@@ -204,22 +208,8 @@ def _launch_bwd(
     The stream and the device are taken here, on the thread that autograd
     runs the backward on.
     """
-    wanted = {name: x for name, x in (("dq", dq), ("dk", dk), ("dv", dv)) if x is not None}
-    head_dim = _check_cuda(n_heads, q=q, k=k, v=v, out=out, g=g, **wanted)
-    batch, n_q, _ = q.shape
-    delta = torch.empty_like(lse)
-    none = q  # strides of an absent gradient are never read
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_packed.bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
-            _DTYPE_CODES[q.dtype], batch, n_q, k.shape[1], n_heads, head_dim,
-            _strides(q, k, v, out, g, *(none if x is None else x for x in (dq, dk, dv))),
-            head_dim**-0.5 * _LOG2E, head_dim**-0.5, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_packed backward kernel launch failed with CUDA error {rc}.")
+    _check_on_card(q=q, k=k, v=v, out=out, g=g, dq=dq, dk=dk, dv=dv)
+    _run_bwd(q, k, v, out, g, dq, dk, dv, lse, n_heads)
     flash_attention_packed.bwd_launches += 1
 
 
@@ -390,9 +380,9 @@ flash_attention_packed.grad_copies = 0
 # Replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_attention``:
 # the forward (``_flash_forward`` / ``_flash_kernel``) and the backward
 # (``_bwd`` / ``_flash_bwd_kernel``), as ``csrc/flash_attention_heads.cu`` and
-# ``csrc/flash_attention_heads_bwd.cu``. Same design as the packed kernels
-# (a block per q tile with an online softmax; delta, dk/dv and dq passes with
-# no atomics), but every operand and gradient is addressed through its own
+# ``csrc/flash_attention_bwd.cu`` (the backward the packed layout shares).
+# Same design as the packed forward (a block per q tile with an online
+# softmax), but every operand and gradient is addressed through its own
 # (batch, token, head) strides with a contiguous head_dim axis: q and k are
 # fresh tensors there, v is still a strided view of the fused kv projection,
 # a (batch, heads, tokens, head_dim) transpose is read in place, and dv is
@@ -503,7 +493,7 @@ def flash_attention_forward(
     lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_heads.fwd")(
+        rc = _bind("flash_attention_heads")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
             batch, n_q, k.shape[1], n_heads, head_dim, _strides3(q, k, v, out), head_dim**-0.5 * _LOG2E,
             lse.data_ptr() if save_lse else None, stream,
@@ -514,28 +504,150 @@ def flash_attention_forward(
     return out, lse
 
 
+# ---------------------------------------------------------------------------
+# The backward of both layouts: one C entry point, ``csrc/flash_attention_bwd.cu``,
+# takes (batch, token, head) element strides of every operand; a packed
+# (batch, tokens, embed) operand is passed with head stride head_dim.
+
+BWD_BLOCK_ROWS = 128  # keys (dk/dv pass) or q rows (dq pass) per block of the bf16 kernels
+BWD_F32_ROWS = 32  # the same for the f32 kernels
+BWD_OPERANDS = ("q", "k", "v", "out", "g", "dq", "dk", "dv")
+_BwdStrides = ctypes.c_longlong * 24  # (batch, token, head) element strides of the eight operands
+
+
+class BwdLaunch(NamedTuple):
+    """What the backward's C entry point is handed for one call, apart from the addresses.
+
+    ``strides`` and ``byte_strides`` are the (batch, token, head) strides of
+    q, k, v, out, g, dq, dk, dv in elements and in bytes (zeros for a gradient
+    not computed); ``base_offsets`` the byte offset of each one's first element
+    in its storage (None for a gradient not computed); ``n_q_pad`` the rows of
+    the padded log-sum-exp and delta per (batch, head) in the scratch buffer of
+    ``scratch_floats`` f32; ``grid_dkdv`` and ``grid_dq`` the blocks of the two
+    passes, (tiles, heads, batch), None for a pass not run.
+    """
+
+    dtype: int
+    batch: int
+    n_q: int
+    n_k: int
+    n_heads: int
+    head_dim: int
+    strides: Tuple[Tuple[int, int, int], ...]
+    byte_strides: Tuple[Tuple[int, int, int], ...]
+    base_offsets: Tuple[Optional[int], ...]
+    n_q_pad: int
+    scratch_floats: int
+    grid_dkdv: Optional[Tuple[int, int, int]]
+    grid_dq: Optional[Tuple[int, int, int]]
+
+
+def bwd_launch_description(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, g: torch.Tensor,
+    dq: Optional[torch.Tensor], dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
+    n_heads: Optional[int] = None,
+) -> BwdLaunch:
+    """The backward kernel's launch on any device (dq None: not computed; dk and dv None
+    together: neither is computed), for (batch, tokens, heads, head_dim) operands, or for
+    packed (batch, tokens, embed) ones when ``n_heads`` is given: those are described as
+    their (batch, tokens, heads, head_dim) views, whose head stride is head_dim.
+
+    Raises on what the kernels do not take: mismatched shapes or dtypes, a head_dim
+    they are not built for, a non-contiguous head_dim axis, a (batch, token, head)
+    stride or a base address that is not a multiple of 16 bytes (every row is
+    copied 16 bytes a thread).
+    """
+    packed = n_heads is not None
+    layout = "(batch, tokens, embed)" if packed else "(batch, tokens, heads, head_dim)"
+    if (dk is None) != (dv is None):
+        raise ValueError("dk and dv are computed together: pass both or neither.")
+    if q.ndim != 3 + (not packed) or k.ndim != q.ndim:
+        raise ValueError(f"The backward takes {layout} operands.")
+    if packed:
+        batch, n_q, embed = q.shape
+        head_dim = embed // n_heads
+        if embed != n_heads * head_dim:
+            raise ValueError(f"embed {embed} is not divisible by n_heads {n_heads}.")
+    else:
+        batch, n_q, n_heads, head_dim = q.shape
+    n_k = k.shape[1]
+    dtype, size = q.dtype, q.element_size()
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {dtype}.")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
+    strides, offsets = [], []
+    for i, (name, x) in enumerate(zip(BWD_OPERANDS, (q, k, v, out, g, dq, dk, dv))):
+        if x is None:
+            strides.append((0, 0, 0))
+            offsets.append(None)
+            continue
+        n = n_k if i in (1, 2, 6, 7) else n_q
+        want = (batch, n, n_heads * head_dim) if packed else (batch, n, n_heads, head_dim)
+        if x.shape != want:
+            raise ValueError(f"{name} is {tuple(x.shape)}, expected {layout} {want}.")
+        if x.dtype != dtype:
+            raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {name} {x.dtype} "
+                            f"with q {dtype}.")
+        if packed:
+            (sb, st, sd), sh = x.stride(), head_dim
+        else:
+            sb, st, sh, sd = x.stride()
+        # the kernel never steps along a dimension of size 1, whatever stride torch gave it
+        sb, st, sh = (0 if m == 1 else z for m, z in ((batch, sb), (n, st), (n_heads, sh)))
+        if sd != 1 or (sb * size) % 16 or (st * size) % 16 or (sh * size) % 16 or x.data_ptr() % 16:
+            raise ValueError(f"{name} must have a contiguous head_dim axis and 16-byte aligned (batch, token, head) "
+                             f"strides and base, got strides {x.stride()} at offset {x.storage_offset()}.")
+        strides.append((sb, st, sh))
+        offsets.append(x.storage_offset() * size)
+    rows = BWD_BLOCK_ROWS if dtype == torch.bfloat16 else BWD_F32_ROWS
+    n_q_pad = -(-n_q // BWD_BLOCK_ROWS) * BWD_BLOCK_ROWS
+    return BwdLaunch(
+        dtype=_DTYPE_CODES[dtype], batch=batch, n_q=n_q, n_k=n_k, n_heads=n_heads, head_dim=head_dim,
+        strides=tuple(strides), byte_strides=tuple((a * size, b * size, c * size) for a, b, c in strides),
+        base_offsets=tuple(offsets), n_q_pad=n_q_pad, scratch_floats=2 * batch * n_heads * n_q_pad,
+        grid_dkdv=None if dk is None else (-(-n_k // rows), n_heads, batch),
+        grid_dq=None if dq is None else (-(-n_q // rows), n_heads, batch),
+    )
+
+
+def _check_on_card(**tensors: Optional[torch.Tensor]) -> None:
+    device = tensors["q"].device
+    if device.type != "cuda" or any(x is not None and x.device != device for x in tensors.values()):
+        devices = ", ".join(str(x.device) for x in tensors.values() if x is not None)
+        raise ValueError(f"All operands must be on one CUDA device or all on the CPU, got {devices}.")
+
+
+def _run_bwd(q, k, v, out, g, dq, dk, dv, lse: torch.Tensor, n_heads: Optional[int] = None) -> BwdLaunch:
+    """One call of the backward kernels on CUDA tensors (per-head, or packed when ``n_heads`` is
+    given), filling the given gradient buffers. The stream and the device are taken here, on the
+    thread that autograd runs the backward on."""
+    launch = bwd_launch_description(q, k, v, out, g, dq, dk, dv, n_heads)
+    if lse.dtype != torch.float32 or lse.shape != (launch.batch, launch.n_heads, launch.n_q) \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 (batch, heads, n_q), got {lse.dtype} {tuple(lse.shape)}.")
+    scratch = torch.empty(launch.scratch_floats, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bind("flash_attention_bwd")(
+            *(None if x is None else x.data_ptr() for x in (q, k, v, out, g)), lse.data_ptr(), scratch.data_ptr(),
+            *(None if x is None else x.data_ptr() for x in (dq, dk, dv)), launch.dtype, launch.batch, launch.n_q,
+            launch.n_k, launch.n_heads, launch.head_dim,
+            _BwdStrides(*(st for x in launch.strides for st in x)),
+            launch.head_dim**-0.5 * _LOG2E, launch.head_dim**-0.5, stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash-attention backward kernel launch failed with CUDA error {rc}.")
+    return launch
+
+
 def _launch_heads_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, g: torch.Tensor,
     dq: Optional[torch.Tensor], dk: Optional[torch.Tensor], dv: Optional[torch.Tensor],
 ) -> None:
-    """Fill the given gradient buffers (None: not computed; dk and dv go together).
-    The stream and the device are taken on the thread that autograd runs the backward on."""
-    wanted = {name: x for name, x in (("dq", dq), ("dk", dk), ("dv", dv)) if x is not None}
-    head_dim = _check_cuda_heads(q=q, k=k, v=v, out=out, g=g, **wanted)
-    batch, n_q, n_heads, _ = q.shape
-    delta = torch.empty_like(lse)
-    none = q  # strides of an absent gradient are never read
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_heads.bwd")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), *(None if x is None else x.data_ptr() for x in (dq, dk, dv)),
-            _DTYPE_CODES[q.dtype], batch, n_q, k.shape[1], n_heads, head_dim,
-            _strides3(q, k, v, out, g, *(none if x is None else x for x in (dq, dk, dv))),
-            head_dim**-0.5 * _LOG2E, head_dim**-0.5, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention backward kernel launch failed with CUDA error {rc}.")
+    """Fill the given gradient buffers (None: not computed; dk and dv go together)."""
+    _check_on_card(q=q, k=k, v=v, out=out, g=g, dq=dq, dk=dk, dv=dv)
+    _run_bwd(q, k, v, out, g, dq, dk, dv, lse)
     flash_attention.bwd_launches += 1
 
 

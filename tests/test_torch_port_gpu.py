@@ -48,3 +48,23 @@ def test_a_cuda_tensor_the_kernel_does_not_take_raises(card):
         fa.flash_attention(q, q, q)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         fa.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_packed_backward_at_a_ragged_shape_agrees_with_its_plain_version(card, dtype, atol):
+    """dq, dk, dv of the packed kernels at n_q = 129, n_k = 200 (ragged last tiles of both passes),
+    head_dim 32, with k and v the column halves of a fused kv projection."""
+    rng = np.random.default_rng(6)
+    q = torch.from_numpy(rng.normal(size=(2, 129, 512)).astype(np.float32)).to(card, dtype).requires_grad_()
+    kv = torch.from_numpy(rng.normal(size=(2, 200, 1024)).astype(np.float32)).to(card, dtype).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(2, 129, 512)).astype(np.float32)).to(card, dtype)
+    before = fa.flash_attention_packed.bwd_launches
+    out = fa.flash_attention_packed_kv(q, kv, 16)
+    dq, dkv = torch.autograd.grad(out, (q, kv), g)
+    assert fa.flash_attention_packed.bwd_launches == before + 1
+    want = fa.flash_attention_packed_bwd_plain(q.detach(), kv[..., :512].detach(), kv[..., 512:].detach(),
+                                               out.detach(), g, 16)
+    torch.testing.assert_close(dq.float(), want[0].float(), atol=atol, rtol=0)
+    torch.testing.assert_close(dkv[..., :512].float(), want[1].float(), atol=atol, rtol=0)
+    torch.testing.assert_close(dkv[..., 512:].float(), want[2].float(), atol=atol, rtol=0)

@@ -2,9 +2,9 @@
 
 For each fault below, copies ``cinema_tpu_torch/`` and ``chip_smoke.py`` into
 a temporary directory, edits the bf16 path of one kernel source there (the
-packed or the per-head forward or backward under ``csrc/``), builds that
-copy into its own build directory and runs chip_smoke's bf16 checks of
-that kernel on it. The unedited copy ("none") must pass every check of
+packed or the per-head forward, or the backward of both layouts, under
+``csrc/``), builds that copy into its own build directory and runs
+chip_smoke's bf16 checks of that kernel on it. The unedited copy ("none") must pass every check of
 all four kernels; each fault must fail at least one. The checkout
 itself is never edited.
 
@@ -28,12 +28,17 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FWD, BWD = "flash_attention_packed.cu", "flash_attention_packed_bwd.cu"
-HFWD, HBWD = "flash_attention_heads.cu", "flash_attention_heads_bwd.cu"
+FWD, HFWD = "flash_attention_packed.cu", "flash_attention_heads.cu"
+BWD = "flash_attention_bwd.cu"  # the backward of both layouts
 HLOOP = "for (int k0 = 0; k0 < n_k; k0 += kTile) {"
 V_BASE = "const __nv_bfloat16* vb = v + batch * vs.b + head * vs.h;"
 LOOP = "for (int k0 = 0; k0 < n_k; k0 += kBlockK) {"
 ENTRY = "cudaStream_t st = static_cast<cudaStream_t>(stream);"
+# the bf16 backward's dS lines: dk/dv pass, then dq pass
+DK_DS = ("dp[i] = s[i] * (dp[i] - (i & 1 ? d2.y : d2.x));", "dp[i] = s[i] * dp[i];", 1)
+DQ_DS = ("s[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);", "s[i] = s[i] * dp[i];", 1)
+Q_STAGES = "const int n_iters = (n_q + kStageRows - 1) / kStageRows;"  # stages of the dk/dv pass
+K_STAGES = "const int n_iters = (n_k + kStageRows - 1) / kStageRows;"  # stages of the dq pass
 # fault -> (source file, which checks to run, [(text, replacement, occurrences)] edits of the bf16 kernels)
 FAULTS = {
     "none": (FWD, "both", []),
@@ -42,19 +47,20 @@ FAULTS = {
     "scale_plus_3pct": (FWD, "forward", [("s[nt][j] * scale_log2", "s[nt][j] * (scale_log2 * 1.03f)", 1)]),
     "mask_last_key": (FWD, "forward", [("s[nt][j] = key < n_k ?", "s[nt][j] = key < n_k - 1 ?", 1)]),
     "lse_without_row_sum": (FWD, "forward", [("lse_row[row0] = m0 + log2f(l0);", "lse_row[row0] = m0;", 1)]),
-    "bwd_skip_last_q_tile": (BWD, "backward", [
-        ("for (int i0 = 0; i0 < n_q; i0 += kTile) {", "for (int i0 = 0; i0 + kTile < n_q; i0 += kTile) {", 1)]),
-    "bwd_delta_dropped": (BWD, "backward", [
-        ("dp[h][j] = p * (dp[h][j] - delta_s[r]);", "dp[h][j] = p * dp[h][j];", 1),
-        ("s[h][j] = p * (dp[h][j] - delta_r[j >> 1]);", "s[h][j] = p * dp[h][j];", 1)]),
-    "bwd_dk_delta_dropped": (BWD, "backward", [
-        ("dp[h][j] = p * (dp[h][j] - delta_s[r]);", "dp[h][j] = p * dp[h][j];", 1)]),
+    "bwd_skip_last_q_tile": (BWD, "backward", [(Q_STAGES, Q_STAGES.replace(";", " - 1;"), 1)]),
+    "bwd_delta_dropped": (BWD, "backward", [DK_DS, DQ_DS]),
+    "bwd_dk_delta_dropped": (BWD, "backward", [DK_DS]),
     "bwd_scale_plus_3pct": (BWD, "backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
     "bwd_softmax_scale_plus_3pct": (BWD, "backward", [(ENTRY, ENTRY + "\n  scale_log2 *= 1.03f;", 1)]),
-    "bwd_dq_mask_last_key": (BWD, "backward", [("key < n_k ? exp2f(", "key < n_k - 1 ? exp2f(", 1)]),
+    "bwd_dq_mask_last_key": (BWD, "backward", [
+        ("if (ragged) p = key < n_k ? p : 0.f;", "if (ragged) p = key < n_k - 1 ? p : 0.f;", 1)]),
     "bwd_q_tail_lse_minus_inf": (BWD, "backward", [
-        ("lse_s[threadIdx.x] = row < n_q ? lse[stat + row] : CUDART_INF_F;",
-         "lse_s[threadIdx.x] = row < n_q ? lse[stat + row] : -CUDART_INF_F;", 2)]),
+        ("lse_pad[idx] = CUDART_INF_F;", "lse_pad[idx] = -CUDART_INF_F;", 1)]),
+    # both passes wait for the right ring slot but read the tiles of the next one
+    "bwd_ring_stage_off_by_one": (BWD, "backward", [
+        ("base + (2 * slot) * S::kTile;", "base + (2 * ((slot + 1) % kStages)) * S::kTile;", 2)]),
+    # dv's product reads g K-major instead of through the transposed (MN-major) descriptor
+    "bwd_dv_transpose_flag_dropped": (BWD, "backward", [("mma_rs<D, 1>(dv_acc,", "mma_rs<D, 0>(dv_acc,", 1)]),
     "heads_skip_last_key_tile": (HFWD, "heads_forward", [
         (HLOOP, "for (int k0 = 0; k0 + kTile < n_k; k0 += kTile) {", 1)]),
     "heads_v_head_stride_of_q": (HFWD, "heads_forward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 1)]),
@@ -62,13 +68,10 @@ FAULTS = {
         ("(long long)(k0 + r) * vs.t + c);\n", "(long long)(k0 + r) * ks.t + c);\n", 2)]),
     "heads_scale_plus_3pct": (HFWD, "heads_forward", [
         ("s[nt][j] * scale_log2", "s[nt][j] * (scale_log2 * 1.03f)", 1)]),
-    "heads_bwd_skip_last_key_tile": (HBWD, "heads_backward", [
-        (HLOOP, "for (int k0 = 0; k0 + kTile < n_k; k0 += kTile) {", 1)]),
-    "heads_bwd_v_head_stride_of_q": (HBWD, "heads_backward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
-    "heads_bwd_delta_dropped": (HBWD, "heads_backward", [
-        ("dp[h][j] = p * (dp[h][j] - delta_s[r]);", "dp[h][j] = p * dp[h][j];", 1),
-        ("s[h][j] = p * (dp[h][j] - delta_r[j >> 1]);", "s[h][j] = p * dp[h][j];", 1)]),
-    "heads_bwd_scale_plus_3pct": (HBWD, "heads_backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
+    "heads_bwd_skip_last_key_tile": (BWD, "heads_backward", [(K_STAGES, K_STAGES.replace(";", " - 1;"), 1)]),
+    "heads_bwd_v_head_stride_of_q": (BWD, "heads_backward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
+    "heads_bwd_delta_dropped": (BWD, "heads_backward", [DK_DS, DQ_DS]),
+    "heads_bwd_scale_plus_3pct": (BWD, "heads_backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
 }
 # runs in the copy: chip_smoke's bf16 checks, one per shape, counting failures
 CHECKS = r'''
