@@ -12,8 +12,9 @@ the card:
    kernels against their plain versions at the paths' shapes and at ragged
    and cross-attention shapes (the per-head ones with v as the strided v
    half of a fused kv projection and through transposed views), with each
-   one's time, the plain version's, one PyTorch library call's (a yardstick
-   only) and the card's lower bound;
+   one's time per call, its time with the host's share hidden (launches
+   back to back), the plain version's, one PyTorch library call's (a
+   yardstick only) and the card's lower bound;
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
@@ -120,6 +121,33 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int = 20, warmup: int = 2) -> float:
+    """Time of one call with the host's time hidden behind the device's: CUDA events around ``n``
+    calls issued back to back, divided by ``n`` (the host's time shows where it is the longer)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def timings(row: dict, kernel, plain, library, bound: tuple[float, str]) -> None:
+    """A kernel's times at one shape into ``row``: per call (``ms``), with the host hidden
+    (``device_ms``), the plain version's, the library call's, the bound and its shares of both times."""
+    row["ms"] = median_ms(kernel)
+    row["device_ms"] = device_ms(kernel)
+    row["plain_ms"] = median_ms(plain, reps=5)
+    row["library_ms"] = median_ms(library)
+    row["bound_ms"], row["bound_by"] = bound
+    row["bound_share"] = row["bound_ms"] / row["ms"]
+    row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+
+
 def attention_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype) -> tuple[float, str]:
     """Least time on an H100 for packed attention: 4*B*Tq*Tk*E flop (q.k^T and
     P.v) against q, k, v read once and the output written once."""
@@ -156,10 +184,10 @@ def check_attention(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_scale=
     if timed:
         d = embed // n_heads
         qh, kh, vh = (x.unflatten(-1, (n_heads, d)).transpose(1, 2) for x in (q, k, v))
-        row["ms"] = median_ms(lambda: fa.flash_attention_packed(q, k, v, n_heads))
-        row["plain_ms"] = median_ms(lambda: fa.flash_attention_packed_plain(q, k, v, n_heads), reps=5)
-        row["library_ms"] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
-        row["bound_ms"], row["bound_by"] = attention_bound_ms(batch, n_q, n_k, embed, dtype)
+        timings(row, lambda: fa.flash_attention_packed(q, k, v, n_heads),
+                lambda: fa.flash_attention_packed_plain(q, k, v, n_heads),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
+                attention_bound_ms(batch, n_q, n_k, embed, dtype))
     print("attention", json.dumps(row), flush=True)
     check(err <= tol, f"kernel disagrees with the plain version at {row}")
     check(lse_err <= LSE_ATOL, f"saved log-sum-exp disagrees with the plain one at {row}")
@@ -202,15 +230,14 @@ def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_sc
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"the backward changes from run to run at {row}")
     if timed:
         d = embed // n_heads
-        row["ms"] = median_ms(lambda: fa.flash_attention_packed_backward(q, k, v, out, lse, g, n_heads))
-        row["plain_ms"] = median_ms(lambda: fa.flash_attention_packed_bwd_plain(q, k, v, out, g, n_heads), reps=5)
         # the library's backward alone: autograd.grad on a saved graph of one SDPA call
         qh, kh, vh = (x.unflatten(-1, (n_heads, d)).transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         gh = g.unflatten(-1, (n_heads, d)).transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
-        row["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True))
-        row["bound_ms"], row["bound_by"] = attention_bwd_bound_ms(batch, n_q, n_k, embed, dtype)
-        row["bound_share"] = row["bound_ms"] / row["ms"]
+        timings(row, lambda: fa.flash_attention_packed_backward(q, k, v, out, lse, g, n_heads),
+                lambda: fa.flash_attention_packed_bwd_plain(q, k, v, out, g, n_heads),
+                lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True),
+                attention_bwd_bound_ms(batch, n_q, n_k, embed, dtype))
         # the passes apart, through the same entry point: each call also runs the delta pre-pass
         dq, dk, dv = got
         row["dkdv_ms"] = median_ms(lambda: fa._launch_bwd(q, k, v, out, lse, g, n_heads, None, dk, dv))
@@ -319,10 +346,9 @@ def check_heads(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layou
            "max_abs_plain": want_max, "lse_err": lse_err, "lse_tol": LSE_ATOL}
     if timed:
         qh, kh, vh = (x.transpose(1, 2) for x in (q, k, v))
-        row["ms"] = median_ms(lambda: fa.flash_attention(q, k, v))
-        row["plain_ms"] = median_ms(lambda: fa.flash_attention_plain(q, k, v), reps=5)
-        row["library_ms"] = median_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh))
-        row["bound_ms"], row["bound_by"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=2)
+        timings(row, lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
+                lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
+                heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=2))
     print("heads_attention", json.dumps(row), flush=True)
     check(err <= tol, f"per-head kernel disagrees with the plain version at {row}")
     check(lse_err <= LSE_ATOL, f"per-head saved log-sum-exp disagrees with the plain one at {row}")
@@ -357,14 +383,13 @@ def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, l
     again = fa.flash_attention_backward(q, k, v, out, lse, g)
     check(all(torch.equal(a, b) for a, b in zip(got, again)), f"the per-head backward changes from run to run at {row}")
     if timed:
-        row["ms"] = median_ms(lambda: fa.flash_attention_backward(q, k, v, out, lse, g))
-        row["plain_ms"] = median_ms(lambda: fa.flash_attention_bwd_plain(q, k, v, out, g), reps=5)
         qh, kh, vh = (x.transpose(1, 2).detach().requires_grad_() for x in (q, k, v))
         sdpa = torch.nn.functional.scaled_dot_product_attention(qh, kh, vh)
         gh = g.transpose(1, 2)
-        row["library_ms"] = median_ms(lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True))
-        row["bound_ms"], row["bound_by"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5)
-        row["bound_share"] = row["bound_ms"] / row["ms"]
+        timings(row, lambda: fa.flash_attention_backward(q, k, v, out, lse, g),
+                lambda: fa.flash_attention_bwd_plain(q, k, v, out, g),
+                lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True),
+                heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5))
         # the passes apart, as check_attention_bwd
         dq, dk, dv = got
         row["dkdv_ms"] = median_ms(lambda: fa._launch_heads_bwd(q, k, v, out, lse, g, None, dk, dv))
@@ -922,13 +947,14 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
-    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
+            "device_bound_share")
     timed = [r for r in rows if "ms" in r]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         **{k: timed[0][k] for k in keys}, "launches_by_path": by_path,
         "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **{k: r[k] for k in keys},
-                    **{k: r[k] for k in ("bound_share", "dkdv_ms", "dq_ms", "delta_ms") if k in r}} for r in timed],
+                    **{k: r[k] for k in ("dkdv_ms", "dq_ms", "delta_ms") if k in r}} for r in timed],
     }
 
 
@@ -963,7 +989,7 @@ def main() -> None:
         for line in log.splitlines():
             if "Compiling entry function" in line:
                 function = line.split("'")[1]
-            elif "registers" in line or "spill" in line:
+            elif "registers" in line or "spill" in line or "wgmma" in line:  # wgmma: serialized products
                 print(f"ptxas {name} {function}: {line.replace('ptxas info    :', '').strip()}", flush=True)
 
     # 3. kernels against their plain versions
@@ -981,13 +1007,13 @@ def main() -> None:
     tune = finetune_phase(report, smi, args.profile)
 
     kernels = [
-        kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_packed.cu",
+        kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483", serve_launches + train_fwd + tune["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"]}, fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"]}, bwd_rows),
-        kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_heads.cu",
+        kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
         kernel_row("flash_attention_heads_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
@@ -1027,7 +1053,7 @@ def profile_call(label: str, fn, smi: str) -> dict:
     total = sum(r[1] for r in rows)
     result = {
         "device_ms": total, "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
-        "attention_fwd_ms": sum(ms for key, ms, _ in rows if "packed_fwd" in key or "heads_fwd" in key),
+        "attention_fwd_ms": sum(ms for key, ms, _ in rows if "flash_fwd" in key),
         "attention_bwd_ms": sum(ms for key, ms, _ in rows if "flash_bwd" in key),
         "top": [{"kernel": key[:100], "ms": ms, "calls": n} for key, ms, n in rows[:25]],
     }

@@ -21,12 +21,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 # kernel name -> source file in csrc/
 SOURCES = {
-    "flash_attention_packed": "flash_attention_packed.cu",
-    "flash_attention_heads": "flash_attention_heads.cu",
+    "flash_attention_fwd": "flash_attention_fwd.cu",  # the forward of both layouts
     "flash_attention_bwd": "flash_attention_bwd.cu",  # the backward of both layouts
 }
 # headers the sources include: hashed into every library's name
-HEADERS = ("flash_attention_common.cuh",)
+HEADERS = ("flash_attention_common.cuh", "hopper.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -13,18 +13,22 @@ The packed layout replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_
 the forward (``_packed_forward`` / ``_packed_fwd_kernel``) and the backward
 (``_packed_bwd_rule`` / ``_packed_bwd_kernel``).
 
-- forward, ``csrc/flash_attention_packed.cu``: one block per (q-tile, head,
-  batch), an online softmax over key tiles, bf16 products on the tensor
-  cores (``mma.sync``) and f32 on the CUDA cores. When a gradient is needed
-  it also writes each row's log-sum-exp (log2 domain, (batch, heads, n_q)
-  f32), which the backward recomputes the probabilities from;
-- backward, ``csrc/flash_attention_bwd.cu``, shared with the per-head
+- forward, ``csrc/flash_attention_fwd.cu``, shared with the per-head
   layout (a packed operand is a per-head one with head stride head_dim):
+  one block per 128-row q tile of one (batch, head), two warpgroups of 64
+  rows, an online softmax over 64-key stages of k and v streamed by
+  ``cp.async`` through an mbarrier ring of shared-memory slots, bf16
+  products on ``wgmma`` (v read through the transposed, MN-major
+  descriptor) and f32 on the CUDA cores. When a gradient is needed it also
+  writes each row's log-sum-exp (log2 domain, (batch, heads, n_q) f32),
+  which the backward recomputes the probabilities from.
+  :func:`fwd_launch_description` is what both layouts hand to it;
+- backward, ``csrc/flash_attention_bwd.cu``, shared in the same way:
   three launches with no atomics (delta = rowsum(g * o); dk and dv per
   128-key tile; dq per 128-row q tile), so gradients do not change from run
-  to run; bf16 products on ``wgmma`` with tiles streamed by ``cp.async``
-  through a ring of shared-memory stages. :func:`bwd_launch_description`
-  is what both layouts hand to it.
+  to run; bf16 products on ``wgmma`` with tiles streamed through the same
+  kind of ring (``csrc/hopper.cuh`` holds what the two share).
+  :func:`bwd_launch_description` is what both layouts hand to it.
 
 Bounds on an H100, bf16 (989 TFLOP/s dense, 3.35 TB/s): the forward does
 4*B*Tq*Tk*E flop, the backward 10*B*Tq*Tk*E (five products). At the serving
@@ -134,66 +138,27 @@ def flash_attention_packed_bwd_plain(
 
 
 def _bind(name: str):
-    """The C entry point of a library (``"flash_attention_packed"``, ``"flash_attention_heads"``: their
-    forwards, which take the same arguments but for the strides array's length; ``"flash_attention_bwd"``:
-    the backward of both layouts) with its argument types set."""
+    """The C entry point of a library, ``"flash_attention_fwd"`` or ``"flash_attention_bwd"`` (each
+    serves both layouts), with its argument types set."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     strides = ctypes.POINTER(ctypes.c_longlong)
-    if name == "flash_attention_bwd":
-        fn = build.load(name).cinema_flash_attention_bwd
-        argtypes = [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, f, p]
-    else:
-        fn = getattr(build.load(name), f"cinema_{name}_fwd")
-        argtypes = [p, p, p, p, i, i, i, i, i, i, strides, f, p, p]
+    fn = getattr(build.load(name), f"cinema_{name}")
     if fn.argtypes is None:
-        fn.argtypes = argtypes
+        fn.argtypes = {
+            "flash_attention_fwd": [p, p, p, p, i, i, i, i, i, i, strides, f, p, p],
+            "flash_attention_bwd": [p, p, p, p, p, p, p, p, p, p, i, i, i, i, i, i, strides, f, f, p],
+        }[name]
         fn.restype = ctypes.c_int
     return fn
-
-
-def _check_cuda(n_heads: int, **tensors: torch.Tensor) -> int:
-    """Raise on what the kernels do not take; returns head_dim."""
-    first = next(iter(tensors.values()))
-    for name, x in tensors.items():
-        if not x.is_cuda or x.device != first.device:
-            devices = ", ".join(str(t.device) for t in tensors.values())
-            raise ValueError(f"All operands must be on one CUDA device or all on the CPU, got {devices}.")
-        if x.dtype not in _DTYPE_CODES or x.dtype != first.dtype:
-            dtypes = ", ".join(str(t.dtype) for t in tensors.values())
-            raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {dtypes}.")
-        # vector loads: 16 bytes per access
-        align = 16 // x.element_size()
-        if x.stride(2) != 1 or x.stride(0) % align or x.stride(1) % align or x.data_ptr() % 16:
-            raise ValueError(f"{name} must have a contiguous last axis and 16-byte aligned rows, "
-                             f"got strides {x.stride()}.")
-    head_dim = first.shape[2] // n_heads
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
-    return head_dim
-
-
-def _strides(*tensors: torch.Tensor):
-    flat = [s for x in tensors for s in (x.stride(0), x.stride(1))]
-    return (ctypes.c_longlong * len(flat))(*flat)
 
 
 def flash_attention_packed_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, n_heads: int, save_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of the forward kernel on CUDA tensors: (out, lse), lse None unless ``save_lse``."""
-    head_dim = _check_cuda(n_heads, q=q, k=k, v=v)
-    batch, n_q, embed = q.shape
-    out = torch.empty((batch, n_q, embed), dtype=q.dtype, device=q.device)
-    lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_packed")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            batch, n_q, k.shape[1], n_heads, head_dim, _strides(q, k, v, out), head_dim**-0.5 * _LOG2E,
-            lse.data_ptr() if save_lse else None, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_packed kernel launch failed with CUDA error {rc}.")
+    """One launch of the forward kernel on packed CUDA tensors: (out, lse), lse None unless ``save_lse``."""
+    _check_on_card(q=q, k=k, v=v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = _run_fwd(q, k, v, out, save_lse, n_heads)
     flash_attention_packed.launches += 1
     return out, lse
 
@@ -379,16 +344,15 @@ flash_attention_packed.grad_copies = 0
 #
 # Replaces ``cinema_tpu/ops/pallas/flash_attention.py`` ``flash_attention``:
 # the forward (``_flash_forward`` / ``_flash_kernel``) and the backward
-# (``_bwd`` / ``_flash_bwd_kernel``), as ``csrc/flash_attention_heads.cu`` and
-# ``csrc/flash_attention_bwd.cu`` (the backward the packed layout shares).
-# Same design as the packed forward (a block per q tile with an online
-# softmax), but every operand and gradient is addressed through its own
-# (batch, token, head) strides with a contiguous head_dim axis: q and k are
-# fresh tensors there, v is still a strided view of the fused kv projection,
-# a (batch, heads, tokens, head_dim) transpose is read in place, and dv is
-# written into the v half of a buffer shaped like kv (see :func:`split_kv`).
-# The TPU kernel's transposes, its padding to 128 and ``_auto_block_q*`` are
-# VMEM tiling and are not ported.
+# (``_bwd`` / ``_flash_bwd_kernel``), with the kernels the packed layout
+# takes, ``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``:
+# every operand and gradient is addressed through its own (batch, token,
+# head) strides with a contiguous head_dim axis, so q and k are fresh tensors
+# here, v is still a strided view of the fused kv projection, a (batch,
+# heads, tokens, head_dim) transpose is read in place, and dv is written into
+# the v half of a buffer shaped like kv (see :func:`split_kv`). The TPU
+# kernel's transposes, its padding to 128 and ``_auto_block_q*`` are VMEM
+# tiling and are not ported.
 #
 # Bounds on an H100, bf16, at ConvViT-base fine-tuning (B=4, Tq=Tk=2305, H=12,
 # D=64): forward 4*B*Tq*Tk*H*D flop = 0.066 ms, backward 10*B*Tq*Tk*H*D =
@@ -458,56 +422,144 @@ def _kernel_ready(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and all(s % align == 0 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0
 
 
-def _check_cuda_heads(**tensors: torch.Tensor) -> int:
-    """Raise on what the per-head kernels do not take; returns head_dim."""
-    first = next(iter(tensors.values()))
-    for name, x in tensors.items():
-        if not x.is_cuda or x.device != first.device:
-            devices = ", ".join(str(t.device) for t in tensors.values())
-            raise ValueError(f"All operands must be on one CUDA device or all on the CPU, got {devices}.")
-        if x.dtype not in _DTYPE_CODES or x.dtype != first.dtype:
-            dtypes = ", ".join(str(t.dtype) for t in tensors.values())
-            raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {dtypes}.")
-        if x.ndim != 4 or not _kernel_ready(x):
-            raise ValueError(f"{name} must be 4-D with a contiguous head_dim axis and 16-byte aligned "
-                             f"(batch, token, head) strides, got shape {tuple(x.shape)} strides {x.stride()}.")
-    head_dim = first.shape[3]
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
-    return head_dim
-
-
-def _strides3(*tensors: torch.Tensor):
-    flat = [s for x in tensors for s in x.stride()[:3]]
-    return (ctypes.c_longlong * len(flat))(*flat)
-
-
 def flash_attention_forward(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, save_lse: bool
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """One launch of the per-head forward kernel on CUDA tensors: (out, lse), lse None unless ``save_lse``."""
-    _check_heads(q, k, v)
-    head_dim = _check_cuda_heads(q=q, k=k, v=v)
-    batch, n_q, n_heads, _ = q.shape
-    out = torch.empty((batch, n_q, n_heads, head_dim), dtype=q.dtype, device=q.device)
-    lse = torch.empty((batch, n_heads, n_q), dtype=torch.float32, device=q.device) if save_lse else None
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = _bind("flash_attention_heads")(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            batch, n_q, k.shape[1], n_heads, head_dim, _strides3(q, k, v, out), head_dim**-0.5 * _LOG2E,
-            lse.data_ptr() if save_lse else None, stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed with CUDA error {rc}.")
+    """One launch of the forward kernel on per-head CUDA tensors: (out, lse), lse None unless ``save_lse``."""
+    _check_on_card(q=q, k=k, v=v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    lse = _run_fwd(q, k, v, out, save_lse)
     flash_attention.launches += 1
     return out, lse
 
 
 # ---------------------------------------------------------------------------
-# The backward of both layouts: one C entry point, ``csrc/flash_attention_bwd.cu``,
-# takes (batch, token, head) element strides of every operand; a packed
-# (batch, tokens, embed) operand is passed with head stride head_dim.
+# The kernels of both layouts: one C entry point per direction takes (batch, token, head) element
+# strides of every operand; a packed (batch, tokens, embed) operand is passed with head stride head_dim.
+
+
+class _Dims(NamedTuple):
+    packed: bool
+    batch: int
+    n_q: int
+    n_k: int
+    n_heads: int
+    head_dim: int
+    dtype: torch.dtype
+
+
+def _dims(q: torch.Tensor, k: torch.Tensor, n_heads: Optional[int], what: str) -> _Dims:
+    """The sizes of a call, raising on a rank, dtype or head_dim the kernels are not built for."""
+    packed = n_heads is not None
+    layout = "(batch, tokens, embed)" if packed else "(batch, tokens, heads, head_dim)"
+    if q.ndim != 3 + (not packed) or k.ndim != q.ndim:
+        raise ValueError(f"The {what} takes {layout} operands.")
+    if packed:
+        batch, n_q, embed = q.shape
+        head_dim = embed // n_heads
+        if embed != n_heads * head_dim:
+            raise ValueError(f"embed {embed} is not divisible by n_heads {n_heads}.")
+    else:
+        batch, n_q, n_heads, head_dim = q.shape
+    if q.dtype not in _DTYPE_CODES:
+        raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {q.dtype}.")
+    if head_dim not in HEAD_DIMS:
+        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
+    return _Dims(packed, batch, n_q, k.shape[1], n_heads, head_dim, q.dtype)
+
+
+def _operand(name: str, x: torch.Tensor, n: int, dims: _Dims) -> Tuple[Tuple[int, int, int], int]:
+    """(batch, token, head) element strides of an operand of ``n`` tokens and the byte offset of its
+    first element, raising on what the kernels cannot copy: another shape or dtype, a non-contiguous
+    head_dim axis, a stride or a base address that is not a multiple of 16 bytes (every row is copied
+    16 bytes a thread)."""
+    if dims.packed:
+        layout, want = "(batch, tokens, embed)", (dims.batch, n, dims.n_heads * dims.head_dim)
+    else:
+        layout, want = "(batch, tokens, heads, head_dim)", (dims.batch, n, dims.n_heads, dims.head_dim)
+    if x.shape != want:
+        raise ValueError(f"{name} is {tuple(x.shape)}, expected {layout} {want}.")
+    if x.dtype != dims.dtype:
+        raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {name} {x.dtype} "
+                        f"with q {dims.dtype}.")
+    if dims.packed:
+        (sb, st, sd), sh = x.stride(), dims.head_dim
+    else:
+        sb, st, sh, sd = x.stride()
+    # the kernel never steps along a dimension of size 1, whatever stride torch gave it
+    sb, st, sh = (0 if m == 1 else z for m, z in ((dims.batch, sb), (n, st), (dims.n_heads, sh)))
+    size = x.element_size()
+    if sd != 1 or (sb * size) % 16 or (st * size) % 16 or (sh * size) % 16 or x.data_ptr() % 16:
+        raise ValueError(f"{name} must have a contiguous head_dim axis and 16-byte aligned (batch, token, head) "
+                         f"strides and base, got strides {x.stride()} at offset {x.storage_offset()}.")
+    return (sb, st, sh), x.storage_offset() * size
+
+
+FWD_BLOCK_ROWS = 128  # q rows per block: two warpgroups of 64 (bf16), or one thread a row (f32)
+FWD_OPERANDS = ("q", "k", "v", "out")
+_FwdStrides = ctypes.c_longlong * 12  # (batch, token, head) element strides of the four operands
+
+
+class FwdLaunch(NamedTuple):
+    """What the forward's C entry point is handed for one call, apart from the addresses.
+
+    ``strides`` and ``byte_strides`` are the (batch, token, head) strides of q, k, v and out in
+    elements and in bytes; ``base_offsets`` the byte offset of each one's first element in its
+    storage; ``grid`` the blocks of the launch, (q tiles, heads, batch).
+    """
+
+    dtype: int
+    batch: int
+    n_q: int
+    n_k: int
+    n_heads: int
+    head_dim: int
+    strides: Tuple[Tuple[int, int, int], ...]
+    byte_strides: Tuple[Tuple[int, int, int], ...]
+    base_offsets: Tuple[int, ...]
+    grid: Tuple[int, int, int]
+
+
+def fwd_launch_description(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor, n_heads: Optional[int] = None
+) -> FwdLaunch:
+    """The forward kernel's launch on any device, for (batch, tokens, heads, head_dim) operands, or for
+    packed (batch, tokens, embed) ones when ``n_heads`` is given: those are described as their
+    (batch, tokens, heads, head_dim) views, whose head stride is head_dim.
+
+    Raises on what the kernels do not take: mismatched shapes or dtypes, a head_dim they are not
+    built for, a non-contiguous head_dim axis, a (batch, token, head) stride or a base address that
+    is not a multiple of 16 bytes.
+    """
+    d = _dims(q, k, n_heads, "forward")
+    strides, offsets = zip(*(_operand(name, x, n, d)
+                             for name, x, n in zip(FWD_OPERANDS, (q, k, v, out), (d.n_q, d.n_k, d.n_k, d.n_q))))
+    size = q.element_size()
+    return FwdLaunch(
+        dtype=_DTYPE_CODES[d.dtype], batch=d.batch, n_q=d.n_q, n_k=d.n_k, n_heads=d.n_heads, head_dim=d.head_dim,
+        strides=strides, byte_strides=tuple(tuple(size * s for s in x) for x in strides), base_offsets=offsets,
+        grid=(-(-d.n_q // FWD_BLOCK_ROWS), d.n_heads, d.batch),
+    )
+
+
+def _run_fwd(q, k, v, out, save_lse: bool, n_heads: Optional[int] = None) -> Optional[torch.Tensor]:
+    """One call of the forward kernel on CUDA tensors (per-head, or packed when ``n_heads`` is given),
+    writing ``out``; returns the row log-sum-exp when ``save_lse``, else None."""
+    launch = fwd_launch_description(q, k, v, out, n_heads)
+    lse = None
+    if save_lse:
+        lse = torch.empty((launch.batch, launch.n_heads, launch.n_q), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _bind("flash_attention_fwd")(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), launch.dtype, launch.batch, launch.n_q,
+            launch.n_k, launch.n_heads, launch.head_dim, _FwdStrides(*(s for x in launch.strides for s in x)),
+            launch.head_dim**-0.5 * _LOG2E, None if lse is None else lse.data_ptr(), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"flash-attention forward kernel launch failed with CUDA error {rc}.")
+    return lse
+
 
 BWD_BLOCK_ROWS = 128  # keys (dk/dv pass) or q rows (dq pass) per block of the bf16 kernels
 BWD_F32_ROWS = 32  # the same for the f32 kernels
@@ -557,49 +609,16 @@ def bwd_launch_description(
     stride or a base address that is not a multiple of 16 bytes (every row is
     copied 16 bytes a thread).
     """
-    packed = n_heads is not None
-    layout = "(batch, tokens, embed)" if packed else "(batch, tokens, heads, head_dim)"
     if (dk is None) != (dv is None):
         raise ValueError("dk and dv are computed together: pass both or neither.")
-    if q.ndim != 3 + (not packed) or k.ndim != q.ndim:
-        raise ValueError(f"The backward takes {layout} operands.")
-    if packed:
-        batch, n_q, embed = q.shape
-        head_dim = embed // n_heads
-        if embed != n_heads * head_dim:
-            raise ValueError(f"embed {embed} is not divisible by n_heads {n_heads}.")
-    else:
-        batch, n_q, n_heads, head_dim = q.shape
-    n_k = k.shape[1]
-    dtype, size = q.dtype, q.element_size()
-    if dtype not in _DTYPE_CODES:
-        raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {dtype}.")
-    if head_dim not in HEAD_DIMS:
-        raise ValueError(f"The kernel is built for head_dim in {HEAD_DIMS}, got {head_dim}.")
+    d = _dims(q, k, n_heads, "backward")
+    batch, n_q, n_k, n_heads, head_dim, dtype = d.batch, d.n_q, d.n_k, d.n_heads, d.head_dim, d.dtype
+    size = q.element_size()
     strides, offsets = [], []
     for i, (name, x) in enumerate(zip(BWD_OPERANDS, (q, k, v, out, g, dq, dk, dv))):
-        if x is None:
-            strides.append((0, 0, 0))
-            offsets.append(None)
-            continue
-        n = n_k if i in (1, 2, 6, 7) else n_q
-        want = (batch, n, n_heads * head_dim) if packed else (batch, n, n_heads, head_dim)
-        if x.shape != want:
-            raise ValueError(f"{name} is {tuple(x.shape)}, expected {layout} {want}.")
-        if x.dtype != dtype:
-            raise TypeError(f"The kernel takes float32 or bfloat16 operands of one dtype, got {name} {x.dtype} "
-                            f"with q {dtype}.")
-        if packed:
-            (sb, st, sd), sh = x.stride(), head_dim
-        else:
-            sb, st, sh, sd = x.stride()
-        # the kernel never steps along a dimension of size 1, whatever stride torch gave it
-        sb, st, sh = (0 if m == 1 else z for m, z in ((batch, sb), (n, st), (n_heads, sh)))
-        if sd != 1 or (sb * size) % 16 or (st * size) % 16 or (sh * size) % 16 or x.data_ptr() % 16:
-            raise ValueError(f"{name} must have a contiguous head_dim axis and 16-byte aligned (batch, token, head) "
-                             f"strides and base, got strides {x.stride()} at offset {x.storage_offset()}.")
-        strides.append((sb, st, sh))
-        offsets.append(x.storage_offset() * size)
+        st, offset = ((0, 0, 0), None) if x is None else _operand(name, x, n_k if i in (1, 2, 6, 7) else n_q, d)
+        strides.append(st)
+        offsets.append(offset)
     rows = BWD_BLOCK_ROWS if dtype == torch.bfloat16 else BWD_F32_ROWS
     n_q_pad = -(-n_q // BWD_BLOCK_ROWS) * BWD_BLOCK_ROWS
     return BwdLaunch(

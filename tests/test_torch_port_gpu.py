@@ -68,3 +68,37 @@ def test_packed_backward_at_a_ragged_shape_agrees_with_its_plain_version(card, d
     torch.testing.assert_close(dq.float(), want[0].float(), atol=atol, rtol=0)
     torch.testing.assert_close(dkv[..., :512].float(), want[1].float(), atol=atol, rtol=0)
     torch.testing.assert_close(dkv[..., 512:].float(), want[2].float(), atol=atol, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("layout", ["packed", "bhtd"])
+def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dtype, atol, layout):
+    """The forward of both layouts at ragged cross shapes: packed n_q = 129, n_k = 200, head_dim 32, with
+    k and v the column halves of a fused kv projection; per-head n_q = 130, n_k = 77, head_dim 64, every
+    operand read through a (batch, heads, tokens, head_dim) transpose. The output is the same with and
+    without the saved log-sum-exp, and the log-sum-exp is held to its plain version (atol 1e-3)."""
+    rng = np.random.default_rng(7)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(card, dtype)
+
+    if layout == "packed":
+        q, kv = tensor(2, 129, 512), tensor(2, 200, 1024)
+        k, v = kv[..., :512], kv[..., 512:]
+        counter = fa.flash_attention_packed
+        before = counter.launches
+        out = fa.flash_attention_packed(q, k, v, 16)
+        out_lse, lse = fa.flash_attention_packed_forward(q, k, v, 16, save_lse=True)
+        want, want_lse = fa.flash_attention_packed_plain(q, k, v, 16), fa.flash_attention_packed_lse_plain(q, k, 16)
+    else:
+        q, k, v = (tensor(2, 12, n, 64).transpose(1, 2) for n in (130, 77, 77))
+        counter = fa.flash_attention
+        before = counter.launches
+        out = fa.flash_attention(q, k, v)
+        out_lse, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
+        want, want_lse = fa.flash_attention_plain(q, k, v), fa.flash_attention_lse_plain(q, k)
+    assert counter.launches == before + 2
+    torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
+    assert torch.equal(out, out_lse)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)

@@ -2,18 +2,21 @@
 
 For each fault below, copies ``cinema_tpu_torch/`` and ``chip_smoke.py`` into
 a temporary directory, edits the bf16 path of one kernel source there (the
-packed or the per-head forward, or the backward of both layouts, under
-``csrc/``), builds that copy into its own build directory and runs
-chip_smoke's bf16 checks of that kernel on it. The unedited copy ("none") must pass every check of
-all four kernels; each fault must fail at least one. The checkout
-itself is never edited.
+forward or the backward, each shared by the packed and the per-head layouts,
+under ``csrc/``), builds that copy into its own build directory and runs
+chip_smoke's bf16 checks of the kernels the fault is planted in: a forward
+fault against both the packed and the per-head forward checks (unless it
+can show in one layout only), unless ``--only`` names one of them. The unedited copy ("none") must pass every
+check of all four kernels (of the one ``--only`` names); each fault must fail
+at least one. The checkout itself is never edited.
 
 Usage (from the repository root):
     python3 tools/torch_kernel_fault_check.py [--only forward|backward|heads_forward|heads_backward] [--out summary.json]
 
 Prints one line per check and a summary line per fault (``--out`` also
 writes the summaries as JSON); exits non-zero if the unedited kernel fails
-or a fault goes uncaught.
+or a fault goes uncaught. A fault whose kernel dies on the card with a CUDA
+error is caught by the check that launched it; the checks after it do not run.
 """
 
 from __future__ import annotations
@@ -28,66 +31,69 @@ import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-FWD, HFWD = "flash_attention_packed.cu", "flash_attention_heads.cu"
-BWD = "flash_attention_bwd.cu"  # the backward of both layouts
-HLOOP = "for (int k0 = 0; k0 < n_k; k0 += kTile) {"
+FWD, BWD = "flash_attention_fwd.cu", "flash_attention_bwd.cu"  # each the kernel of both layouts
+KERNELS = ("forward", "backward", "heads_forward", "heads_backward")
+BOTH_FWD = ("forward", "heads_forward")
 V_BASE = "const __nv_bfloat16* vb = v + batch * vs.b + head * vs.h;"
-LOOP = "for (int k0 = 0; k0 < n_k; k0 += kBlockK) {"
 ENTRY = "cudaStream_t st = static_cast<cudaStream_t>(stream);"
+# the bf16 forward: its stage count, its key mask and its ring slot's address (k, and v beside it)
+F_STAGES = "const int n_iters = (n_k + kStageRows - 1) / kStageRows;"
+F_MASK = "if (ragged) x = key < n_k ? x : -CUDART_INF_F;"
+F_SLOT = "const uint32_t k_st = base + S::kRing + 2 * slot * S::kTile;"
 # the bf16 backward's dS lines: dk/dv pass, then dq pass
 DK_DS = ("dp[i] = s[i] * (dp[i] - (i & 1 ? d2.y : d2.x));", "dp[i] = s[i] * dp[i];", 1)
 DQ_DS = ("s[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);", "s[i] = s[i] * dp[i];", 1)
 Q_STAGES = "const int n_iters = (n_q + kStageRows - 1) / kStageRows;"  # stages of the dk/dv pass
 K_STAGES = "const int n_iters = (n_k + kStageRows - 1) / kStageRows;"  # stages of the dq pass
-# fault -> (source file, which checks to run, [(text, replacement, occurrences)] edits of the bf16 kernels)
+# fault -> (source file, the kernels whose checks run, [(text, replacement, occurrences)] edits of the bf16 kernels)
 FAULTS = {
-    "none": (FWD, "both", []),
-    "skip_last_key_tile": (FWD, "forward", [(LOOP, "for (int k0 = 0; k0 + kBlockK < n_k; k0 += kBlockK) {", 1)]),
-    "skip_key_tile_10": (FWD, "forward", [(LOOP, LOOP + "\n    if (k0 == 10 * kBlockK) continue;", 1)]),
-    "scale_plus_3pct": (FWD, "forward", [("s[nt][j] * scale_log2", "s[nt][j] * (scale_log2 * 1.03f)", 1)]),
-    "mask_last_key": (FWD, "forward", [("s[nt][j] = key < n_k ?", "s[nt][j] = key < n_k - 1 ?", 1)]),
-    "lse_without_row_sum": (FWD, "forward", [("lse_row[row0] = m0 + log2f(l0);", "lse_row[row0] = m0;", 1)]),
-    "bwd_skip_last_q_tile": (BWD, "backward", [(Q_STAGES, Q_STAGES.replace(";", " - 1;"), 1)]),
-    "bwd_delta_dropped": (BWD, "backward", [DK_DS, DQ_DS]),
-    "bwd_dk_delta_dropped": (BWD, "backward", [DK_DS]),
-    "bwd_scale_plus_3pct": (BWD, "backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
-    "bwd_softmax_scale_plus_3pct": (BWD, "backward", [(ENTRY, ENTRY + "\n  scale_log2 *= 1.03f;", 1)]),
-    "bwd_dq_mask_last_key": (BWD, "backward", [
+    "none": (FWD, KERNELS, []),
+    "skip_last_key_stage": (FWD, BOTH_FWD, [(F_STAGES, F_STAGES.replace(";", " - 1;"), 1)]),
+    "skip_middle_key_stage": (FWD, BOTH_FWD, [
+        (F_MASK, F_MASK + "\n      if (it == n_iters / 2) x = -CUDART_INF_F;", 1)]),
+    "scale_plus_3pct": (FWD, BOTH_FWD, [(ENTRY, ENTRY + "\n  scale_log2 *= 1.03f;", 1)]),
+    "mask_last_key": (FWD, BOTH_FWD, [(F_MASK, F_MASK.replace("key < n_k", "key < n_k - 1"), 1)]),
+    "lse_without_row_sum": (FWD, BOTH_FWD, [("= m[h] + log2f(l[h]);", "= m[h];", 1)]),
+    # S and P v wait for the right ring slot but read the tiles of the next one
+    "ring_slot_off_by_one": (FWD, BOTH_FWD, [(F_SLOT, F_SLOT.replace("* slot", "* ((slot + 1) % kStages)"), 1)]),
+    # P v reads v K-major instead of through the transposed (MN-major) descriptor
+    "pv_transpose_flag_dropped": (FWD, BOTH_FWD, [("mma_rs<D, 1>(o_acc,", "mma_rs<D, 0>(o_acc,", 1)]),
+    # a packed q and v both have head stride head_dim: only the per-head layouts can show this one
+    "v_head_stride_of_q": (FWD, ("heads_forward",), [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 1)]),
+    "bwd_skip_last_q_tile": (BWD, ("backward",), [(Q_STAGES, Q_STAGES.replace(";", " - 1;"), 1)]),
+    "bwd_delta_dropped": (BWD, ("backward",), [DK_DS, DQ_DS]),
+    "bwd_dk_delta_dropped": (BWD, ("backward",), [DK_DS]),
+    "bwd_scale_plus_3pct": (BWD, ("backward",), [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
+    "bwd_softmax_scale_plus_3pct": (BWD, ("backward",), [(ENTRY, ENTRY + "\n  scale_log2 *= 1.03f;", 1)]),
+    "bwd_dq_mask_last_key": (BWD, ("backward",), [
         ("if (ragged) p = key < n_k ? p : 0.f;", "if (ragged) p = key < n_k - 1 ? p : 0.f;", 1)]),
-    "bwd_q_tail_lse_minus_inf": (BWD, "backward", [
+    "bwd_q_tail_lse_minus_inf": (BWD, ("backward",), [
         ("lse_pad[idx] = CUDART_INF_F;", "lse_pad[idx] = -CUDART_INF_F;", 1)]),
     # both passes wait for the right ring slot but read the tiles of the next one
-    "bwd_ring_stage_off_by_one": (BWD, "backward", [
+    "bwd_ring_stage_off_by_one": (BWD, ("backward",), [
         ("base + (2 * slot) * S::kTile;", "base + (2 * ((slot + 1) % kStages)) * S::kTile;", 2)]),
     # dv's product reads g K-major instead of through the transposed (MN-major) descriptor
-    "bwd_dv_transpose_flag_dropped": (BWD, "backward", [("mma_rs<D, 1>(dv_acc,", "mma_rs<D, 0>(dv_acc,", 1)]),
-    "heads_skip_last_key_tile": (HFWD, "heads_forward", [
-        (HLOOP, "for (int k0 = 0; k0 + kTile < n_k; k0 += kTile) {", 1)]),
-    "heads_v_head_stride_of_q": (HFWD, "heads_forward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 1)]),
-    "heads_v_token_stride_of_k": (HFWD, "heads_forward", [
-        ("(long long)(k0 + r) * vs.t + c);\n", "(long long)(k0 + r) * ks.t + c);\n", 2)]),
-    "heads_scale_plus_3pct": (HFWD, "heads_forward", [
-        ("s[nt][j] * scale_log2", "s[nt][j] * (scale_log2 * 1.03f)", 1)]),
-    "heads_bwd_skip_last_key_tile": (BWD, "heads_backward", [(K_STAGES, K_STAGES.replace(";", " - 1;"), 1)]),
-    "heads_bwd_v_head_stride_of_q": (BWD, "heads_backward", [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
-    "heads_bwd_delta_dropped": (BWD, "heads_backward", [DK_DS, DQ_DS]),
-    "heads_bwd_scale_plus_3pct": (BWD, "heads_backward", [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
+    "bwd_dv_transpose_flag_dropped": (BWD, ("backward",), [("mma_rs<D, 1>(dv_acc,", "mma_rs<D, 0>(dv_acc,", 1)]),
+    "heads_bwd_skip_last_key_tile": (BWD, ("heads_backward",), [(K_STAGES, K_STAGES.replace(";", " - 1;"), 1)]),
+    "heads_bwd_v_head_stride_of_q": (BWD, ("heads_backward",), [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
+    "heads_bwd_delta_dropped": (BWD, ("heads_backward",), [DK_DS, DQ_DS]),
+    "heads_bwd_scale_plus_3pct": (BWD, ("heads_backward",), [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
 }
 # runs in the copy: chip_smoke's bf16 checks, one per shape, counting failures
 CHECKS = r'''
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
-which = sys.argv[1]
+which = set(sys.argv[1].split(","))
 gen = torch.Generator(device="cuda").manual_seed(0)
 sharp = cs.SHARP_Q
 shapes = [(cs.TRAIN_ENCODER, 1.0), (cs.TRAIN_DECODER, 1.0), (cs.TRAIN_ENCODER, sharp), (cs.TRAIN_DECODER, sharp),
           *((shape, 1.0) for shape in cs.RAGGED[1:])]
 runs = []
-if which in ("forward", "both"):
+if "forward" in which:
     runs += [(cs.check_attention, ((8, 2305, 2305, 768, 12), q_scale)) for q_scale in (1.0, sharp)]
     runs += [(cs.check_attention, x) for x in shapes]
-if which in ("backward", "both"):
+if "backward" in which:
     runs += [(cs.check_attention_bwd, x) for x in shapes]
 caught = []
 for fn, (shape, q_scale) in runs:
@@ -98,7 +104,7 @@ for fn, (shape, q_scale) in runs:
 heads_runs = [(cs.FINETUNE_HEADS, 1.0, "kvhalf"), (cs.EVAL_HEADS, 1.0, "kvhalf"), (cs.FINETUNE_HEADS, sharp, "kvhalf"),
               *((shape, 1.0, layout) for shape, layout in cs.HEADS_RAGGED if shape[1] > 1)]
 for name, fn in (("heads_forward", cs.check_heads), ("heads_backward", cs.check_heads_bwd)):
-    if which not in (name, "both"):
+    if name not in which:
         continue
     for shape, q_scale, layout in heads_runs:
         runs.append(None)
@@ -110,9 +116,10 @@ print(f"RAN {len(runs)} CAUGHT " + json.dumps(caught), flush=True)
 '''
 
 
-def run_fault(name: str) -> tuple[int, list]:
-    """(checks run, the checks that failed) on the copy with this fault's edits."""
-    source, which, edits = FAULTS[name]
+def run_fault(name: str, which: list[str]) -> tuple[int, list]:
+    """(checks run, the checks that failed) on the copy with this fault's edits, running the checks of
+    the kernels in ``which``."""
+    source, _, edits = FAULTS[name]
     with tempfile.TemporaryDirectory() as d:
         shutil.copytree(ROOT / "cinema_tpu_torch", Path(d) / "cinema_tpu_torch")
         shutil.copy(ROOT / "chip_smoke.py", d)
@@ -124,9 +131,17 @@ def run_fault(name: str) -> tuple[int, list]:
             text = text.replace(old, new)
         cu.write_text(text)
         env = dict(os.environ, CINEMA_TORCH_BUILD_DIR=str(Path(d) / "build"))
-        proc = subprocess.run([sys.executable, "-c", CHECKS, which], cwd=d, env=env, capture_output=True, text=True)
+        proc = subprocess.run([sys.executable, "-c", CHECKS, ",".join(which)], cwd=d, env=env, capture_output=True,
+                              text=True)
     print(proc.stdout, end="", flush=True)
     lines = [line for line in proc.stdout.splitlines() if line.startswith("RAN ")]
+    if proc.returncode != 0 and "CUDA error" in proc.stderr:
+        # the kernel faulted on the card (an address out of bounds, a trapped ring wait): the check that
+        # launched it fails, and the card's context with it, so no later check runs
+        done = sum(line.split(" ", 1)[0] in ("attention", "attention_bwd", "heads_attention", "heads_attention_bwd")
+                   for line in proc.stdout.splitlines())
+        error = next(line for line in proc.stderr.splitlines() if "CUDA error" in line)
+        return done + 1, [["cuda_error", error.strip()]]
     if proc.returncode != 0 or not lines:
         raise RuntimeError(f"{name}: the checks did not run to the end (rc {proc.returncode})\n{proc.stderr[-3000:]}")
     _, n_run, _, caught = lines[0].split(" ", 3)
@@ -135,15 +150,16 @@ def run_fault(name: str) -> tuple[int, list]:
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", choices=["forward", "backward", "heads_forward", "heads_backward"], help="plant the faults of one kernel only")
+    parser.add_argument("--only", choices=KERNELS, help="plant the faults of one kernel only and run its checks only")
     parser.add_argument("--out", help="also write the per-fault summaries as JSON to this path")
     args = parser.parse_args()
     ok = True
     summary = {}
-    for name, (_, which, _) in FAULTS.items():
-        if args.only and which not in (args.only, "both"):
+    for name, (_, kernels, _) in FAULTS.items():
+        which = [k for k in kernels if args.only in (None, k)]
+        if not which:
             continue
-        n_run, caught = run_fault(name)
+        n_run, caught = run_fault(name, which)
         verdict = "pass" if (not caught) == (name == "none") else "WRONG"
         ok &= verdict == "pass"
         summary[name] = {"ran": n_run, "failed": len(caught), "verdict": verdict, "failed_checks": caught}
