@@ -1,7 +1,8 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's three paths (``cinema_tpu_torch``), serving, MAE
-pretraining and ConvViT fine-tuning, at full width and holds every
+Drives the port's four paths (``cinema_tpu_torch``), serving, MAE
+pretraining, ConvViT fine-tuning and ConvUNetR segmentation fine-tuning, at
+full width and holds every
 hand-written kernel of those paths against its plain PyTorch version on
 the card:
 
@@ -36,7 +37,18 @@ the card:
    recomputation, a NaN batch, an f32 step against the plain attention
    path), a short ``run_train`` with evaluations whose checkpoint and
    safetensors are reloaded, and the regression task for one step and one
-   evaluation.
+   evaluation;
+7. segmentation: ConvUNetR-base from the packaged ACDC segmentation config
+   (SAX 192x192x16, batch 4, bf16, seeded weights) on 20 seeded synthetic
+   studies with ED and ES labels (three nested ellipsoid shells) of three
+   sizes: 192x192x16, 224x208x10 (four in-plane patches, padded in z) and
+   200x200x18 (padded to 20 by the z bucket, two z-patches). Timed steps with
+   the ViT blocks recomputed (``grad_ckpt``, the config's default: 24 packed
+   forward and 12 backward launches a step) and without (12 + 12), a NaN
+   batch, an f32 step against the plain attention path, one evaluated study
+   of each size (12 forward launches a frame, the HD95 host time apart), and
+   two epochs of ``tasks.segmentation.acdc.run`` with an evaluation each,
+   whose metrics, checkpoint and safetensors are checked.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -45,12 +57,14 @@ Usage:
     python3 chip_smoke.py [--out report.json] [--profile]
 
 ``--profile`` adds a torch.profiler pass over one serving chunk, one
-pretraining step and one fine-tuning step and prints the device time by kernel.
+pretraining step, one fine-tuning step and one segmentation step and prints
+the device time by kernel.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import statistics
 import subprocess
@@ -718,33 +732,138 @@ def _snapshot(model, state):
                                 state.opt_state.count)]
 
 
+class Launches:
+    """The launch counters of the packed and the per-head kernels: ``reset`` sets them to 0, ``read``
+    returns (packed fwd, packed bwd, per-head fwd, per-head bwd) and adds them to ``totals``, a path's sum."""
+
+    def __init__(self) -> None:
+        self.totals = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0}
+
+    @staticmethod
+    def reset() -> None:
+        from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed
+
+        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+        flash_attention.launches = flash_attention.bwd_launches = 0
+
+    def read(self) -> tuple:
+        from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed
+
+        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
+               flash_attention.launches, flash_attention.bwd_launches)
+        for key, n in zip(self.totals, got):
+            self.totals[key] += n
+        return got
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, value):
+    """``module.name`` is ``value`` inside the block (the plain attention in place of a kernel's wrapper)."""
+    old = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, old)
+
+
+def supervised_step(config, model, loss_fn) -> tuple:
+    """A train state and ``make_supervised_train_step`` over ``model`` with the config's optimizer and a
+    slow warm-up, as the packaged configs' warm-up epochs: seeded random weights stay well conditioned."""
+    from cinema_tpu_torch.train.optim import build_optimizer
+    from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
+
+    tx = build_optimizer(dict(model.named_parameters()), lr=config.train.lr, min_lr=config.train.min_lr,
+                         warmup_steps=100, max_n_steps=1000, betas=tuple(config.train.betas),
+                         weight_decay=config.train.weight_decay, clip_grad=config.train.clip_grad)
+    return TrainState.create(model, tx), make_supervised_train_step(model, tx, loss_fn, seed=0)
+
+
+def timed_steps(launches: Launches, smi: str, label: str, model, state, step_fn, batches: list, n: int,
+                expected: tuple, may_stay: frozenset = frozenset()) -> dict:
+    """One warm-up and ``n`` timed steps (host clock to ``torch.cuda.synchronize()``) with their launches
+    (``expected`` per step), losses, skips and peak memory checked; every parameter but those of
+    ``may_stay`` must move. ``state`` advances in place."""
+    state, _ = step_fn(state, batches[0])  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    launches.reset()
+    losses, skipped, seconds = [], [], []
+    for i in range(n):
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batches[(i + 1) % len(batches)])
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        losses.append(float(metrics["loss"]))
+        skipped.append(float(metrics["skipped_nan"]))
+    got = launches.read()
+    check(got == tuple(n * x for x in expected),
+          f"{n} {label} steps launched (packed fwd, packed bwd, per-head fwd, per-head bwd) = {got}, "
+          f"expected {expected} per step")
+    check(all(x == x and abs(x) < 1e4 for x in losses), f"{label} losses not finite: {losses}")
+    check(sum(skipped) == 0, f"{label} steps skipped: {skipped}")
+    still = {k for k, v in model.state_dict().items() if torch.equal(before[k], v)}
+    check(still <= may_stay, f"parameters {sorted(still)} did not move in the {label} steps")
+    step_s = statistics.median(seconds)
+    batch_size = batches[0][next(k for k in batches[0] if k.endswith("_image"))].shape[0]
+    row = {"batch": batch_size, "steps": n, "launches": dict(zip(launches.totals, got)), "losses": losses,
+           "seconds": seconds, "ms_per_step": step_s * 1e3, "samples_per_s": batch_size / step_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    print(label, json.dumps(row), f"on {smi}", flush=True)
+    return row
+
+
+def check_f32_step(label: str, launches: Launches, model, loss_fn, batch: dict, plain_attention,
+                   expected: tuple) -> dict:
+    """One f32 step's loss and gradients through the kernels (``expected`` launches) against the same
+    step inside ``plain_attention`` (a context that swaps the plain attention in; no launch): the loss
+    within TRAIN_LOSS_RTOL, each parameter's gradient within TRAIN_GRAD_RTOL of its largest entry."""
+    params = list(model.parameters())
+
+    def loss_and_grads():
+        loss = loss_fn(model, batch)[0]
+        return loss.detach(), torch.autograd.grad(loss, params)
+
+    launches.reset()
+    loss_k, grads_k = loss_and_grads()
+    check(launches.read() == expected, f"the {label} step did not go through the kernels")
+    with plain_attention:
+        launches.reset()
+        loss_p, grads_p = loss_and_grads()
+        check(launches.read() == (0, 0, 0, 0), "the plain attention path launched a kernel")
+    norm_k, norm_p = (torch.linalg.vector_norm(torch.stack([g.norm() for g in gs])).item()
+                      for gs in (grads_k, grads_p))
+    errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item() for a, b in zip(grads_k, grads_p)]
+    worst = max(errs)
+    worst_name = [name for name, _ in model.named_parameters()][errs.index(worst)]
+    row = {"loss": loss_k.item(), "loss_plain": loss_p.item(), "grad_norm": norm_k, "grad_norm_plain": norm_p,
+           "max_rel_grad_err": worst, "worst_parameter": worst_name,
+           "worst_parameter_max_grad": grads_p[errs.index(worst)].abs().max().item(),
+           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
+    print(label, json.dumps(row), flush=True)
+    check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_RTOL * abs(loss_p.item()), f"{label}: losses differ")
+    check(abs(norm_k - norm_p) <= TRAIN_GRAD_RTOL * norm_p, f"{label}: gradient norms differ")
+    check(worst <= TRAIN_GRAD_RTOL, f"{label}: gradients through the kernels differ by {worst} of a "
+                                    f"parameter's largest")
+    return row
+
+
 def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
     """ConvViT-base fine-tuning and evaluation at full width; returns each kernel's launches on this path."""
     from cinema_tpu_torch.config import PACKAGED, from_dict
     from cinema_tpu_torch.convert import load_safetensors
     from cinema_tpu_torch.factory import get_convvit_model, init_weights
     from cinema_tpu_torch.ops import attention
-    from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed, flash_attention_plain
+    from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
     from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
     from cinema_tpu_torch.tasks.classification import classification_loss_fn
     from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
     from cinema_tpu_torch.train.loop import to_device
-    from cinema_tpu_torch.train.optim import build_optimizer
-    from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
 
-    counters = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0}
-
-    def reset() -> None:
-        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
-        flash_attention.launches = flash_attention.bwd_launches = 0
-
-    def read() -> tuple:
-        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
-               flash_attention.launches, flash_attention.bwd_launches)
-        for key, n in zip(counters, got):
-            counters[key] += n
-        return got
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
 
     def rotary_model(config, dtype=torch.float32, device="cuda", **kwargs):
         """What a user passes as ``get_model_fn`` to train ConvViT with rotary embedding: no config key sets it."""
@@ -756,41 +875,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
     config.train.batch_size = batch_size  # no accumulation: every step is an update
     size = tuple(config.data.sax.patch_size)
 
-    def make_step(model, **opt):
-        # a slow warm-up, as the packaged config's ten epochs of it: seeded random weights stay well conditioned
-        tx = build_optimizer(dict(model.named_parameters()), lr=config.train.lr, min_lr=config.train.min_lr,
-                             warmup_steps=100, max_n_steps=1000, betas=tuple(config.train.betas),
-                             weight_decay=config.train.weight_decay, clip_grad=config.train.clip_grad, **opt)
-        return TrainState.create(model, tx), make_supervised_train_step(model, tx, classification_loss_fn, seed=0)
-
-    def timed_steps(model, state, step_fn, batches, n, expected: tuple, what: str) -> dict:
-        state, _ = step_fn(state, batches[0])  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        before = {k: v.clone() for k, v in model.state_dict().items()}
-        reset()
-        losses, skipped, seconds = [], [], []
-        for i in range(n):
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batches[(i + 1) % len(batches)])
-            torch.cuda.synchronize()
-            seconds.append(time.perf_counter() - t0)
-            losses.append(float(metrics["loss"]))
-            skipped.append(float(metrics["skipped_nan"]))
-        got = read()
-        check(got == tuple(n * x for x in expected),
-              f"{n} {what} steps launched (packed fwd, packed bwd, per-head fwd, per-head bwd) = {got}, "
-              f"expected {expected} per step")
-        check(all(x == x and abs(x) < 1e4 for x in losses), f"{what} losses not finite: {losses}")
-        check(sum(skipped) == 0, f"{what} steps skipped: {skipped}")
-        moved = sum(not torch.equal(before[k], v) for k, v in model.state_dict().items())
-        check(moved == len(before), f"only {moved} of {len(before)} parameters moved in the {what} steps")
-        step_s = statistics.median(seconds)
-        row = {"batch": batch_size, "steps": n, "launches": dict(zip(counters, got)), "losses": losses,
-               "seconds": seconds, "ms_per_step": step_s * 1e3, "samples_per_s": batch_size / step_s,
-               "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
-        print(f"finetune_{what}", json.dumps(row), f"on {smi}", flush=True)
-        return row
+    def make_step(model):
+        return supervised_step(config, model, classification_loss_fn)
 
     with tempfile.TemporaryDirectory() as tmp:
         data_dir = Path(tmp) / "studies"
@@ -807,7 +893,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
         # a. the default model: the packed kernels, as users run it
         model = init_weights(get_convvit_model(config, dtype=torch.bfloat16, device="cuda"), seed=config.seed)
         state, step_fn = make_step(model)
-        report["finetune_default"] = timed_steps(model, state, step_fn, batches, 3, (depth, depth, 0, 0), "default")
+        report["finetune_default"] = timed_steps(launches, smi, "finetune_default", model, state, step_fn, batches, 3,
+                                                 (depth, depth, 0, 0))
         del state, step_fn
 
         # b. rotary=True through get_model_fn: the per-head kernels and no packed launch
@@ -815,7 +902,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
         rotary.load_state_dict(model.state_dict())
         del model
         state, step_fn = make_step(rotary)
-        report["finetune_rotary"] = timed_steps(rotary, state, step_fn, batches, n_timed, (0, 0, depth, depth), "rotary")
+        report["finetune_rotary"] = timed_steps(launches, smi, "finetune_rotary", rotary, state, step_fn, batches,
+                                                n_timed, (0, 0, depth, depth))
         check(flash_attention.grad_copies == 0, "the per-head backward copied a gradient it should read in place")
 
         # a NaN batch leaves parameters, moments and count bit-identical
@@ -840,8 +928,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
         remat = rotary_model(config, dtype=torch.bfloat16, device="cuda", remat=True)
         remat.load_state_dict(rotary.state_dict())
         state, step_fn = make_step(remat)
-        report["finetune_rotary_remat"] = timed_steps(remat, state, step_fn, batches, 2, (0, 0, 2 * depth, depth),
-                                                      "rotary_remat")
+        report["finetune_rotary_remat"] = timed_steps(launches, smi, "finetune_rotary_remat", remat, state, step_fn,
+                                                      batches, 2, (0, 0, 2 * depth, depth))
         del remat, state, step_fn
 
         # c. one f32 step at batch 2: loss and gradients through the per-head kernels against the plain attention
@@ -851,37 +939,10 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
             if hasattr(module, "rate"):
                 module.rate = 0.0
         small = {k: v[:2] for k, v in batches[1].items()}
-        params = list(rotary32.parameters())
-
-        def loss_and_grads():
-            loss = classification_loss_fn(rotary32, small)[0]
-            return loss.detach(), torch.autograd.grad(loss, params)
-
-        reset()
-        loss_k, grads_k = loss_and_grads()
-        check(read() == (0, 0, depth, depth), "the f32 step did not go through the per-head kernels")
-        attention.flash_attention = flash_attention_plain
-        try:
-            reset()
-            loss_p, grads_p = loss_and_grads()
-            check(read() == (0, 0, 0, 0), "the plain attention path launched a kernel")
-        finally:
-            attention.flash_attention = flash_attention
-        norm_k, norm_p = (torch.linalg.vector_norm(torch.stack([g.norm() for g in gs])).item()
-                          for gs in (grads_k, grads_p))
-        errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item() for a, b in zip(grads_k, grads_p)]
-        worst = max(errs)
-        worst_name = [name for name, _ in rotary32.named_parameters()][errs.index(worst)]
-        report["finetune_f32"] = {"loss": loss_k.item(), "loss_plain": loss_p.item(), "grad_norm": norm_k,
-                                  "grad_norm_plain": norm_p, "max_rel_grad_err": worst, "worst_parameter": worst_name,
-                                  "worst_parameter_max_grad": grads_p[errs.index(worst)].abs().max().item(),
-                                  "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
-        print("finetune_f32", json.dumps(report["finetune_f32"]), flush=True)
-        check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_RTOL * abs(loss_p.item()), "f32 fine-tuning losses differ")
-        check(abs(norm_k - norm_p) <= TRAIN_GRAD_RTOL * norm_p, "f32 fine-tuning gradient norms differ")
-        check(worst <= TRAIN_GRAD_RTOL, f"f32 gradients through the per-head kernels differ by {worst} of a "
-                                        f"parameter's largest")
-        del rotary32, params, grads_k, grads_p, rotary
+        report["finetune_f32"] = check_f32_step("finetune_f32", launches, rotary32, classification_loss_fn, small,
+                                                swapped(attention, "flash_attention", flash_attention_plain),
+                                                (0, 0, depth, depth))
+        del rotary32, rotary
 
         # d. the entry point: a short run_train of the rotary model with an evaluation per epoch
         n_epochs = 3
@@ -944,6 +1005,275 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
     return counters
 
 
+# ACDC-like study sizes of the segmentation phase: an exact patch; wider than the patch in x and y
+# (four patches) and padded in z; padded in z by the bucket of 4 to 20, then two patches along z
+SEG_SIZES = [(192, 192, 16), (224, 208, 10), (200, 200, 18)]
+
+
+def write_seg_studies(data_dir: Path, n: int, seed: int) -> None:
+    """Seeded synthetic ED + ES segmentation studies, one .npz each, sizes in turn from SEG_SIZES:
+    per frame three nested ellipsoid shells at a seeded centre and radius, the LV cavity (1) inside
+    the myocardium (2) and the RV (3) beside it, smaller at ES; the image brightens by class on noise."""
+    rng = np.random.default_rng(seed)
+    for i in range(n):
+        size = SEG_SIZES[i % len(SEG_SIZES)]
+        axes = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in size), indexing="ij")
+        centre = np.array(size, np.float32) * (0.42 + rng.uniform(-0.04, 0.04, 3).astype(np.float32) * (1, 1, 0.2))
+        radii = np.array(size, np.float32) * (rng.uniform(0.15, 0.2), rng.uniform(0.15, 0.2), 0.45)
+        labels = []
+        for frame_scale in (1.0, 0.85):  # ED, ES
+            r = radii * frame_scale
+            d_lv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, centre, r)))
+            rv_centre = centre + (1.3 * r[0], 0, 0)
+            d_rv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, rv_centre, r * (0.8, 1.2, 1.0))))
+            label = np.zeros(size, np.int8)
+            label[d_rv < 1] = 3
+            label[d_lv < 1] = 2
+            label[d_lv < 0.6] = 1
+            labels.append(label)
+        label = np.stack(labels, axis=-1)
+        image = np.array([40, 320, 160, 240], np.float32)[label] + rng.normal(0, 40, label.shape).astype(np.float32)
+        np.savez(data_dir / f"study_{i:04d}.npz", sax_image=image.astype(np.float16), sax_label=label,
+                 pathology=np.int64(i % 5))
+
+
+def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
+    """ConvUNetR-base segmentation fine-tuning and evaluation at full width; returns the packed kernels'
+    launches on this path."""
+    from cinema_tpu_torch import metrics as seg_metrics
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.convert import load_safetensors
+    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.factory import get_convunetr_model, get_segmentation_model, init_weights
+    from cinema_tpu_torch.models import vit
+    from cinema_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_kv_plain,
+    )
+    from cinema_tpu_torch.ops.window import crop_start, get_patch_grid
+    from cinema_tpu_torch.tasks.segmentation import (
+        acdc as seg_acdc,
+        patch_and_spacing_dicts,
+        segmentation_eval_batch,
+        segmentation_loss_fn,
+    )
+    from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+    from cinema_tpu_torch.train.loop import to_device
+
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    # 4 studies of each of 5 pathologies: two of each held out leave 10 training studies, 20 frames, 5 steps
+    # an epoch, and 20 validation frames, which cover every size of SEG_SIZES
+    batch_size, n_studies = 4, 20
+    config = from_dict(PACKAGED["segmentation/acdc"])  # grad_ckpt on, as the packaged config
+    config.train.batch_size = batch_size  # no accumulation: every step is an update
+    depth = 12
+    patch_size_dict, spacing_dict = patch_and_spacing_dicts(config)
+    cuda = torch.device("cuda")
+    # the LayerNorm over the one-channel input image outputs its bias: its weight's gradient is zero
+    # analytically and weight decay skips it, so it may stay where it is
+    may_stay = frozenset({"dec_image_conv_block_dict.sax.norm1.weight"})
+
+    def make_step(model):
+        return supervised_step(config, model, segmentation_loss_fn)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = Path(tmp) / "studies"
+        data_dir.mkdir()
+        write_seg_studies(data_dir, n_studies, seed=5)
+        config.data.dir = str(data_dir)
+        train_ds, val_ds = seg_acdc.load_dataset(config)
+        check((len(train_ds), len(val_ds)) == (2 * (n_studies - 10), 20), f"split {len(train_ds)} / {len(val_ds)}")
+        val_sizes = {tuple(int(val_ds.load(i, 0)[k]) for k in ("sax_width", "sax_height", "n_slices"))
+                     for i in range(0, len(val_ds), 2)}
+        check(val_sizes == set(SEG_SIZES), f"validation sizes {val_sizes}, expected {SEG_SIZES}")
+        batches = [to_device(b, cuda) for b in BatchLoader(train_ds, batch_size, seed=0).epoch(0)]
+        check(batches[0]["sax_image"].shape == (batch_size, *patch_size_dict["sax"], 1)
+              and batches[0]["sax_label"].shape == (batch_size, *patch_size_dict["sax"]),
+              f"batch {tuple(batches[0]['sax_image'].shape)} {tuple(batches[0]['sax_label'].shape)}")
+
+        # a. the packaged model, the ViT blocks recomputed in the backward pass (grad_ckpt)
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
+        check(model.encoder.remat, "grad_ckpt did not reach the encoder")
+        state, step_fn = make_step(model)
+        report["segmentation_remat"] = timed_steps(launches, smi, "segmentation_remat", model, state, step_fn, batches,
+                                                   6, (2 * depth, depth, 0, 0), may_stay)
+        check(flash_attention_packed.grad_copies == 0, "the packed backward copied a gradient it should read in place")
+
+        # a NaN batch leaves parameters, moments and count bit-identical
+        snapshot = _snapshot(model, state)
+        steps_before = state.step
+        bad = dict(batches[0], sax_image=torch.full_like(batches[0]["sax_image"], float("nan")))
+        reset()
+        state, metrics = step_fn(state, bad)
+        read()
+        check(float(metrics["skipped_nan"]) == 1.0, "the NaN segmentation batch was not skipped")
+        check(all(torch.equal(a, b) for a, b in zip(snapshot, _snapshot(model, state))),
+              "the NaN segmentation batch changed parameters, moments or count")
+        check(state.step == steps_before + 1, "the NaN batch did not advance the step counter")
+        print("segmentation_nan_guard: a NaN batch left parameters, moments and count bit-identical", flush=True)
+        if profile:
+            reset()
+            report["segmentation_profile"] = profile_call("segmentation_profile", lambda: step_fn(state, batches[0]),
+                                                          smi)
+            read()
+        del snapshot, state, step_fn
+
+        # b. the same model without recomputation: one forward launch per block
+        plain = get_convunetr_model(config, dtype=torch.bfloat16, device=cuda, remat=False)
+        plain.load_state_dict(model.state_dict())
+        state, step_fn = make_step(plain)
+        report["segmentation_plain"] = timed_steps(launches, smi, "segmentation_plain", plain, state, step_fn, batches,
+                                                   2, (depth, depth, 0, 0), may_stay)
+        del plain, state, step_fn
+
+        # c. one f32 step at batch 2: loss and gradients through the packed kernels against the plain attention
+        model32 = get_segmentation_model(config, dtype=torch.float32, device=cuda).train()
+        model32.load_state_dict(model.state_dict())
+        for module in model32.modules():  # no dropout or drop-path noise: both passes see the same network
+            if hasattr(module, "rate"):
+                module.rate = 0.0
+        small = {k: v[:2] for k, v in batches[1].items()}
+        report["segmentation_f32"] = check_f32_step("segmentation_f32", launches, model32, segmentation_loss_fn, small,
+                                                    swapped(vit, "flash_attention_packed_kv",
+                                                            flash_attention_packed_kv_plain),
+                                                    (2 * depth, depth, 0, 0))
+        del model32, model
+
+        # d. the entry point: a short run_train with an evaluation per epoch
+        n_epochs = 2
+        config.logging.dir = str(Path(tmp) / "runs")
+        config.train.update(n_epochs=n_epochs, eval_interval=1)
+        reset()
+        t0 = time.perf_counter()
+        out_dir = seg_acdc.run(config, device="cuda")
+        run_s = time.perf_counter() - t0
+        got = read()
+        steps = n_epochs * (len(train_ds) // batch_size)
+        frames = n_epochs * len(val_ds)  # batch 1: one forward of all a frame's patches
+        check(got == (2 * depth * steps + depth * frames, depth * steps, 0, 0),
+              f"the segmentation run_train launched {got}, expected {2 * depth} packed forward and {depth} backward "
+              f"launches per step and {depth} forward launches per evaluated frame")
+        records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+        train_loss = [r["train_loss"] for r in records if "train_loss" in r]
+        val = [r for r in records if "val_mean_dice_score" in r]
+        check(len(train_loss) == n_epochs and len(val) == n_epochs, f"metrics.jsonl holds {records}")
+        check(all(x == x and abs(x) < 1e4 for x in train_loss), f"segmentation run_train losses not finite: {train_loss}")
+        # every validation label holds every class, so Dice is defined; HD95 is NaN for a class the model
+        # does not predict yet, which a short run from seeded weights decides, so it must only not be infinite
+        dice_keys = ["val_mean_dice_score"] + [f"val_class_{c}_dice_score" for c in (1, 2, 3)]
+        hd95_keys = ["val_mean_hausdorff_distance_95"] + [f"val_class_{c}_hausdorff_distance_95" for c in (1, 2, 3)]
+        keys = dice_keys + hd95_keys
+        check(all(k in r for r in val for k in keys), f"segmentation evaluation keys missing: {val}")
+        check(all(0.0 <= r[k] <= 1.0 for r in val for k in dice_keys), f"segmentation Dice not in [0, 1]: {val}")
+        check(all(np.isnan(r[k]) or 0.0 <= r[k] < np.inf for r in val for k in hd95_keys),
+              f"segmentation HD95 infinite or negative: {val}")
+        ckpt = latest_checkpoint(out_dir)
+        check(ckpt is not None and Path(f"{ckpt}.meta.json").exists(), "checkpoint or its sidecar missing")
+        epoch = json.loads(Path(f"{ckpt}.meta.json").read_text())["epoch"]
+        reloaded = get_segmentation_model(config, dtype=torch.bfloat16, device=cuda)
+        state, _ = make_step(reloaded)
+        state = load_checkpoint(ckpt, state)
+        check(state.step == (epoch + 1) * (len(train_ds) // batch_size), f"reloaded step counter {state.step}")
+        exported = load_safetensors(out_dir / f"model_{epoch}.safetensors")
+        check(set(exported) == set(reloaded.state_dict()), "model safetensors keys differ from the model's")
+        check(all(torch.equal(torch.from_numpy(exported[k]).cuda(), v) for k, v in reloaded.state_dict().items()),
+              "model safetensors differs from the checkpoint's parameters")
+        report["segmentation_run"] = {
+            "epochs": n_epochs, "steps": steps, "evaluated_frames": frames, "seconds": run_s, "train_loss": train_loss,
+            **{k: [r[k] for r in val] for k in keys}, "launches": dict(zip(counters, got)), "saved_epoch": epoch}
+        print("segmentation_run", json.dumps(report["segmentation_run"]), f"on {smi}", flush=True)
+
+        # e. one evaluated study of each size, ED + ES, sliding window and metrics, with the run's saved
+        # weights; HD95's host time apart
+        hd95_s = []
+        hausdorff_distance_95 = seg_metrics.hausdorff_distance_95
+
+        def timed_hd95(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return hausdorff_distance_95(*args, **kwargs)
+            finally:
+                hd95_s.append(time.perf_counter() - t0)
+
+        def evaluate_study(items: list) -> tuple:
+            """Each frame's metrics row and its cropped log-probabilities, left on the card."""
+            rows, logits = [], []
+            for item in items:
+                batch = {**item, **to_device({k: item[k] for k in ("sax_image", "sax_label")}, cuda)}
+                logits_dict, row = segmentation_eval_batch(model, batch, patch_size_dict, spacing_dict, z_bucket=4)
+                rows.append(row)
+                logits.append(logits_dict["sax"])
+            return rows, logits
+
+        def check_metrics_on_the_host(size: tuple, items: list, rows: list, logits: list) -> None:
+            """The card's metrics of each frame against segmentation_metrics of the same log-probabilities on
+            the CPU (rtol 1e-6: the same argmax, counts exact in f32, the same host HD95); HD95 is finite for
+            exactly the classes that both the prediction and the label hold."""
+            for item, row, frame_logits in zip(items, rows, logits):
+                host_logits = frame_logits.float().cpu()
+                label = crop_start(torch.from_numpy(np.asarray(item["sax_label"])), host_logits.shape[:-1])
+                want = {k: float(v[0]) for k, v in
+                        seg_metrics.segmentation_metrics(host_logits, label, spacing_dict["sax"]).items()}
+                check(set(want) == set(row) - {f"sax_{k}" for k in want}, f"{size} frame metric keys {sorted(row)}")
+                differ = {k: (row[k], v) for k, v in want.items()
+                          if not (np.isnan(v) and np.isnan(row[k]) or abs(row[k] - v) <= 1e-6 * abs(v) + 1e-9)}
+                check(not differ, f"{size} frame metrics, card against CPU: {differ}")
+                pred = host_logits.argmax(-1)
+                for c in (1, 2, 3):
+                    both = bool((pred == c).any()) and bool((label == c).any())
+                    check(np.isfinite(row[f"class_{c}_hausdorff_distance_95"]) == both,
+                          f"{size} frame: class {c} HD95 {row[f'class_{c}_hausdorff_distance_95']} where the "
+                          f"prediction and the label {'both' if both else 'do not both'} hold the class")
+
+        model = reloaded.eval()
+        del state
+        seg_metrics.hausdorff_distance_95 = timed_hd95
+        evals = []
+        try:
+            with torch.no_grad():
+                for size in SEG_SIZES:
+                    first = next(i for i in range(0, len(val_ds), 2)
+                                 if tuple(int(val_ds.load(i, 0)[k]) for k in ("sax_width", "sax_height", "n_slices")) == size)
+                    items = [{k: v[None] for k, v in val_ds.load(i, 0).items()} for i in (first, first + 1)]  # ED, ES
+                    evaluate_study(items)  # warm-up
+                    torch.cuda.synchronize()
+                    hd95_s.clear()
+                    reset()
+                    t0 = time.perf_counter()
+                    rows, logits = evaluate_study(items)
+                    study_s = time.perf_counter() - t0
+                    got = read()
+                    hd95_ms = sum(hd95_s) * 1e3
+                    check_metrics_on_the_host(size, items, rows, logits)
+                    check(got == (2 * depth, 0, 0, 0), f"an evaluated {size} study launched {got}, expected "
+                                                        f"{depth} packed forward launches per frame")
+                    check(all(np.isfinite(r["mean_dice_score"]) and 0.0 <= r["mean_dice_score"] <= 1.0 for r in rows),
+                          f"evaluation of a {size} study: {rows}")
+                    x, y, z = items[0]["sax_image"].shape[1:4]  # padded to the patch size, then z to the bucket
+                    n_patches = len(get_patch_grid((x, y, max(patch_size_dict["sax"][2], -(-z // 4) * 4)), patch_size_dict["sax"],
+                                                   [p // 2 for p in patch_size_dict["sax"]]))
+                    evals.append({"size": list(size), "patches": n_patches, "launches": got[0],
+                                  "ms_per_study": study_s * 1e3, "hd95_ms": hd95_ms,
+                                  "mean_dice_score": [r["mean_dice_score"] for r in rows],
+                                  "mean_hausdorff_distance_95": [r["mean_hausdorff_distance_95"] for r in rows]})
+        finally:
+            seg_metrics.hausdorff_distance_95 = hausdorff_distance_95
+        report["segmentation_eval"] = evals
+        print("segmentation_eval", json.dumps(evals), f"on {smi}", flush=True)
+    keys = ("ms_per_step", "samples_per_s", "peak_mem_gib")
+    report["segmentation"] = {
+        "grad_ckpt": {k: report["segmentation_remat"][k] for k in keys},
+        "no_grad_ckpt": {k: report["segmentation_plain"][k] for k in keys},
+        "eval_ms_per_study": {"x".join(map(str, e["size"])): {"ms": e["ms_per_study"], "hd95_ms": e["hd95_ms"]}
+                              for e in evals},
+        "run_s": run_s,
+    }
+    print("segmentation", json.dumps(report["segmentation"]), f"on {smi}", flush=True)
+    report["segmentation_launches"] = counters
+    return counters
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
@@ -1001,18 +1331,21 @@ def main() -> None:
     report["heads_attention"], report["heads_attention_bwd"] = heads_fwd_rows, heads_bwd_rows
     report["kv_gradient"] = check_kv_gradient(gen)
 
-    # 4. to 6. the three paths at full width, launch counts set to 0 before each and read after
+    # 4. to 7. the four paths at full width, launch counts set to 0 before each and read after
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
     tune = finetune_phase(report, smi, args.profile)
+    seg = segmentation_phase(report, smi, args.profile)
 
     kernels = [
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
-                   "cinema_tpu/ops/pallas/flash_attention.py:483", serve_launches + train_fwd + tune["packed_fwd"],
-                   {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"]}, fwd_rows),
+                   "cinema_tpu/ops/pallas/flash_attention.py:483",
+                   serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"],
+                   {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
+                    "segmentation": seg["packed_fwd"]}, fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
-                   "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"],
-                   {"train": train_bwd, "finetune": tune["packed_bwd"]}, bwd_rows),
+                   "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"] + seg["packed_bwd"],
+                   {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),

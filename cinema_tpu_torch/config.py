@@ -69,17 +69,46 @@ def apply_overrides(config: Config, overrides: List[str]) -> Config:
     return config
 
 
-# cinema_tpu/configs/segmentation/acdc.yaml, the model and data sections
-# that rebuild ConvUNetR (ViT-base) for ACDC SAX segmentation
+# cinema_tpu/configs/segmentation/acdc.yaml: ConvUNetR (ViT-base) on the ED and ES
+# frames of ACDC SAX, fine-tuned for segmentation; serving reads its model section
 ACDC_SEGMENTATION = {
     "task": "segmentation",
     "seed": 0,
+    "grad_ckpt": True,
+    "logging": {"dir": "runs"},
     "data": {
         "name": "acdc",
+        "dir": "~/.cache/cinema_datasets/acdc/processed",
         "sax": {"spacing": [1.0, 1.0, 10.0], "patch_size": [192, 192, 16], "in_chans": 1},
+        "max_n_samples": -1,
+        "proportion": 1.0,
+    },
+    "transform": {
+        "prob": 0.5,
+        "gamma": [0.5, 1.5],
+        "scale_range": 0.2,
+        "sax": {"rotate_range": [0, 0, 180], "translate_range": [60, 60, 0], "dropout_size": [40, 40, 2]},
+    },
+    "train": {
+        "n_workers": 4,
+        "clip_grad": 5.0,
+        "weight_decay": 0.05,
+        "layer_decay": 0.75,
+        "betas": [0.9, 0.95],
+        "lr": 1.0e-3,
+        "min_lr": 1.0e-5,
+        "n_warmup_epochs": 50,
+        "n_epochs": 4000,
+        "max_n_ckpts": 1,
+        "batch_size": 64,
+        "batch_size_per_device": 4,
+        "eval_interval": 100,
+        "early_stopping": {"metric": "val_mean_dice_score", "mode": "max", "patience": 5, "min_delta": 1.0e-4},
     },
     "model": {
         "name": "convunetr",
+        "ckpt_path": None,
+        "freeze_pretrained": False,
         "views": "sax",
         "out_chans": 4,
         "convunetr": {
@@ -94,6 +123,7 @@ ACDC_SEGMENTATION = {
             "dropout": 0.1,
             "drop_path": 0.1,
         },
+        "unet": {"chans": [32, 64, 128, 256, 512], "dropout": 0.1, "patch_size": [2, 2, 1], "scale_factor": [2, 2, 1]},
     },
 }
 

@@ -215,3 +215,10 @@ def loaded_freeze_mask(model: nn.Module, loaded_keys: Sequence[str]) -> Dict[str
     """Parameter name -> True where the parameter was loaded (to be frozen)."""
     loaded = set(loaded_keys)
     return {name: name in loaded for name, _ in model.named_parameters()}
+
+
+def load_pretrained(model: nn.Module, config: Mapping[str, Any]) -> Dict[str, bool]:
+    """MAE -> fine-tuned model transfer from the safetensors checkpoint ``config.model.ckpt_path``
+    for the views of ``config.model.views``, the fusion left out; returns the freeze mask."""
+    state_dict = load_safetensors(Path(config.model.ckpt_path).expanduser())
+    return loaded_freeze_mask(model, load_pretrain_weights(model, config.model.views, state_dict, keep_fusion=False))

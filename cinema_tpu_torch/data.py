@@ -1,6 +1,8 @@
 """Batching shared by the task entry points: seeded batches of ``.npz`` studies with a
 background loading thread. NIfTI input, the manifest cache, worker processes and the
-augmentation transforms of the JAX package (cinema_tpu/data) are not ported yet."""
+augmentation transforms of the JAX package (cinema_tpu/data) are not ported yet: a
+training item is only min-max scaled, cut at a seeded random offset and padded, without
+the contrast, noise, affine and coarse-dropout transforms that precede the crop there."""
 
 from __future__ import annotations
 
@@ -93,17 +95,61 @@ class NpzEDESDataset:
                 image = scale_intensity(study[f"{view}_image"])
                 size = tuple(self.sizes[view])
                 if self.train:
-                    starts = [int(rng.integers(max(n - s, 0) + 1)) for n, s in zip(image.shape, size)]
-                    image = image[tuple(slice(a, a + s) for a, s in zip(starts, size))]
+                    image = _cut(image, random_crop_starts(image.shape, size, rng), size)
                 item[f"{view}_image"] = spatial_pad(image, size)
         return item
 
 
-def list_studies(data_dir: Path, max_n_samples: int = -1) -> List[Path]:
+def random_crop_starts(shape: Sequence[int], size: Sequence[int], rng: np.random.Generator) -> List[int]:
+    """Seeded start of a ``size`` cut of the leading axes of ``shape``; 0 on an axis no longer than the cut."""
+    return [int(rng.integers(max(n - s, 0) + 1)) for n, s in zip(shape, size)]
+
+
+def _cut(x: np.ndarray, starts: Sequence[int], size: Sequence[int]) -> np.ndarray:
+    return x[tuple(slice(a, a + s) for a, s in zip(starts, size))]
+
+
+class NpzEDESSegmentationDataset:
+    """ED and ES segmentation frames of ``.npz`` studies (the JAX package's
+    ``EDESSegmentationDataset``, cinema_tpu/data/datasets.py:68-109).
+
+    A study holds ``sax_image`` (x, y, z, 2) and ``sax_label`` (x, y, z, 2) int8
+    with the ED and ES frames on the last axis, and a scalar ``pathology``. Item
+    ``i`` is frame ``i % 2`` (0 ED, 1 ES) of study ``i // 2``: ``sax_image``
+    (x, y, z, 1) min-max scaled to [0, 1], ``sax_label`` (x, y, z), and the frame's
+    ``sax_width``, ``sax_height`` and ``n_slices`` before padding. Training items are
+    cut with their label at one seeded random offset to ``patch_size`` and end-padded
+    with 0 up to it (RandSpatialCropd + SpatialPadd); evaluation items are only padded.
+    """
+
+    def __init__(self, paths: Sequence[Path], patch_size: Sequence[int], train: bool, seed: int = 0) -> None:
+        self.paths = [Path(p) for p in paths]
+        self.patch_size, self.train, self.seed = tuple(patch_size), train, seed
+
+    def __len__(self) -> int:
+        return 2 * len(self.paths)
+
+    def load(self, index: int, epoch: int) -> Dict[str, np.ndarray]:
+        frame = index % 2
+        with np.load(self.paths[index // 2]) as study:
+            image = scale_intensity(study["sax_image"][..., frame])[..., None]
+            label = study["sax_label"][..., frame].astype(np.int8)
+        width, height, n_slices = image.shape[:3]
+        if self.train:
+            starts = random_crop_starts(label.shape, self.patch_size, np.random.default_rng([self.seed, epoch, index]))
+            image, label = _cut(image, starts, self.patch_size), _cut(label, starts, self.patch_size)
+        return {
+            "sax_image": spatial_pad(image, self.patch_size),
+            "sax_label": spatial_pad(label[..., None], self.patch_size)[..., 0],
+            "sax_width": np.int64(width),
+            "sax_height": np.int64(height),
+            "n_slices": np.int64(n_slices),
+        }
+
+
+def list_studies(data_dir: Path) -> List[Path]:
     """The ``.npz`` studies under ``data_dir``, sorted; raises when there is none."""
     paths = sorted(Path(data_dir).expanduser().glob("*.npz"))
-    if max_n_samples > 0:
-        paths = paths[:max_n_samples]
     if not paths:
         raise ValueError(f"No .npz studies found under {data_dir}.")
     return paths

@@ -49,10 +49,15 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 
 
 def get_convunetr_model(
-    config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda", **model_kwargs
+    config: Config,
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+    remat: Optional[bool] = None,
+    **model_kwargs,
 ) -> ConvUNetR:
-    """Build ConvUNetR from a segmentation config, in eval mode on ``device``. ``model_kwargs``
-    go to the constructor for what no config key sets (``rotary``, ``mlp_type``).
+    """Build ConvUNetR from a segmentation config, in eval mode on ``device``; ``remat`` (the
+    ViT blocks recomputed in the backward pass) defaults to the config's ``grad_ckpt``.
+    ``model_kwargs`` go to the constructor for what no config key sets (``rotary``, ``mlp_type``).
 
     Parameters hold torch's default initialisation; call :func:`init_weights`
     for the JAX package's seeded scheme or load a checkpoint.
@@ -78,10 +83,22 @@ def get_convunetr_model(
         dec_scale_factor_dict={v: tuple(m.dec_scale_factor[: ndim[v]]) for v in views},
         dropout=m.get("dropout", 0.0),
         drop_path=m.get("drop_path", 0.0),
+        remat=bool(config.get("grad_ckpt", False)) if remat is None else remat,
         dtype=dtype,
         **model_kwargs,
     )
     return model.to(device).eval()
+
+
+def get_segmentation_model(
+    config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda"
+) -> nn.Module:
+    """The model ``config.model.name`` names (reference segmentation/train.py:31-74): ConvUNetR."""
+    if config.model.name == "convunetr":
+        return get_convunetr_model(config, dtype=dtype, device=device)
+    if config.model.name == "unet":
+        raise NotImplementedError("The UNet baseline is not ported yet (ROADMAP.md, Queue 1, item 11).")
+    raise ValueError(f"Invalid model name {config.model.name}.")
 
 
 def get_convvit_model(
@@ -227,7 +244,7 @@ def from_finetuned(
         raise ValueError(f"kind must be 'convunetr' or 'convvit', got {kind}.")
     device = resolve_device(device)
     if kind == "convunetr":
-        model = get_convunetr_model(load_config(config_path), dtype=dtype, device=device)
+        model = get_convunetr_model(load_config(config_path), dtype=dtype, device=device, remat=False)
     else:
         model = get_convvit_model(load_config(config_path), dtype=dtype, device=device, remat=False)
     state = drop_frozen_pos_embeds(load_safetensors(model_path), expected_frozen_pos_embeds(model))

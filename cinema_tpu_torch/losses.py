@@ -1,6 +1,7 @@
 """Task losses of the fine-tuning heads (port of cinema_tpu/losses.py, the
-classification and regression parts; reference cinema/classification/train.py:82-110
-and cinema/regression/train.py:21-55). Plain torch, float32 inside."""
+segmentation, classification and regression parts; reference
+cinema/segmentation/train.py:77-103, cinema/classification/train.py:82-110 and
+cinema/regression/train.py:21-55). Plain torch, float32 inside."""
 
 from __future__ import annotations
 
@@ -31,6 +32,45 @@ def cross_entropy(
     ce = -(target * log_probs).sum(-1)
     ce = torch.where(valid, ce, torch.zeros_like(ce))
     return ce.sum() / valid.sum().clamp(min=1)
+
+
+def soft_dice_loss(
+    probs: torch.Tensor,
+    target: torch.Tensor,
+    include_background: bool = False,
+    smooth_nr: float = 1e-5,
+    smooth_dr: float = 1e-5,
+) -> torch.Tensor:
+    """MONAI-style soft Dice loss, channels-last: the mean over batch and classes of 1 - Dice.
+
+    Args:
+        probs: (batch, *spatial, n_classes) probabilities.
+        target: (batch, *spatial, n_classes) one-hot (or soft) targets.
+        include_background: keep class 0 in the mean.
+    """
+    if not include_background:
+        probs, target = probs[..., 1:], target[..., 1:]
+    axes = tuple(range(1, probs.ndim - 1))
+    inter = (probs * target).sum(axes)
+    denom = probs.sum(axes) + target.sum(axes)
+    dice = (2.0 * inter + smooth_nr) / (denom + smooth_dr)
+    return (1.0 - dice).mean()
+
+
+def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Cross entropy ignoring label -1, plus soft Dice without background on the float32 softmax.
+    The Dice target is the one-hot of ``max(label, 0)``: an ignored voxel counts as background there.
+
+    Args:
+        logits: (batch, *spatial, n_classes) channels-last.
+        labels: (batch, *spatial) ints, -1 = ignore.
+    """
+    n_classes = logits.shape[-1]
+    mask = F.one_hot(labels.long().clamp(min=0), n_classes).float()
+    ce = cross_entropy(logits, labels, ignore_index=-1)
+    dice = soft_dice_loss(torch.softmax(logits.float(), dim=-1), mask, include_background=False)
+    loss = dice + ce
+    return loss, {"cross_entropy": ce, "mean_dice_loss": dice, "loss": loss}
 
 
 def classification_loss(

@@ -133,6 +133,7 @@ class ConvUNetR(nn.Module):
         norm: str = "layer",
         rotary: bool = False,
         mlp_type: str = "mlp",
+        remat: bool = False,
         dtype: torch.dtype = torch.float32,
     ) -> None:
         super().__init__()
@@ -164,7 +165,7 @@ class ConvUNetR(nn.Module):
             }
         )
         self.encoder = ViTEncoder(enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path,
-                                  rotary=rotary, mlp_type=mlp_type)
+                                  remat=remat, rotary=rotary, mlp_type=mlp_type)
 
         self.dec_image_conv_block_dict = nn.ModuleDict()
         self.dec_down_blocks_dict = nn.ModuleDict()

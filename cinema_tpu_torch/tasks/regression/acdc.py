@@ -28,11 +28,12 @@ import numpy as np
 import torch
 
 from cinema_tpu_torch.config import Config
+from cinema_tpu_torch.convert import load_pretrained
 from cinema_tpu_torch.data import NpzEDESDataset, list_studies
 from cinema_tpu_torch.tasks.classification import view_patch_sizes
-from cinema_tpu_torch.tasks.classification.acdc import load_pretrained, split_by_class, subset, task_main
+from cinema_tpu_torch.tasks.cli import task_main
 from cinema_tpu_torch.tasks.regression import get_regression_model, regression_eval_dataloader, regression_loss_fn
-from cinema_tpu_torch.train.loop import run_train
+from cinema_tpu_torch.train.loop import maybe_subset_dataset, run_train, split_by_class
 
 
 def load_dataset(config: Config) -> Tuple[NpzEDESDataset, NpzEDESDataset]:
@@ -46,7 +47,8 @@ def load_dataset(config: Config) -> Tuple[NpzEDESDataset, NpzEDESDataset]:
             targets.append(float(study[col]))
     train_ids, val_ids = split_by_class(np.array(labels))
     known = ~np.isnan(np.array(targets))
-    train, val = subset(config, [paths[i] for i in train_ids if known[i]], [paths[i] for i in val_ids if known[i]])
+    train, val = maybe_subset_dataset(config, [paths[i] for i in train_ids if known[i]],
+                                      [paths[i] for i in val_ids if known[i]])
     sizes = view_patch_sizes(config)
     label_fn = lambda study: np.float32((float(study[col]) - mean) / std)  # noqa: E731
     return (NpzEDESDataset(train, list(sizes), sizes, label_fn, train=True),

@@ -11,8 +11,9 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -70,6 +71,57 @@ def maybe_reduce_batch_size(config: Config, n: int) -> Config:
     config.train.batch_size = batch_size
     config.train.batch_size_per_device = min(config.train.batch_size_per_device, batch_size)
     return config
+
+
+def split_by_class(labels: np.ndarray, n_val_per_class: int = 2, seed: int = 0) -> Tuple[List[int], List[int]]:
+    """Indices (train, val): ``n_val_per_class`` seeded studies of every class go to validation."""
+    rng = np.random.default_rng(seed)
+    val: List[int] = []
+    for cls in np.unique(labels):
+        members = np.flatnonzero(labels == cls)
+        val += sorted(int(i) for i in rng.choice(members, size=min(n_val_per_class, len(members)), replace=False))
+    val_set = set(val)
+    return [i for i in range(len(labels)) if i not in val_set], sorted(val)
+
+
+def _sample_fraction(items: List[Any], frac: float, groups: Optional[Sequence[Any]]) -> List[Any]:
+    """A seeded ``frac`` of ``items``, of each group apart where ``groups`` are given, in their order.
+    ``round(frac * n)`` items of a group of n, the count of pandas' ``sample(frac=...)``."""
+    rng = np.random.default_rng(0)
+    groups = np.zeros(len(items)) if groups is None else np.asarray(groups)
+    keep: List[int] = []
+    for group in np.unique(groups):
+        members = np.flatnonzero(groups == group)
+        keep += [int(i) for i in rng.choice(members, size=round(frac * len(members)), replace=False)]
+    return [items[i] for i in sorted(keep)]
+
+
+def maybe_subset_dataset(
+    config: Config,
+    train: List[Any],
+    val: List[Any],
+    train_groups: Optional[Sequence[Any]] = None,
+    val_groups: Optional[Sequence[Any]] = None,
+) -> Tuple[List[Any], List[Any]]:
+    """The ``data.max_n_samples`` cap and the ``data.proportion`` of the training list
+    (reference train.py:49-82).
+
+    The cap keeps the seeded fraction ``cap / len`` of each list: of every group
+    (classification passes the class labels) or of the whole list. The proportion
+    then keeps a seeded ``int(proportion * len)`` of the training list.
+    """
+    cap = config.data.get("max_n_samples", -1)
+    if cap > 0:
+        if train:
+            train = _sample_fraction(train, min(cap / len(train), 1.0), train_groups)
+        if val:
+            val = _sample_fraction(val, min(cap / len(val), 1.0), val_groups)
+    proportion = config.data.get("proportion", 1.0)
+    if proportion < 1:
+        rng = np.random.default_rng(config.seed)
+        keep = sorted(rng.choice(len(train), size=int(proportion * len(train)), replace=False))
+        train = [train[i] for i in keep]
+    return train, val
 
 
 def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:

@@ -102,3 +102,52 @@ def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dty
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
     assert torch.equal(out, out_lse)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
+def test_segmentation_train_step_through_the_kernels_agrees_with_the_cpu_step(card):
+    """One f32 step of a small ConvUNetR (head_dim 32) with ``segmentation_loss_fn`` and block
+    recomputation: two packed forward launches and one backward launch per block on the card, and the
+    loss and gradient norm of the same step on the CPU, where attention takes its plain version (rtol 1e-4).
+    Each parameter's gradient is within 1e-3 of its largest entry on the CPU, as chip_smoke.py holds the
+    f32 steps; the weight of the LayerNorm over the one-channel input, whose gradient is zero analytically
+    (its output is its bias) and rounding noise on either device, within 1e-3 of its bias's largest."""
+    from cinema_tpu_torch.factory import init_weights
+    from cinema_tpu_torch.models.convunetr import ConvUNetR
+    from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
+    from cinema_tpu_torch.train.optim import build_optimizer
+    from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
+
+    size = (64, 64, 4)
+    arch = dict(image_size_dict={"sax": size}, in_chans_dict={"sax": 1}, out_chans=4,
+                enc_patch_size_dict={"sax": (4, 4, 1)}, enc_scale_factor_dict={"sax": (2, 2, 1)},
+                enc_conv_chans=(8, 16), enc_conv_n_blocks=1, enc_embed_dim=64, enc_depth=2, enc_n_heads=2,
+                dec_chans=(4, 8, 16, 24, 32), dec_patch_size_dict={"sax": (2, 2, 1)},
+                dec_scale_factor_dict={"sax": (2, 2, 1)}, remat=True)
+    rng = np.random.default_rng(8)
+    batch = {"sax_image": torch.from_numpy(rng.random((2, *size, 1)).astype(np.float32)),
+             "sax_label": torch.from_numpy(rng.integers(-1, 4, size=(2, *size)).astype(np.int8))}
+    results, grads = [], []
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # f32 convolutions on the card, as on the CPU
+    try:
+        for device in ("cpu", card):
+            model = init_weights(ConvUNetR(**arch), seed=2).to(device)
+            tx = build_optimizer(dict(model.named_parameters()), lr=1e-3)
+            step_fn = make_supervised_train_step(model, tx, segmentation_loss_fn)
+            fa.flash_attention_packed.launches = fa.flash_attention_packed.bwd_launches = 0
+            device_batch = {k: v.to(device) for k, v in batch.items()}
+            _, metrics = step_fn(TrainState.create(model, tx), device_batch)
+            results.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                            fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches))
+            fresh = init_weights(ConvUNetR(**arch), seed=2).to(device)
+            grads.append([g.cpu() for g in torch.autograd.grad(segmentation_loss_fn(fresh, device_batch)[0],
+                                                                list(fresh.parameters()))])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert results[0][2:] == (0, 0) and results[1][2:] == (4, 2)
+    np.testing.assert_allclose(results[1][:2], results[0][:2], rtol=1e-4)
+    want = dict(zip([name for name, _ in ConvUNetR(**arch).named_parameters()], grads[0]))
+    for (name, expected), got in zip(want.items(), grads[1]):
+        scale = want[name.replace("weight", "bias") if name == "dec_image_conv_block_dict.sax.norm1.weight" else name]
+        assert (got - expected).abs().max() <= 1e-3 * scale.abs().max().clamp(min=1e-12), name

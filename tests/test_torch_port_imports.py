@@ -41,6 +41,11 @@ FINETUNE_MODULES = {
     "cinema_tpu_torch.tasks.regression", "cinema_tpu_torch.tasks.regression.acdc",
 }
 
+# and every module that the segmentation fine-tuning slice added
+SEGMENTATION_MODULES = {
+    "cinema_tpu_torch.tasks.cli", "cinema_tpu_torch.tasks.segmentation", "cinema_tpu_torch.tasks.segmentation.acdc",
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -50,7 +55,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     n_modules, bad = first.split(" ", 1)
     assert int(n_modules) >= 36, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    assert PRETRAIN_MODULES | FINETUNE_MODULES <= set(names.split()), proc.stdout
+    assert PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES <= set(names.split()), proc.stdout
 
 
 def _no_card():
@@ -85,7 +90,7 @@ def test_packaged_mae_config_is_the_jax_packages_yaml():
         assert yaml.safe_load(f) == PACKAGED["mae"]
 
 
-@pytest.mark.parametrize("task", ["classification", "regression"])
+@pytest.mark.parametrize("task", ["classification", "regression", "segmentation"])
 def test_packaged_finetune_configs_are_the_jax_packages_yamls(task):
     import yaml
 
@@ -110,6 +115,20 @@ def test_finetune_factory_and_entry_points_default_to_the_card(task, tmp_path):
     clf = next((REPO / "tests" / "fixtures" / "example_ckpts").glob("clf-*"))
     with pytest.raises(RuntimeError, match="CUDA"):
         factory.from_finetuned("convvit", clf / "clf.safetensors", clf / "clf.yaml")
+
+
+def test_segmentation_factory_and_entry_point_default_to_the_card(tmp_path):
+    _no_card()
+    from cinema_tpu_torch.tasks.segmentation import acdc
+
+    config = from_dict(PACKAGED["segmentation/acdc"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory.get_segmentation_model(config)
+    config.data.dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acdc.run(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        acdc.main([f"data.dir={tmp_path}"])
 
 
 def test_from_finetuned_defaults_to_the_card():
