@@ -1,21 +1,22 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's four paths (``cinema_tpu_torch``), serving, MAE
-pretraining, ConvViT fine-tuning and ConvUNetR segmentation fine-tuning, at
-full width and holds every
-hand-written kernel of those paths against its plain PyTorch version on
-the card:
+Drives the port's five paths (``cinema_tpu_torch``), serving, MAE
+pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning and
+landmark localization, at full width and holds every hand-written kernel of
+those paths against its plain PyTorch version on the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
    (one process per source, all at once);
 3. kernels: the packed and the per-head attention forward and backward
-   kernels against their plain versions at the paths' shapes and at ragged
-   and cross-attention shapes (the per-head ones with v as the strided v
+   kernels against their plain versions at the paths' shapes (the landmark
+   paths' 257 tokens among them) and at ragged and cross-attention shapes
+   (the per-head ones with v as the strided v
    half of a fused kv projection and through transposed views), with each
-   one's time per call, its time with the host's share hidden (launches
-   back to back), the plain version's, one PyTorch library call's (a
-   yardstick only) and the card's lower bound;
+   one's time per call, its device time alone (launches back to back,
+   enqueued while the device sleeps, so the host's share is hidden), the
+   plain version's, one PyTorch library call's (a yardstick only; per call
+   and device alone) and the card's lower bound;
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
@@ -48,7 +49,21 @@ the card:
    batch, an f32 step against the plain attention path, one evaluated study
    of each size (12 forward launches a frame, the HD95 host time apart), and
    two epochs of ``tasks.segmentation.acdc.run`` with an evaluation each,
-   whose metrics, checkpoint and safetensors are checked.
+   whose metrics, checkpoint and safetensors are checked;
+8. landmark: the 2-D ``lax_2c`` view at 256x256 (257 tokens), bf16, batch 4,
+   seeded weights, on seeded synthetic 8-bit PNGs and metadata tables in the
+   JAX preprocessing's layout (uint8 noise with three bright discs; 16
+   training images of 256x256). ConvUNetR-base heatmaps
+   (``tasks.segmentation.landmark``): timed ``grad_ckpt`` steps (24 packed
+   forward and 12 backward launches a step), a NaN batch, an f32 step against
+   the plain attention path, one evaluated image of 256x256 (one patch) and
+   one of 320x288 (four patches), 12 forward launches each, whose argmax
+   coordinates on the card are held to ``heatmap_argmax`` of the same logits
+   on the CPU, and two epochs of ``run``. ConvViT-base coordinates
+   (``tasks.regression.landmark``, six outputs): the same steps, counts, NaN
+   batch and f32 step, one evaluation of four 256x256 images (12 launches
+   each), and two epochs of ``run``. Each ``run``'s metrics are checked and
+   its checkpoint and safetensors reloaded to the same outputs.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -57,8 +72,8 @@ Usage:
     python3 chip_smoke.py [--out report.json] [--profile]
 
 ``--profile`` adds a torch.profiler pass over one serving chunk, one
-pretraining step, one fine-tuning step and one segmentation step and prints
-the device time by kernel.
+pretraining step, one fine-tuning step, one segmentation step and one landmark
+heatmap step and prints the device time by kernel.
 """
 
 from __future__ import annotations
@@ -67,10 +82,12 @@ import argparse
 import contextlib
 import json
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -136,27 +153,40 @@ def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
 
 
 def device_ms(fn, n: int = 20, warmup: int = 2) -> float:
-    """Time of one call with the host's time hidden behind the device's: CUDA events around ``n``
-    calls issued back to back, divided by ``n`` (the host's time shows where it is the longer)."""
+    """Device time of one call: CUDA events around ``n`` calls issued back to back, divided by ``n``. The
+    device first sleeps (``torch.cuda._sleep``) while the host enqueues the calls, so that the host's time
+    is hidden even where it is the longer, as at small shapes; the sleep doubles until the host has
+    enqueued every call before the device wakes."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / n
+    cycles = 20_000_000  # ~10 ms at the H100's clocks
+    for _ in range(6):
+        slept, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        slept.record()
+        torch.cuda._sleep(cycles)
+        start.record()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        end.record()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.synchronize()
+        if enqueue_ms < slept.elapsed_time(start):
+            return start.elapsed_time(end) / n
+        cycles *= 2
+    fail(f"the device woke before the host had enqueued {n} calls ({enqueue_ms:.1f} ms)")
 
 
 def timings(row: dict, kernel, plain, library, bound: tuple[float, str]) -> None:
-    """A kernel's times at one shape into ``row``: per call (``ms``), with the host hidden
-    (``device_ms``), the plain version's, the library call's, the bound and its shares of both times."""
+    """A kernel's times at one shape into ``row``: per call (``ms``, host included), on the device alone
+    (``device_ms``), the plain version's, the library call's (per call and on the device alone), the bound
+    and its shares of both of the kernel's times."""
     row["ms"] = median_ms(kernel)
     row["device_ms"] = device_ms(kernel)
     row["plain_ms"] = median_ms(plain, reps=5)
     row["library_ms"] = median_ms(library)
+    row["library_device_ms"] = device_ms(library)
     row["bound_ms"], row["bound_by"] = bound
     row["bound_share"] = row["bound_ms"] / row["ms"]
     row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
@@ -271,11 +301,16 @@ TRAIN_DECODER = (16, 2305, 768, 512, 16)
 FINETUNE_PACKED = (4, 2305, 2305, 768, 12)
 EVAL_PACKED = (1, 2305, 2305, 768, 12)
 RAGGED = [(2, 1, 1, 768, 12), (2, 127, 127, 768, 12), (2, 129, 129, 768, 12), (2, 129, 200, 512, 16)]
+# the landmark paths' attention: a 256x256 lax_2c image, patch 4 and two x2 stem levels give a 16x16 grid,
+# 256 tokens + cls = 2 * 128 + 1 (two full q tiles and a one-row tail); a training micro-batch or a
+# four-patch evaluation, and a one-patch evaluation
+LANDMARK_PACKED = (4, 257, 257, 768, 12)
+LANDMARK_EVAL = (1, 257, 257, 768, 12)
 
 
 def check_attention_shapes(gen, timed=True) -> list[dict]:
-    """The forward kernel against its plain version at the paths' shapes and at
-    ragged and cross-attention shapes, bf16 then f32; the first row is the serving shape."""
+    """The forward kernel against its plain version at the paths' shapes (the landmark shapes with sharp
+    scores too) and at ragged and cross-attention shapes, bf16 then f32; the first row is the serving shape."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention(8, 2305, 2305, 768, 12, dtype, gen, timed))  # serving chunk
@@ -285,6 +320,9 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
         rows.append(check_attention(*TRAIN_DECODER, dtype, gen, timed))
         rows.append(check_attention(*FINETUNE_PACKED, dtype, gen, timed))
         rows.append(check_attention(*EVAL_PACKED, dtype, gen, timed))
+        rows.append(check_attention(*LANDMARK_PACKED, dtype, gen, timed))
+        rows.append(check_attention(*LANDMARK_EVAL, dtype, gen, timed))
+        rows.append(check_attention(*LANDMARK_PACKED, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention(*shape, dtype, gen, False))
     return rows
@@ -292,7 +330,8 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
 
 def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
     """The backward kernel against its plain version at the two pretraining shapes (the first two
-    rows) and the fine-tuning shape, with sharp scores, and at ragged and cross shapes; bf16 then f32."""
+    rows), the fine-tuning and the landmark shapes, with sharp scores, and at ragged and cross shapes;
+    bf16 then f32."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, timed))
@@ -300,6 +339,8 @@ def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
         rows.append(check_attention_bwd(*FINETUNE_PACKED, dtype, gen, timed))
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, False, q_scale=SHARP_Q))
         rows.append(check_attention_bwd(*TRAIN_DECODER, dtype, gen, False, q_scale=SHARP_Q))
+        rows.append(check_attention_bwd(*LANDMARK_PACKED, dtype, gen, timed))
+        rows.append(check_attention_bwd(*LANDMARK_PACKED, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention_bwd(*shape, dtype, gen, False))
     return rows
@@ -732,6 +773,23 @@ def _snapshot(model, state):
                                 state.opt_state.count)]
 
 
+def check_nan_batch(label: str, launches, model, state, step_fn, batch: dict, image_key: str):
+    """A batch whose ``image_key`` is all NaN is skipped: parameters, moments and count stay bit-identical
+    and the step counter advances. Returns the state."""
+    snapshot = _snapshot(model, state)
+    steps_before = state.step
+    bad = dict(batch, **{image_key: torch.full_like(batch[image_key], float("nan"))})
+    launches.reset()
+    state, metrics = step_fn(state, bad)
+    launches.read()
+    check(float(metrics["skipped_nan"]) == 1.0, f"the NaN {label} batch was not skipped")
+    check(all(torch.equal(a, b) for a, b in zip(snapshot, _snapshot(model, state))),
+          f"the NaN {label} batch changed parameters, moments or count")
+    check(state.step == steps_before + 1, "the NaN batch did not advance the step counter")
+    print(f"{label}_nan_guard: a NaN batch left parameters, moments and count bit-identical", flush=True)
+    return state
+
+
 class Launches:
     """The launch counters of the packed and the per-head kernels: ``reset`` sets them to 0, ``read``
     returns (packed fwd, packed bwd, per-head fwd, per-head bwd) and adds them to ``totals``, a path's sum."""
@@ -907,22 +965,12 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
         check(flash_attention.grad_copies == 0, "the per-head backward copied a gradient it should read in place")
 
         # a NaN batch leaves parameters, moments and count bit-identical
-        snapshot = _snapshot(rotary, state)
-        steps_before = state.step
-        bad = dict(batches[0], sax_image=torch.full_like(batches[0]["sax_image"], float("nan")))
-        reset()
-        state, metrics = step_fn(state, bad)
-        read()
-        check(float(metrics["skipped_nan"]) == 1.0, "the NaN fine-tuning batch was not skipped")
-        check(all(torch.equal(a, b) for a, b in zip(snapshot, _snapshot(rotary, state))),
-              "the NaN fine-tuning batch changed parameters, moments or count")
-        check(state.step == steps_before + 1, "the NaN batch did not advance the step counter")
-        print("finetune_nan_guard: a NaN batch left parameters, moments and count bit-identical", flush=True)
+        state = check_nan_batch("finetune", launches, rotary, state, step_fn, batches[0], "sax_image")
         if profile:
             reset()
             report["finetune_profile"] = profile_call("finetune_profile", lambda: step_fn(state, batches[0]), smi)
             read()
-        del snapshot, state, step_fn
+        del state, step_fn
 
         # the same step with the blocks recomputed in the backward pass: two forward launches per block
         remat = rotary_model(config, dtype=torch.bfloat16, device="cuda", remat=True)
@@ -1101,23 +1149,13 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
         check(flash_attention_packed.grad_copies == 0, "the packed backward copied a gradient it should read in place")
 
         # a NaN batch leaves parameters, moments and count bit-identical
-        snapshot = _snapshot(model, state)
-        steps_before = state.step
-        bad = dict(batches[0], sax_image=torch.full_like(batches[0]["sax_image"], float("nan")))
-        reset()
-        state, metrics = step_fn(state, bad)
-        read()
-        check(float(metrics["skipped_nan"]) == 1.0, "the NaN segmentation batch was not skipped")
-        check(all(torch.equal(a, b) for a, b in zip(snapshot, _snapshot(model, state))),
-              "the NaN segmentation batch changed parameters, moments or count")
-        check(state.step == steps_before + 1, "the NaN batch did not advance the step counter")
-        print("segmentation_nan_guard: a NaN batch left parameters, moments and count bit-identical", flush=True)
+        state = check_nan_batch("segmentation", launches, model, state, step_fn, batches[0], "sax_image")
         if profile:
             reset()
             report["segmentation_profile"] = profile_call("segmentation_profile", lambda: step_fn(state, batches[0]),
                                                           smi)
             read()
-        del snapshot, state, step_fn
+        del state, step_fn
 
         # b. the same model without recomputation: one forward launch per block
         plain = get_convunetr_model(config, dtype=torch.bfloat16, device=cuda, remat=False)
@@ -1274,11 +1312,283 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
     return counters
 
 
+def write_png_gray(path: Path, image: np.ndarray) -> None:
+    """An 8-bit grayscale PNG of the uint8 (x, y) array ``image``, every row with filter 0 (None); the
+    standard library's encoder of the layout the landmark preprocessing writes (rows are y)."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    rows = np.ascontiguousarray(image.T, dtype=np.uint8)
+    raw = b"".join(b"\x00" + row.tobytes() for row in rows)
+    header = struct.pack(">IIBBBBB", rows.shape[1], rows.shape[0], 8, 0, 0, 0, 0)
+    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
+                     + chunk(b"IEND", b""))
+
+
+def write_landmark_data(root: Path, sizes: dict, seed: int) -> None:
+    """Seeded synthetic landmark data in the JAX preprocessing's layout: ``lax_2c/images/<uid>.png`` and
+    ``{train,val}_metadata.csv`` (uid, view, path, x1..y3); ``sizes[name]`` lists each image's (x, y) size.
+    An image is uint8 noise with three bright discs at seeded landmark coordinates."""
+    rng = np.random.default_rng(seed)
+    (root / "lax_2c" / "images").mkdir(parents=True)
+    for name, name_sizes in sizes.items():
+        lines = ["uid,view,path,x1,y1,x2,y2,x3,y3"]
+        for i, (w, h) in enumerate(name_sizes):
+            coords = np.stack([rng.integers(16, w - 16, size=3), rng.integers(16, h - 16, size=3)], axis=-1)
+            xx, yy = np.mgrid[:w, :h]
+            image = rng.integers(0, 80, size=(w, h))
+            for cx, cy in coords:
+                image[(xx - cx) ** 2 + (yy - cy) ** 2 <= 16] = 230
+            uid = f"{name}{i:03d}"
+            write_png_gray(root / "lax_2c" / "images" / f"{uid}.png", image)
+            lines.append(",".join([uid, "lax_2c", f"lax_2c/images/{uid}.png", *map(str, coords.reshape(-1))]))
+        (root / f"{name}_metadata.csv").write_text("\n".join(lines) + "\n")
+
+
+def check_run_and_reload(label: str, config, out_dir: Path, make_model, make_step, steps_per_epoch: int,
+                         image: torch.Tensor) -> dict:
+    """A ``run``'s metrics (train losses finite; every validation mean landmark distance and coordinate error
+    finite), its latest checkpoint reloaded into a train state (the step counter) and its safetensors into a
+    second model: the two models' parameters and their outputs on ``image`` equal."""
+    from cinema_tpu_torch.convert import load_safetensors
+    from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
+
+    records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+    train_loss = [r["train_loss"] for r in records if "train_loss" in r]
+    val = [r for r in records if "val_mean_landmark_distance" in r]
+    n_epochs = config.train.n_epochs
+    check(len(train_loss) == n_epochs and len(val) == n_epochs, f"{label} metrics.jsonl holds {records}")
+    check(all(x == x and abs(x) < 1e6 for x in train_loss), f"{label} run losses not finite: {train_loss}")
+    check(all(np.isfinite(r["val_mean_landmark_distance"]) and np.isfinite(r["val_mean_coordinate_error"])
+              for r in val), f"{label} evaluation not finite: {val}")
+    ckpt = latest_checkpoint(out_dir)
+    check(ckpt is not None and Path(f"{ckpt}.meta.json").exists(), f"{label} checkpoint or its sidecar missing")
+    epoch = json.loads(Path(f"{ckpt}.meta.json").read_text())["epoch"]
+    reloaded = make_model()
+    state, _ = make_step(reloaded)
+    state = load_checkpoint(ckpt, state)
+    check(state.step == (epoch + 1) * steps_per_epoch, f"{label} reloaded step counter {state.step}")
+    exported = load_safetensors(out_dir / f"model_{epoch}.safetensors")
+    again = make_model()
+    check(set(exported) == set(again.state_dict()), f"{label} model safetensors keys differ from the model's")
+    again.load_state_dict({k: torch.from_numpy(v) for k, v in exported.items()})
+    check(all(torch.equal(a, b) for a, b in zip(reloaded.state_dict().values(), again.state_dict().values())),
+          f"{label} model safetensors differs from the checkpoint's parameters")
+    with torch.no_grad():
+        outs = [m.eval()({"lax_2c": image}) for m in (reloaded, again)]
+    outs = [o["lax_2c"] if isinstance(o, dict) else o for o in outs]
+    check(torch.equal(outs[0], outs[1]), f"{label}: the checkpoint and the safetensors give other outputs")
+    return {"epochs": n_epochs, "train_loss": train_loss,
+            "val_mean_landmark_distance": [r["val_mean_landmark_distance"] for r in val],
+            "val_mean_coordinate_error": [r["val_mean_coordinate_error"] for r in val], "saved_epoch": epoch}
+
+
+# (x, y) sizes of the heatmap validation images: one patch, and 2 x 2 patches (overlap 128)
+LANDMARK_VAL_SIZES = [(256, 256), (256, 256), (320, 288), (320, 288)]
+
+
+def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
+    """Landmark localization at full width on the 2-D lax_2c view: ConvUNetR-base heatmaps and ConvViT-base
+    coordinates; returns the packed kernels' launches on this path."""
+    from cinema_tpu_torch import metrics as lmk_metrics
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.factory import get_segmentation_model, init_weights
+    from cinema_tpu_torch.models import vit
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv_plain
+    from cinema_tpu_torch.ops.window import get_patch_grid
+    from cinema_tpu_torch.tasks.classification import get_classification_model
+    from cinema_tpu_torch.tasks.regression import landmark as reg_landmark
+    from cinema_tpu_torch.tasks.segmentation import landmark as seg_landmark
+    from cinema_tpu_torch.train.loop import to_device
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    batch_size, n_train, n_timed, depth, view = 4, 16, 6, 12, "lax_2c"
+    cuda = torch.device("cuda")
+
+    def plain_attention():
+        return swapped(vit, "flash_attention_packed_kv", flash_attention_packed_kv_plain)
+
+    def f32_copy(build, config, model):
+        """An f32 copy of ``model`` in train mode without dropout or drop-path noise."""
+        model32 = build(config, dtype=torch.float32, device=cuda).train()
+        model32.load_state_dict(model.state_dict())
+        for module in model32.modules():
+            if hasattr(module, "rate"):
+                module.rate = 0.0
+        return model32
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # a. heatmaps: ConvUNetR-base, grad_ckpt on as the packaged config
+        heat_dir = Path(tmp) / "heatmap"
+        write_landmark_data(heat_dir, {"train": [(256, 256)] * n_train, "val": LANDMARK_VAL_SIZES}, seed=6)
+        config = from_dict(PACKAGED["segmentation/landmark"])
+        config.train.batch_size = batch_size  # no accumulation: every step is an update
+        config.data.dir = str(heat_dir)
+        patch = tuple(config.data.lax.patch_size)
+        train_ds, val_ds = seg_landmark.load_dataset(config)
+        check((len(train_ds), len(val_ds)) == (n_train, len(LANDMARK_VAL_SIZES)), f"split {len(train_ds)} / {len(val_ds)}")
+        batches = [to_device(b, cuda) for b in BatchLoader(train_ds, batch_size, seed=0).epoch(0)]
+        check(batches[0][f"{view}_image"].shape == (batch_size, *patch, 1)
+              and batches[0][f"{view}_label"].shape == (batch_size, *patch, 3),
+              f"heatmap batch {tuple(batches[0][f'{view}_image'].shape)}")
+
+        def make_heat_step(model):
+            return supervised_step(config, model, seg_landmark.landmark_loss_fn)
+
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
+        check(model.encoder.remat, "grad_ckpt did not reach the encoder")
+        state, step_fn = make_heat_step(model)
+        # the LayerNorm over the one-channel input image outputs its bias: its weight may stay (phase 7)
+        report["landmark_heatmap"] = timed_steps(launches, smi, "landmark_heatmap", model, state, step_fn, batches,
+                                                 n_timed, (2 * depth, depth, 0, 0),
+                                                 frozenset({f"dec_image_conv_block_dict.{view}.norm1.weight"}))
+        state = check_nan_batch("landmark_heatmap", launches, model, state, step_fn, batches[0], f"{view}_image")
+        if profile:
+            reset()
+            report["landmark_profile"] = profile_call("landmark_profile", lambda: step_fn(state, batches[0]), smi)
+            read()
+        del state, step_fn
+        small = {k: v[:2] for k, v in batches[1].items()}
+        model32 = f32_copy(get_segmentation_model, config, model)
+        report["landmark_heatmap_f32"] = check_f32_step("landmark_heatmap_f32", launches, model32,
+                                                        seg_landmark.landmark_loss_fn, small, plain_attention(),
+                                                        (2 * depth, depth, 0, 0))
+        del model32
+
+        # one evaluated image of each size: sigmoid window, crop, argmax; the card's coordinates against
+        # heatmap_argmax of the same logits on the CPU, where they differ a tie
+        model.eval()
+        evals = []
+        with torch.no_grad():
+            for index in (0, 2):
+                item = {k: v[None] for k, v in val_ds.load(index).items()}
+                batch = dict(item, **{f"{view}_image": torch.from_numpy(item[f"{view}_image"]).to(cuda)})
+                seg_landmark.landmark_eval_batch(model, batch, view, patch)  # warm-up
+                torch.cuda.synchronize()
+                reset()
+                t0 = time.perf_counter()
+                logits, pred, true = seg_landmark.landmark_eval_batch(model, batch, view, patch)
+                pred = pred.cpu()
+                image_s = time.perf_counter() - t0
+                got = read()
+                size = tuple(item[f"{view}_image"].shape[1:3])
+                n_patches = len(get_patch_grid(size, patch, [p // 2 for p in patch]))
+                check(got == (depth, 0, 0, 0), f"an evaluated {size} image launched {got}, expected {depth}")
+                host = logits.float().cpu()
+                check(host.shape == (1, *size, 3) and bool(torch.isfinite(host).all()), f"{size} logits {host.shape}")
+                want = lmk_metrics.heatmap_argmax(host)
+                ties = 0
+                for c in range(3):
+                    (gx, gy), (wx, wy) = pred[0, 2 * c : 2 * c + 2].tolist(), want[0, 2 * c : 2 * c + 2].tolist()
+                    if (gx, gy) != (wx, wy):
+                        check(bool(host[0, gx, gy, c] == host[0, wx, wy, c]),
+                              f"{size} channel {c}: card argmax ({gx}, {gy}) against the CPU's ({wx}, {wy})")
+                        ties += 1
+                evals.append({"size": list(size), "patches": n_patches, "launches": got[0], "ms_per_image": image_s * 1e3,
+                              "coords": pred[0].tolist(), "true_coords": true[0].tolist(), "ties": ties})
+        report["landmark_heatmap_eval"] = evals
+        print("landmark_heatmap_eval", json.dumps(evals), f"on {smi}", flush=True)
+        del model
+
+        # the entry point: two epochs with an evaluation each
+        config.logging.dir = str(Path(tmp) / "runs_heatmap")
+        config.train.update(n_epochs=2, eval_interval=1)
+        reset()
+        t0 = time.perf_counter()
+        out_dir = seg_landmark.run(config, device="cuda")
+        heat_run_s = time.perf_counter() - t0
+        got = read()
+        steps_per_epoch = n_train // batch_size
+        steps, images = 2 * steps_per_epoch, 2 * len(val_ds)
+        check(got == (2 * depth * steps + depth * images, depth * steps, 0, 0),
+              f"the heatmap run launched {got}, expected {2 * depth} + {depth} a step and {depth} an evaluated image")
+        report["landmark_heatmap_run"] = {
+            "seconds": heat_run_s, "steps": steps, "evaluated_images": images, "launches": dict(zip(counters, got)),
+            **check_run_and_reload("landmark_heatmap_run", config, out_dir,
+                                   lambda: get_segmentation_model(config, dtype=torch.bfloat16, device=cuda),
+                                   make_heat_step, steps_per_epoch, batches[0][f"{view}_image"][:1])}
+        print("landmark_heatmap_run", json.dumps(report["landmark_heatmap_run"]), f"on {smi}", flush=True)
+
+        # b. coordinates: ConvViT-base, six outputs, grad_ckpt on as the packaged config
+        coord_dir = Path(tmp) / "coordinates"
+        n_val = 4
+        write_landmark_data(coord_dir, {"train": [(256, 256)] * n_train, "val": [(256, 256)] * n_val}, seed=7)
+        reg = from_dict(PACKAGED["regression/landmark"])
+        reg.train.batch_size = batch_size
+        reg.data.dir = str(coord_dir)
+        train_ds, val_ds = reg_landmark.load_dataset(reg)
+        batches = [to_device(b, cuda) for b in BatchLoader(train_ds, batch_size, seed=0).epoch(0)]
+        check(batches[0]["label"].shape == (batch_size, 6), f"coordinate labels {tuple(batches[0]['label'].shape)}")
+
+        def make_coord_step(model):
+            return supervised_step(reg, model, reg_landmark.landmark_regression_loss_fn)
+
+        model = init_weights(get_classification_model(reg, dtype=torch.bfloat16, device=cuda), seed=reg.seed)
+        check(model.pred_head_dict["cls"].out_features == 6 and model.encoder.remat, "coordinate model")
+        state, step_fn = make_coord_step(model)
+        report["landmark_coordinate"] = timed_steps(launches, smi, "landmark_coordinate", model, state, step_fn,
+                                                    batches, n_timed, (2 * depth, depth, 0, 0))
+        state = check_nan_batch("landmark_coordinate", launches, model, state, step_fn, batches[0], f"{view}_image")
+        del state, step_fn
+        model32 = f32_copy(get_classification_model, reg, model)
+        report["landmark_coordinate_f32"] = check_f32_step(
+            "landmark_coordinate_f32", launches, model32, reg_landmark.landmark_regression_loss_fn,
+            {k: v[:2] for k, v in batches[1].items()}, plain_attention(), (2 * depth, depth, 0, 0))
+        del model32
+
+        # one evaluation of the validation images: a plain forward each
+        loader = BatchLoader(val_ds, 1, shuffle=False, drop_last=False)
+        reg_landmark.landmark_regression_eval_dataloader(model, loader, reg)  # warm-up
+        torch.cuda.synchronize()
+        reset()
+        t0 = time.perf_counter()
+        coord_metrics = reg_landmark.landmark_regression_eval_dataloader(model, loader, reg)
+        coord_eval_s = time.perf_counter() - t0
+        got = read()
+        check(got == (depth * n_val, 0, 0, 0), f"the coordinate evaluation launched {got}, expected {depth} an image")
+        check(all(np.isfinite(v) for v in coord_metrics.values()), f"coordinate evaluation {coord_metrics}")
+        report["landmark_coordinate_eval"] = {"images": n_val, "ms_per_image": coord_eval_s * 1e3 / n_val,
+                                              **coord_metrics}
+        print("landmark_coordinate_eval", json.dumps(report["landmark_coordinate_eval"]), f"on {smi}", flush=True)
+        del model
+
+        reg.logging.dir = str(Path(tmp) / "runs_coordinates")
+        reg.train.update(n_epochs=2, eval_interval=1)
+        reset()
+        t0 = time.perf_counter()
+        out_dir = reg_landmark.run(reg, device="cuda")
+        coord_run_s = time.perf_counter() - t0
+        got = read()
+        steps = 2 * steps_per_epoch
+        check(got == (2 * depth * steps + depth * 2 * n_val, depth * steps, 0, 0),
+              f"the coordinate run launched {got}, expected {2 * depth} + {depth} a step and {depth} an image")
+        report["landmark_coordinate_run"] = {
+            "seconds": coord_run_s, "steps": steps, "evaluated_images": 2 * n_val, "launches": dict(zip(counters, got)),
+            **check_run_and_reload("landmark_coordinate_run", reg, out_dir,
+                                   lambda: get_classification_model(reg, dtype=torch.bfloat16, device=cuda),
+                                   make_coord_step, steps_per_epoch, batches[0][f"{view}_image"][:1])}
+        print("landmark_coordinate_run", json.dumps(report["landmark_coordinate_run"]), f"on {smi}", flush=True)
+    keys = ("ms_per_step", "samples_per_s", "peak_mem_gib")
+    report["landmark"] = {
+        "heatmap": {k: report["landmark_heatmap"][k] for k in keys},
+        "coordinate": {k: report["landmark_coordinate"][k] for k in keys},
+        "heatmap_eval_ms_per_image": {"x".join(map(str, e["size"])): e["ms_per_image"] for e in evals},
+        "coordinate_eval_ms_per_image": report["landmark_coordinate_eval"]["ms_per_image"],
+        "heatmap_run_s": heat_run_s, "coordinate_run_s": coord_run_s, "phase_s": time.perf_counter() - t_phase,
+    }
+    print("landmark", json.dumps(report["landmark"]), f"on {smi}", flush=True)
+    report["landmark_launches"] = counters
+    return counters
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
-    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "bound_share",
-            "device_bound_share")
+    keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "library_device_ms",
+            "bound_share", "device_bound_share")
     timed = [r for r in rows if "ms" in r]
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
@@ -1323,6 +1633,7 @@ def main() -> None:
                 print(f"ptxas {name} {function}: {line.replace('ptxas info    :', '').strip()}", flush=True)
 
     # 3. kernels against their plain versions
+    t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     fwd_rows = check_attention_shapes(gen)
     bwd_rows = check_attention_bwd_shapes(gen)
@@ -1330,22 +1641,27 @@ def main() -> None:
     heads_fwd_rows, heads_bwd_rows = check_heads_shapes(gen)
     report["heads_attention"], report["heads_attention_bwd"] = heads_fwd_rows, heads_bwd_rows
     report["kv_gradient"] = check_kv_gradient(gen)
+    report["kernels_s"] = time.perf_counter() - t0
+    print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 7. the four paths at full width, launch counts set to 0 before each and read after
+    # 4. to 8. the five paths at full width, launch counts set to 0 before each and read after
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
     tune = finetune_phase(report, smi, args.profile)
     seg = segmentation_phase(report, smi, args.profile)
+    lmk = landmark_phase(report, smi, args.profile)
 
     kernels = [
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
-                   serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"],
+                   serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
-                    "segmentation": seg["packed_fwd"]}, fwd_rows),
+                    "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"]}, fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
-                   "cinema_tpu/ops/pallas/flash_attention.py:565", train_bwd + tune["packed_bwd"] + seg["packed_bwd"],
-                   {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"]}, bwd_rows),
+                   "cinema_tpu/ops/pallas/flash_attention.py:565",
+                   train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"],
+                   {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"],
+                    "landmark": lmk["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
@@ -1354,6 +1670,7 @@ def main() -> None:
                    {"finetune": tune["heads_bwd"]}, heads_bwd_rows),
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched")
+    check(all(k["launches_by_path"]["landmark"] > 0 for k in kernels[:2]), "the landmark path launched no packed kernel")
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

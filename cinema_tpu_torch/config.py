@@ -9,6 +9,7 @@ the machine with the card has no PyYAML, and there the packaged configs
 from __future__ import annotations
 
 import ast
+import copy
 from pathlib import Path
 from typing import Any, Dict, List, Union
 
@@ -250,9 +251,31 @@ ACDC_REGRESSION = _acdc_finetune(
     {"metric": "val_mae", "mode": "min"},
 )
 
+
+def _landmark(base: Dict[str, Any], model: Dict[str, Any]) -> Dict[str, Any]:
+    """``base`` for the landmark dataset on the 2-D ``lax_2c`` view (256x256): its data name and
+    directory, the ``lax`` transform ranges, early stopping on the mean landmark distance, and the
+    model fields ``model``."""
+    config = copy.deepcopy(base)
+    config["data"].update(name="landmark", dir="~/.cache/cinema_datasets/landmark/processed",
+                          lax={"spacing": [1.0, 1.0], "patch_size": [256, 256], "in_chans": 1})
+    config["transform"]["lax"] = {"rotate_range": [180], "translate_range": [64, 64]}
+    config["train"]["early_stopping"].update(metric="val_mean_landmark_distance", mode="min")
+    config["model"].update(views="lax_2c", **model)
+    return config
+
+
+# cinema_tpu/configs/segmentation/landmark.yaml: ConvUNetR (ViT-base) heatmaps of three landmarks
+LANDMARK_SEGMENTATION = _landmark(ACDC_SEGMENTATION, {"out_chans": 3})
+LANDMARK_SEGMENTATION["model"]["convunetr"]["enc_patch_size"] = [4, 4]
+# cinema_tpu/configs/regression/landmark.yaml: ConvViT (ViT-base) regression of the six coordinates
+LANDMARK_REGRESSION = _landmark(_acdc_finetune("regression", {}, {}), {"n_frames": 1, "out_chans": 6})
+
 PACKAGED = {
     "segmentation/acdc": ACDC_SEGMENTATION,
     "mae": MAE_PRETRAIN,
     "classification/acdc": ACDC_CLASSIFICATION,
     "regression/acdc": ACDC_REGRESSION,
+    "segmentation/landmark": LANDMARK_SEGMENTATION,
+    "regression/landmark": LANDMARK_REGRESSION,
 }

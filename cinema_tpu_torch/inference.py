@@ -2,7 +2,9 @@
 reference cinema/segmentation/train.py:148-221).
 
 All patches of a study form one batch, and a cine is served in fixed-size
-frame chunks, one forward each.
+frame chunks, one forward each. The overlaps are averaged as softmax
+probabilities (segmentation) or as sigmoid probabilities (landmark heatmaps,
+reference cinema/segmentation/landmark/train.py:135-208).
 """
 
 from __future__ import annotations
@@ -17,24 +19,38 @@ from cinema_tpu_torch.ops.window import aggregate_patches, get_patch_grid, patch
 ForwardFn = Callable[[Dict[str, torch.Tensor]], Dict[str, torch.Tensor]]
 
 
+def _logit(p: torch.Tensor, eps: float = 1e-7) -> torch.Tensor:
+    p = p.clamp(eps, 1.0 - eps)
+    return torch.log(p) - torch.log1p(-p)
+
+
 def sliding_window_forward(
     forward_fn: ForwardFn,
     image_dict: Dict[str, torch.Tensor],
     patch_size_dict: Dict[str, Tuple[int, ...]],
+    aggregation: str = "softmax",
 ) -> Dict[str, torch.Tensor]:
     """Patch one oversized view on a grid (overlap half a patch), forward all
-    patches as one batch, softmax-average the overlaps, return log-probabilities.
+    patches as one batch and average the overlaps in probability space.
 
     Args:
         forward_fn: batched forward, image_dict -> logits_dict (channels-last).
         image_dict: per-view (batch, *spatial, ch); at most one view larger
             than its patch size; other views are repeated per patch.
         patch_size_dict: per-view inference patch size.
+        aggregation: ``"softmax"`` (exclusive classes: softmax-average, then
+            log) or ``"sigmoid"`` (independent channels: sigmoid-average, then
+            the logit, the probabilities clipped to [1e-7, 1 - 1e-7]; reference
+            landmark/train.py:176-200). A view that is not patched is averaged
+            over the patches in the same space.
 
     Returns:
-        per-view (batch, *image_size, out_chans) float32; the forward's logits
-        unchanged when no view needs patching.
+        per-view (batch, *image_size, out_chans) float32 log-probabilities
+        (softmax) or logits (sigmoid); the forward's logits unchanged when no
+        view needs patching.
     """
+    if aggregation not in ("softmax", "sigmoid"):
+        raise ValueError(f"aggregation must be 'softmax' or 'sigmoid', got {aggregation!r}.")
     views = list(image_dict)
     for view, image in image_dict.items():
         if any(s < p for s, p in zip(image.shape[1:-1], patch_size_dict[view])):
@@ -64,14 +80,18 @@ def sliding_window_forward(
     }
     logits_dict = forward_fn(patch_image_dict)
 
+    if aggregation == "softmax":
+        to_probs, from_probs = (lambda x: torch.softmax(x, dim=-1)), torch.log
+    else:
+        to_probs, from_probs = torch.sigmoid, _logit
     out: Dict[str, torch.Tensor] = {}
     for view in views:
-        probs = torch.softmax(logits_dict[view].float(), dim=-1)
+        probs = to_probs(logits_dict[view].float())
         probs = probs.reshape(batch, n_patches, *probs.shape[1:])
         if view == view_to_patch:
-            out[view] = torch.log(torch.stack([aggregate_patches(p, grid, image_size) for p in probs]))
+            out[view] = from_probs(torch.stack([aggregate_patches(p, grid, image_size) for p in probs]))
         else:
-            out[view] = torch.log(probs.mean(dim=1))
+            out[view] = from_probs(probs.mean(dim=1))
     return out
 
 

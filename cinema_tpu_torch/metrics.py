@@ -1,5 +1,5 @@
-"""Evaluation metrics of the segmentation, classification and regression heads
-(port of cinema_tpu/metrics.py; reference cinema/metric.py and the MONAI and
+"""Evaluation metrics of the segmentation, classification, regression and landmark
+heads (port of cinema_tpu/metrics.py; reference cinema/metric.py and the MONAI and
 scikit-learn calls of cinema/segmentation/train.py:224-286,
 cinema/classification/train.py:183-295 and cinema/regression/train.py:183-222).
 
@@ -129,6 +129,25 @@ def hausdorff_distance_95(
             d_tp = ndimage.distance_transform_edt(~ps, sampling=spacing)[ts]
             out[b, c - 1] = max(np.percentile(d_pt, percentile), np.percentile(d_tp, percentile))
     return out
+
+
+def heatmap_argmax(heatmap: torch.Tensor) -> torch.Tensor:
+    """Hard argmax coordinates of channels-last heatmaps (reference metric.py:45-59): (batch, x, y, c) ->
+    (batch, 2c) int64 [x0, y0, x1, y1, ...], the first maximum where several are equal."""
+    batch, w, h, c = heatmap.shape
+    idx = heatmap.reshape(batch, w * h, c).argmax(dim=1)  # (batch, c)
+    return torch.stack([idx // h, idx % h], dim=-1).reshape(batch, 2 * c)
+
+
+def heatmap_soft_argmax(heatmap: torch.Tensor, beta: float = 1000.0) -> torch.Tensor:
+    """Soft-argmax coordinates of channels-last heatmaps (reference metric.py:62-81): the expected (x, y)
+    under ``softmax(beta * heatmap)`` over the positions, (batch, x, y, c) -> (batch, 2c), truncated to int32."""
+    batch, w, h, c = heatmap.shape
+    probs = torch.softmax(heatmap.reshape(batch, w * h, c) * beta, dim=1)
+    xs, ys = torch.meshgrid(torch.arange(w, device=heatmap.device), torch.arange(h, device=heatmap.device),
+                            indexing="ij")
+    coords = torch.stack([xs.reshape(-1), ys.reshape(-1)], dim=-1).to(probs.dtype)  # (w*h, 2)
+    return torch.einsum("bnc,nd->bcd", probs, coords).reshape(batch, 2 * c).to(torch.int32)
 
 
 def segmentation_metrics(logits: torch.Tensor, labels: torch.Tensor, spacing: Sequence[float]) -> Dict[str, np.ndarray]:

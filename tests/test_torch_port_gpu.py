@@ -104,50 +104,105 @@ def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dty
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
-@pytest.mark.gpu
-def test_segmentation_train_step_through_the_kernels_agrees_with_the_cpu_step(card):
-    """One f32 step of a small ConvUNetR (head_dim 32) with ``segmentation_loss_fn`` and block
-    recomputation: two packed forward launches and one backward launch per block on the card, and the
-    loss and gradient norm of the same step on the CPU, where attention takes its plain version (rtol 1e-4).
-    Each parameter's gradient is within 1e-3 of its largest entry on the CPU, as chip_smoke.py holds the
-    f32 steps; the weight of the LayerNorm over the one-channel input, whose gradient is zero analytically
-    (its output is its bias) and rounding noise on either device, within 1e-3 of its bias's largest."""
+def _step_on_the_cpu_and_the_card(card, build, loss_fn, batch, zero_grad: str = ""):
+    """One f32 step of ``loss_fn`` with block recomputation, from ``init_weights(build(), seed=2)``, on the
+    CPU (plain attention) and on the card (the packed kernels), held as chip_smoke.py holds its f32 steps:
+    the loss and the gradient norm of the step within rtol 1e-4, and each parameter's gradient within 1e-3
+    of its largest entry on the CPU. ``zero_grad`` names a parameter whose gradient is zero analytically
+    and rounding noise on either device (the weight of the LayerNorm over a one-channel input, whose
+    output is its bias); it is held to its bias's largest entry instead. Returns the card's step's
+    (forward, backward) launches of the packed kernels."""
     from cinema_tpu_torch.factory import init_weights
-    from cinema_tpu_torch.models.convunetr import ConvUNetR
-    from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
     from cinema_tpu_torch.train.optim import build_optimizer
     from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
 
-    size = (64, 64, 4)
-    arch = dict(image_size_dict={"sax": size}, in_chans_dict={"sax": 1}, out_chans=4,
-                enc_patch_size_dict={"sax": (4, 4, 1)}, enc_scale_factor_dict={"sax": (2, 2, 1)},
-                enc_conv_chans=(8, 16), enc_conv_n_blocks=1, enc_embed_dim=64, enc_depth=2, enc_n_heads=2,
-                dec_chans=(4, 8, 16, 24, 32), dec_patch_size_dict={"sax": (2, 2, 1)},
-                dec_scale_factor_dict={"sax": (2, 2, 1)}, remat=True)
-    rng = np.random.default_rng(8)
-    batch = {"sax_image": torch.from_numpy(rng.random((2, *size, 1)).astype(np.float32)),
-             "sax_label": torch.from_numpy(rng.integers(-1, 4, size=(2, *size)).astype(np.int8))}
-    results, grads = [], []
+    results, grads, launches = [], [], []
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = False  # f32 convolutions on the card, as on the CPU
     try:
         for device in ("cpu", card):
-            model = init_weights(ConvUNetR(**arch), seed=2).to(device)
-            tx = build_optimizer(dict(model.named_parameters()), lr=1e-3)
-            step_fn = make_supervised_train_step(model, tx, segmentation_loss_fn)
-            fa.flash_attention_packed.launches = fa.flash_attention_packed.bwd_launches = 0
             device_batch = {k: v.to(device) for k, v in batch.items()}
-            _, metrics = step_fn(TrainState.create(model, tx), device_batch)
-            results.append((float(metrics["loss"]), float(metrics["grad_norm"]),
-                            fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches))
-            fresh = init_weights(ConvUNetR(**arch), seed=2).to(device)
-            grads.append([g.cpu() for g in torch.autograd.grad(segmentation_loss_fn(fresh, device_batch)[0],
+            fresh = init_weights(build(), seed=2).to(device).train()
+            grads.append([g.cpu() for g in torch.autograd.grad(loss_fn(fresh, device_batch)[0],
                                                                 list(fresh.parameters()))])
+            model = init_weights(build(), seed=2).to(device)
+            fa.flash_attention_packed.launches = fa.flash_attention_packed.bwd_launches = 0
+            tx = build_optimizer(dict(model.named_parameters()), lr=1e-3)
+            step_fn = make_supervised_train_step(model, tx, loss_fn)
+            _, metrics = step_fn(TrainState.create(model, tx), device_batch)
+            results.append((float(metrics["loss"]), float(metrics["grad_norm"])))
+            launches.append((fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
-    assert results[0][2:] == (0, 0) and results[1][2:] == (4, 2)
-    np.testing.assert_allclose(results[1][:2], results[0][:2], rtol=1e-4)
-    want = dict(zip([name for name, _ in ConvUNetR(**arch).named_parameters()], grads[0]))
+    assert launches[0] == (0, 0)
+    np.testing.assert_allclose(results[1], results[0], rtol=1e-4)
+    want = dict(zip([name for name, _ in build().named_parameters()], grads[0]))
     for (name, expected), got in zip(want.items(), grads[1]):
-        scale = want[name.replace("weight", "bias") if name == "dec_image_conv_block_dict.sax.norm1.weight" else name]
+        scale = want[name.replace("weight", "bias") if name == zero_grad else name]
         assert (got - expected).abs().max() <= 1e-3 * scale.abs().max().clamp(min=1e-12), name
+    return launches[1]
+
+
+def _convunetr(view: str, size: tuple, out_chans: int):
+    """A small ConvUNetR (head_dim 32, two blocks, block recomputation) on one view of ``size``."""
+    from cinema_tpu_torch.models.convunetr import ConvUNetR
+
+    nd = len(size)
+    return ConvUNetR(image_size_dict={view: size}, in_chans_dict={view: 1}, out_chans=out_chans,
+                     enc_patch_size_dict={view: (4, 4, 1)[:nd]}, enc_scale_factor_dict={view: (2, 2, 1)[:nd]},
+                     enc_conv_chans=(8, 16), enc_conv_n_blocks=1, enc_embed_dim=64, enc_depth=2, enc_n_heads=2,
+                     dec_chans=(4, 8, 16, 24, 32), dec_patch_size_dict={view: (2, 2, 1)[:nd]},
+                     dec_scale_factor_dict={view: (2, 2, 1)[:nd]}, remat=True)
+
+
+@pytest.mark.gpu
+def test_segmentation_train_step_through_the_kernels_agrees_with_the_cpu_step(card):
+    """One f32 step of a small ConvUNetR with ``segmentation_loss_fn`` and block recomputation: two packed
+    forward launches and one backward launch per block on the card, the loss, gradient norm and every
+    parameter's gradient as the CPU's (``_step_on_the_cpu_and_the_card``)."""
+    from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
+
+    size = (64, 64, 4)
+    rng = np.random.default_rng(8)
+    batch = {"sax_image": torch.from_numpy(rng.random((2, *size, 1)).astype(np.float32)),
+             "sax_label": torch.from_numpy(rng.integers(-1, 4, size=(2, *size)).astype(np.int8))}
+    launches = _step_on_the_cpu_and_the_card(card, lambda: _convunetr("sax", size, 4), segmentation_loss_fn, batch,
+                                             zero_grad="dec_image_conv_block_dict.sax.norm1.weight")
+    assert launches == (4, 2)
+
+
+@pytest.mark.gpu
+def test_landmark_heatmap_train_step_through_the_kernels_agrees_with_the_cpu_step(card):
+    """As the segmentation step, for a small 2-D ConvUNetR on ``lax_2c`` at 64x64 (65 tokens, a ragged
+    tile) with ``landmark_loss_fn`` on Gaussian heatmaps and images of 0-255 intensities."""
+    from cinema_tpu_torch.data import gaussian_heatmap
+    from cinema_tpu_torch.tasks.segmentation.landmark import landmark_loss_fn
+
+    rng = np.random.default_rng(9)
+    heatmaps = np.stack([gaussian_heatmap((64, 64), rng.integers(4, 60, size=(3, 2))) for _ in range(2)])
+    batch = {"lax_2c_image": torch.from_numpy((rng.random((2, 64, 64, 1)) * 255).astype(np.float32)),
+             "lax_2c_label": torch.from_numpy(heatmaps)}
+    launches = _step_on_the_cpu_and_the_card(card, lambda: _convunetr("lax_2c", (64, 64), 3), landmark_loss_fn,
+                                             batch, zero_grad="dec_image_conv_block_dict.lax_2c.norm1.weight")
+    assert launches == (4, 2)
+
+
+@pytest.mark.gpu
+def test_landmark_coordinate_train_step_through_the_kernels_agrees_with_the_cpu_step(card):
+    """As the segmentation step, for a small 2-D ConvViT on ``lax_2c`` at 64x64 with six outputs and
+    ``landmark_regression_loss_fn`` (Wing losses in pixels)."""
+    from cinema_tpu_torch.models.convvit import ConvViT
+    from cinema_tpu_torch.tasks.regression.landmark import landmark_regression_loss_fn
+
+    def build():
+        return ConvViT(image_size_dict={"lax_2c": (64, 64)}, in_chans_dict={"lax_2c": 1}, n_frames=1, out_chans=6,
+                       enc_patch_size_dict={"lax_2c": (4, 4)}, enc_scale_factor_dict={"lax_2c": (2, 2)},
+                       enc_conv_chans=(8, 16), enc_conv_n_blocks=1, enc_embed_dim=64, enc_depth=2, enc_n_heads=2,
+                       remat=True)
+
+    rng = np.random.default_rng(10)
+    batch = {"lax_2c_image": torch.from_numpy((rng.random((2, 64, 64, 1)) * 255).astype(np.float32)),
+             "label": torch.from_numpy(rng.random((2, 6)).astype(np.float32)),
+             "lax_2c_width": torch.full((2,), 64), "lax_2c_height": torch.full((2,), 64)}
+    launches = _step_on_the_cpu_and_the_card(card, build, landmark_regression_loss_fn, batch)
+    assert launches == (4, 2)

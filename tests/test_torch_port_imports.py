@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``cinema_tpu_torch`` pulls
-in neither jax nor the JAX package, and its entry points run on the card
-unless the caller asks for the CPU."""
+in neither jax nor the JAX package, nor PIL, pandas or PyYAML, which the card's
+machine does not have; and its entry points run on the card unless the caller
+asks for the CPU."""
 
 import subprocess
 import sys
@@ -22,7 +23,7 @@ names = [m.name for m in pkgutil.walk_packages(cinema_tpu_torch.__path__, "cinem
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinema_tpu"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinema_tpu", "PIL", "pandas", "yaml"))
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -46,6 +47,9 @@ SEGMENTATION_MODULES = {
     "cinema_tpu_torch.tasks.cli", "cinema_tpu_torch.tasks.segmentation", "cinema_tpu_torch.tasks.segmentation.acdc",
 }
 
+# and every module that the landmark slice added
+LANDMARK_MODULES = {"cinema_tpu_torch.tasks.segmentation.landmark", "cinema_tpu_torch.tasks.regression.landmark"}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -55,7 +59,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     n_modules, bad = first.split(" ", 1)
     assert int(n_modules) >= 36, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    assert PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES <= set(names.split()), proc.stdout
+    assert PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES <= set(names.split()), \
+        proc.stdout
 
 
 def _no_card():
@@ -90,12 +95,14 @@ def test_packaged_mae_config_is_the_jax_packages_yaml():
         assert yaml.safe_load(f) == PACKAGED["mae"]
 
 
-@pytest.mark.parametrize("task", ["classification", "regression", "segmentation"])
+@pytest.mark.parametrize("task", ["classification", "regression", "segmentation", "segmentation/landmark",
+                                  "regression/landmark"])
 def test_packaged_finetune_configs_are_the_jax_packages_yamls(task):
     import yaml
 
-    with open(REPO / "cinema_tpu" / "configs" / task / "acdc.yaml") as f:
-        assert yaml.safe_load(f) == PACKAGED[f"{task}/acdc"]
+    name = task if "/" in task else f"{task}/acdc"
+    with open(REPO / "cinema_tpu" / "configs" / f"{name}.yaml") as f:
+        assert yaml.safe_load(f) == PACKAGED[name]
 
 
 @pytest.mark.parametrize("task", ["classification", "regression"])
@@ -129,6 +136,23 @@ def test_segmentation_factory_and_entry_point_default_to_the_card(tmp_path):
         acdc.run(config)
     with pytest.raises(RuntimeError, match="CUDA"):
         acdc.main([f"data.dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("task", ["segmentation", "regression"])
+def test_landmark_factory_and_entry_point_default_to_the_card(task, tmp_path):
+    _no_card()
+    import importlib
+
+    landmark = importlib.import_module(f"cinema_tpu_torch.tasks.{task}.landmark")
+    config = from_dict(PACKAGED[f"{task}/landmark"])
+    build = factory.get_segmentation_model if task == "segmentation" else factory.get_convvit_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(config)
+    config.data.dir = str(tmp_path)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        landmark.run(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        landmark.main([f"data.dir={tmp_path}"])
 
 
 def test_from_finetuned_defaults_to_the_card():

@@ -88,7 +88,7 @@ which = set(sys.argv[1].split(","))
 gen = torch.Generator(device="cuda").manual_seed(0)
 sharp = cs.SHARP_Q
 shapes = [(cs.TRAIN_ENCODER, 1.0), (cs.TRAIN_DECODER, 1.0), (cs.TRAIN_ENCODER, sharp), (cs.TRAIN_DECODER, sharp),
-          *((shape, 1.0) for shape in cs.RAGGED[1:])]
+          (cs.LANDMARK_PACKED, 1.0), (cs.LANDMARK_PACKED, sharp), *((shape, 1.0) for shape in cs.RAGGED[1:])]
 runs = []
 if "forward" in which:
     runs += [(cs.check_attention, ((8, 2305, 2305, 768, 12), q_scale)) for q_scale in (1.0, sharp)]
