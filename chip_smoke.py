@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's five paths (``cinema_tpu_torch``), serving, MAE
-pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning and
-landmark localization, at full width and holds every hand-written kernel of
-those paths against its plain PyTorch version on the card:
+Drives the port's six paths (``cinema_tpu_torch``), serving, MAE
+pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
+landmark localization and the M&Ms and M&Ms2 tasks, at full width and holds
+every hand-written kernel of those paths against its plain PyTorch version
+on the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
@@ -32,8 +33,9 @@ those paths against its plain PyTorch version on the card:
    are held against the plain attention path;
 6. fine-tuning: ConvViT-base from the packaged ACDC classification config
    (SAX 192x192x16, two frames as channels, 2305 tokens, batch 4, bf16,
-   seeded weights, seeded synthetic studies): steps of the default model
-   through the packed kernels, then of the ``rotary=True`` model through the
+   seeded weights, seeded synthetic studies in the processed ACDC layout:
+   uint8 NIfTI and ``train_metadata.csv``, training items augmented as the
+   config says): steps of the default model through the packed kernels, then of the ``rotary=True`` model through the
    per-head kernels (timed, with the launch counts, one step with block
    recomputation, a NaN batch, an f32 step against the plain attention
    path), a short ``run_train`` with evaluations whose checkpoint and
@@ -41,8 +43,9 @@ those paths against its plain PyTorch version on the card:
    evaluation;
 7. segmentation: ConvUNetR-base from the packaged ACDC segmentation config
    (SAX 192x192x16, batch 4, bf16, seeded weights) on 20 seeded synthetic
-   studies with ED and ES labels (three nested ellipsoid shells) of three
-   sizes: 192x192x16, 224x208x10 (four in-plane patches, padded in z) and
+   studies in the processed ACDC layout (uint8 NIfTI images and labels,
+   three nested ellipsoid shells, and ``train_metadata.csv``; training items
+   augmented as the config says) of three sizes: 192x192x16, 224x208x10 (four in-plane patches, padded in z) and
    200x200x18 (padded to 20 by the z bucket, two z-patches). Timed steps with
    the ViT blocks recomputed (``grad_ckpt``, the config's default: 24 packed
    forward and 12 backward launches a step) and without (12 + 12), a NaN
@@ -63,7 +66,23 @@ those paths against its plain PyTorch version on the card:
    (``tasks.regression.landmark``, six outputs): the same steps, counts, NaN
    batch and f32 step, one evaluation of four 256x256 images (12 launches
    each), and two epochs of ``run``. Each ``run``'s metrics are checked and
-   its checkpoint and safetensors reloaded to the same outputs.
+   its checkpoint and safetensors reloaded to the same outputs;
+9. mnms: seeded synthetic M&Ms and M&Ms2 trees in the preprocessing's layout
+   (14 training and 5 validation studies each, SAX 192x192xz with z from 10
+   to 14, uint8 images with a bright LV/MYO/RV blob and their labels;
+   metadata with ``pid``, ``n_slices``, ``pathology``, ``ef`` and, for M&Ms,
+   ``age``). The augmented training loader of ``segmentation/mnms`` alone
+   (ms per batch of 4 and items/s with 1 thread, ``train.n_workers`` threads
+   and as many processes, which must give the same batches); ConvUNetR-base
+   ``grad_ckpt`` steps at batch 4 fed from that loader inside the loop (a
+   warm-up and six timed steps with 4 threads and with 4 processes at
+   ``transform.prob`` 0.5, and with 4 threads, as ``run_train`` loads, at
+   ``prob`` 0:
+   ms per step, the loader's wait per step, peak memory, 24 + 12 launches a
+   step; with ``--profile`` the card's idle share of a fed step); one epoch
+   of each of the six entry points' ``run``, with finite metrics, the
+   launches its steps and evaluated items need, and its checkpoint and
+   safetensors reloaded to the same outputs.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -72,14 +91,15 @@ Usage:
     python3 chip_smoke.py [--out report.json] [--profile]
 
 ``--profile`` adds a torch.profiler pass over one serving chunk, one
-pretraining step, one fine-tuning step, one segmentation step and one landmark
-heatmap step and prints the device time by kernel.
+pretraining step, one fine-tuning step, one segmentation step, one landmark
+heatmap step and one fed M&Ms step and prints the device time by kernel.
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import csv
 import json
 import statistics
 import struct
@@ -756,16 +776,37 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     return fwd, bwd
 
 
+def write_metadata(path: Path, rows: list[dict]) -> None:
+    """A metadata table as the JAX preprocessing writes it (pandas' ``to_csv``: a header, an empty field where
+    a value is missing)."""
+    with open(path, "w", newline="") as f:
+        writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+        writer.writeheader()
+        writer.writerows(rows)
+
+
 def write_edes_studies(data_dir: Path, n: int, size: tuple, seed: int) -> None:
-    """Seeded synthetic ED + ES studies, one .npz each: ``sax_image`` (x, y, z, 2) of noise with one
-    slab along z brightened by the class, ``label`` the class of five, ``ef`` a target that follows it."""
+    """Seeded synthetic ED + ES studies in the processed ACDC layout (``train/<pid>/<pid>_sax_{ed,es}.nii.gz``,
+    uint8, and ``train_metadata.csv``): noise with one slab along z brightened by the class, ``pathology``
+    the class of five, ``ef`` a target that follows it."""
+    from cinema_tpu_torch.config import PACKAGED
+    from cinema_tpu_torch.data import save_nifti
+
+    classes = PACKAGED["classification/acdc"]["data"]["pathology"]
     rng = np.random.default_rng(seed)
+    rows = []
     for i in range(n):
         label = i % 5
-        image = rng.random((*size, 2), dtype=np.float32) * 100
-        image[:, :, 3 * label : 3 * label + 3] += 150 + 30 * label
-        np.savez(data_dir / f"study_{i:04d}.npz", sax_image=image.astype(np.float16), label=np.int64(label),
-                 ef=np.float32(20 + 8 * label + rng.normal()))
+        image = rng.random((*size, 2), dtype=np.float32) * 60
+        image[:, :, 3 * label : 3 * label + 3] += 80 + 25 * label
+        pid = f"patient{i:03d}"
+        (data_dir / "train" / pid).mkdir(parents=True)
+        for f, frame in enumerate(("ed", "es")):
+            save_nifti(data_dir / "train" / pid / f"{pid}_sax_{frame}.nii.gz", image[..., f].astype(np.uint8),
+                       spacing=(1.0, 1.0, 10.0))
+        rows.append({"pid": pid, "n_slices": size[2], "pathology": classes[label],
+                     "ef": round(float(20 + 8 * label + rng.normal()), 4)})
+    write_metadata(data_dir / "train_metadata.csv", rows)
 
 
 def _snapshot(model, state):
@@ -1058,31 +1099,53 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
 SEG_SIZES = [(192, 192, 16), (224, 208, 10), (200, 200, 18)]
 
 
+def seg_frames(rng: np.random.Generator, size: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """(image, label) of one seeded synthetic ED + ES study of ``size``, uint8 (x, y, z, 2) each, ED and ES on
+    the last axis: per frame three nested ellipsoid shells at a seeded centre and radius, the LV cavity (1)
+    inside the myocardium (2) and the RV (3) beside it, smaller at ES; the image brightens by class on noise."""
+    axes = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in size), indexing="ij")
+    centre = np.array(size, np.float32) * (0.42 + rng.uniform(-0.04, 0.04, 3).astype(np.float32) * (1, 1, 0.2))
+    radii = np.array(size, np.float32) * (rng.uniform(0.15, 0.2), rng.uniform(0.15, 0.2), 0.45)
+    labels = []
+    for frame_scale in (1.0, 0.85):  # ED, ES
+        r = radii * frame_scale
+        d_lv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, centre, r)))
+        rv_centre = centre + (1.3 * r[0], 0, 0)
+        d_rv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, rv_centre, r * (0.8, 1.2, 1.0))))
+        label = np.zeros(size, np.uint8)
+        label[d_rv < 1] = 3
+        label[d_lv < 1] = 2
+        label[d_lv < 0.6] = 1
+        labels.append(label)
+    label = np.stack(labels, axis=-1)
+    image = np.array([30, 220, 110, 165], np.float32)[label] + rng.normal(0, 25, label.shape).astype(np.float32)
+    return np.clip(image, 0, 255).astype(np.uint8), label
+
+
+def write_seg_study(split_dir: Path, pid: str, image: np.ndarray, label: np.ndarray) -> None:
+    """One study's ED and ES SAX frames and labels as the preprocessing writes them, under ``split_dir/pid``."""
+    from cinema_tpu_torch.data import save_nifti
+
+    (split_dir / pid).mkdir(parents=True)
+    for f, frame in enumerate(("ed", "es")):
+        save_nifti(split_dir / pid / f"{pid}_sax_{frame}.nii.gz", image[..., f], spacing=(1.0, 1.0, 10.0))
+        save_nifti(split_dir / pid / f"{pid}_sax_{frame}_gt.nii.gz", label[..., f], spacing=(1.0, 1.0, 10.0))
+
+
 def write_seg_studies(data_dir: Path, n: int, seed: int) -> None:
-    """Seeded synthetic ED + ES segmentation studies, one .npz each, sizes in turn from SEG_SIZES:
-    per frame three nested ellipsoid shells at a seeded centre and radius, the LV cavity (1) inside
-    the myocardium (2) and the RV (3) beside it, smaller at ES; the image brightens by class on noise."""
+    """Seeded synthetic ED + ES segmentation studies in the processed ACDC layout (``seg_frames``), sizes in
+    turn from SEG_SIZES, with ``train_metadata.csv`` (``pid``, ``n_slices``, ``pathology``)."""
+    from cinema_tpu_torch.config import PACKAGED
+
+    classes = PACKAGED["classification/acdc"]["data"]["pathology"]
     rng = np.random.default_rng(seed)
+    rows = []
     for i in range(n):
         size = SEG_SIZES[i % len(SEG_SIZES)]
-        axes = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in size), indexing="ij")
-        centre = np.array(size, np.float32) * (0.42 + rng.uniform(-0.04, 0.04, 3).astype(np.float32) * (1, 1, 0.2))
-        radii = np.array(size, np.float32) * (rng.uniform(0.15, 0.2), rng.uniform(0.15, 0.2), 0.45)
-        labels = []
-        for frame_scale in (1.0, 0.85):  # ED, ES
-            r = radii * frame_scale
-            d_lv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, centre, r)))
-            rv_centre = centre + (1.3 * r[0], 0, 0)
-            d_rv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, rv_centre, r * (0.8, 1.2, 1.0))))
-            label = np.zeros(size, np.int8)
-            label[d_rv < 1] = 3
-            label[d_lv < 1] = 2
-            label[d_lv < 0.6] = 1
-            labels.append(label)
-        label = np.stack(labels, axis=-1)
-        image = np.array([40, 320, 160, 240], np.float32)[label] + rng.normal(0, 40, label.shape).astype(np.float32)
-        np.savez(data_dir / f"study_{i:04d}.npz", sax_image=image.astype(np.float16), sax_label=label,
-                 pathology=np.int64(i % 5))
+        pid = f"patient{i:03d}"
+        write_seg_study(data_dir / "train", pid, *seg_frames(rng, size))
+        rows.append({"pid": pid, "n_slices": size[2], "pathology": classes[i % 5]})
+    write_metadata(data_dir / "train_metadata.csv", rows)
 
 
 def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
@@ -1273,7 +1336,8 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
                 for size in SEG_SIZES:
                     first = next(i for i in range(0, len(val_ds), 2)
                                  if tuple(int(val_ds.load(i, 0)[k]) for k in ("sax_width", "sax_height", "n_slices")) == size)
-                    items = [{k: v[None] for k, v in val_ds.load(i, 0).items()} for i in (first, first + 1)]  # ED, ES
+                    items = [{k: v[None] for k, v in val_ds.load(i, 0).items() if k != "pid"}
+                             for i in (first, first + 1)]  # ED, ES
                     evaluate_study(items)  # warm-up
                     torch.cuda.synchronize()
                     hd95_s.clear()
@@ -1346,21 +1410,20 @@ def write_landmark_data(root: Path, sizes: dict, seed: int) -> None:
 
 
 def check_run_and_reload(label: str, config, out_dir: Path, make_model, make_step, steps_per_epoch: int,
-                         image: torch.Tensor) -> dict:
-    """A ``run``'s metrics (train losses finite; every validation mean landmark distance and coordinate error
-    finite), its latest checkpoint reloaded into a train state (the step counter) and its safetensors into a
-    second model: the two models' parameters and their outputs on ``image`` equal."""
+                         images: dict, val_keys: tuple) -> dict:
+    """A ``run``'s metrics (train losses finite; the validation metrics ``val_keys`` finite at every evaluation),
+    its latest checkpoint reloaded into a train state (the step counter) and its safetensors into a second
+    model: the two models' parameters and their outputs on ``images`` (view -> batch) equal."""
     from cinema_tpu_torch.convert import load_safetensors
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
 
     records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
     train_loss = [r["train_loss"] for r in records if "train_loss" in r]
-    val = [r for r in records if "val_mean_landmark_distance" in r]
+    val = [r for r in records if val_keys[0] in r]
     n_epochs = config.train.n_epochs
     check(len(train_loss) == n_epochs and len(val) == n_epochs, f"{label} metrics.jsonl holds {records}")
     check(all(x == x and abs(x) < 1e6 for x in train_loss), f"{label} run losses not finite: {train_loss}")
-    check(all(np.isfinite(r["val_mean_landmark_distance"]) and np.isfinite(r["val_mean_coordinate_error"])
-              for r in val), f"{label} evaluation not finite: {val}")
+    check(all(np.isfinite(r[k]) for r in val for k in val_keys), f"{label} evaluation not finite: {val}")
     ckpt = latest_checkpoint(out_dir)
     check(ckpt is not None and Path(f"{ckpt}.meta.json").exists(), f"{label} checkpoint or its sidecar missing")
     epoch = json.loads(Path(f"{ckpt}.meta.json").read_text())["epoch"]
@@ -1375,16 +1438,16 @@ def check_run_and_reload(label: str, config, out_dir: Path, make_model, make_ste
     check(all(torch.equal(a, b) for a, b in zip(reloaded.state_dict().values(), again.state_dict().values())),
           f"{label} model safetensors differs from the checkpoint's parameters")
     with torch.no_grad():
-        outs = [m.eval()({"lax_2c": image}) for m in (reloaded, again)]
-    outs = [o["lax_2c"] if isinstance(o, dict) else o for o in outs]
+        outs = [m.eval()(images) for m in (reloaded, again)]
+    outs = [torch.cat(list(o.values())) if isinstance(o, dict) else o for o in outs]
     check(torch.equal(outs[0], outs[1]), f"{label}: the checkpoint and the safetensors give other outputs")
-    return {"epochs": n_epochs, "train_loss": train_loss,
-            "val_mean_landmark_distance": [r["val_mean_landmark_distance"] for r in val],
-            "val_mean_coordinate_error": [r["val_mean_coordinate_error"] for r in val], "saved_epoch": epoch}
+    return {"epochs": n_epochs, "train_loss": train_loss, **{k: [r[k] for r in val] for k in val_keys},
+            "saved_epoch": epoch}
 
 
 # (x, y) sizes of the heatmap validation images: one patch, and 2 x 2 patches (overlap 128)
 LANDMARK_VAL_SIZES = [(256, 256), (256, 256), (320, 288), (320, 288)]
+LANDMARK_VAL_KEYS = ("val_mean_landmark_distance", "val_mean_coordinate_error")
 
 
 def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
@@ -1509,7 +1572,8 @@ def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
             "seconds": heat_run_s, "steps": steps, "evaluated_images": images, "launches": dict(zip(counters, got)),
             **check_run_and_reload("landmark_heatmap_run", config, out_dir,
                                    lambda: get_segmentation_model(config, dtype=torch.bfloat16, device=cuda),
-                                   make_heat_step, steps_per_epoch, batches[0][f"{view}_image"][:1])}
+                                   make_heat_step, steps_per_epoch, {view: batches[0][f"{view}_image"][:1]},
+                                   LANDMARK_VAL_KEYS)}
         print("landmark_heatmap_run", json.dumps(report["landmark_heatmap_run"]), f"on {smi}", flush=True)
 
         # b. coordinates: ConvViT-base, six outputs, grad_ckpt on as the packaged config
@@ -1569,7 +1633,8 @@ def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
             "seconds": coord_run_s, "steps": steps, "evaluated_images": 2 * n_val, "launches": dict(zip(counters, got)),
             **check_run_and_reload("landmark_coordinate_run", reg, out_dir,
                                    lambda: get_classification_model(reg, dtype=torch.bfloat16, device=cuda),
-                                   make_coord_step, steps_per_epoch, batches[0][f"{view}_image"][:1])}
+                                   make_coord_step, steps_per_epoch, {view: batches[0][f"{view}_image"][:1]},
+                                   LANDMARK_VAL_KEYS)}
         print("landmark_coordinate_run", json.dumps(report["landmark_coordinate_run"]), f"on {smi}", flush=True)
     keys = ("ms_per_step", "samples_per_s", "peak_mem_gib")
     report["landmark"] = {
@@ -1581,6 +1646,194 @@ def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
     }
     print("landmark", json.dumps(report["landmark"]), f"on {smi}", flush=True)
     report["landmark_launches"] = counters
+    return counters
+
+
+# SAX depths of the M&Ms phase's studies, drawn from 10 to 14 slices as the preprocessing's resampling to
+# 10 mm leaves them; every study is one patch of 192x192x16 after padding
+MNMS_Z = (10, 15)
+MNMS_TASKS = ("classification/mnms", "classification/mnms2", "regression/mnms", "regression/mnms2",
+              "segmentation/mnms", "segmentation/mnms2")
+
+
+def write_mnms_tree(root: Path, name: str, n_train: int, n_val: int, seed: int) -> None:
+    """Seeded synthetic M&Ms (``name`` "mnms") or M&Ms2 ("mnms2") studies in the preprocessing's layout: per
+    split ``<split>/<pid>/`` the SAX ED and ES frames of 192x192xz, z drawn from MNMS_Z (``seg_frames``: uint8
+    images with a bright LV/MYO/RV blob, uint8 labels), and ``<split>_metadata.csv`` with ``pid``,
+    ``n_slices``, ``pathology`` (the config's classes in turn), ``ef`` and, for M&Ms, ``age``."""
+    from cinema_tpu_torch.config import PACKAGED
+
+    classes = PACKAGED[f"classification/{name}"]["data"]["pathology"]
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("val", n_val)):
+        rows = []
+        for i in range(n):
+            pid = f"{split[0].upper()}{i:04d}" if name == "mnms" else str(i + 1 + (0 if split == "train" else 160))
+            z = int(rng.integers(*MNMS_Z))
+            write_seg_study(root / split, pid, *seg_frames(rng, (192, 192, z)))
+            row = {"pid": pid, "n_slices": z, "pathology": classes[i % len(classes)],
+                   "ef": round(float(rng.uniform(30, 70)), 3)}
+            if name == "mnms":
+                row["age"] = int(rng.integers(20, 80))
+            rows.append(row)
+        write_metadata(root / f"{split}_metadata.csv", rows)
+
+
+def mnms_phase(report: dict, smi: str, profile: bool) -> dict:
+    """The M&Ms and M&Ms2 tasks on processed NIfTI at full width: the augmented training loader of
+    ``segmentation/mnms`` alone (threads and processes), ConvUNetR-base steps fed from it inside the loop, and
+    one epoch of each of the six entry points; returns the packed kernels' launches on this path."""
+    import importlib
+
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.factory import get_segmentation_model, init_weights
+    from cinema_tpu_torch.tasks.classification import get_classification_model
+    from cinema_tpu_torch.tasks.segmentation import mnms as seg_mnms
+    from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
+    from cinema_tpu_torch.train.loop import to_device
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    # 14 training studies: 28 frames, 7 batches of 4, a warm-up and six timed steps in one epoch
+    batch_size, n_train, n_val, n_timed, depth = 4, 14, 5, 6, 12
+    cuda = torch.device("cuda")
+    config = from_dict(PACKAGED["segmentation/mnms"])  # grad_ckpt on, transform.prob 0.5, as packaged
+    config.train.batch_size = batch_size  # no accumulation: every step is an update
+    n_workers = config.train.n_workers
+    patch = tuple(config.data.sax.patch_size)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        for i, name in enumerate(("mnms", "mnms2")):
+            write_mnms_tree(Path(tmp) / name, name, n_train, n_val, seed=20 + i)
+        write_s = time.perf_counter() - t0
+        config.data.dir = str(Path(tmp) / "mnms")
+
+        def train_dataset(prob: float):
+            augmented = from_dict(config)
+            augmented.transform.prob = prob
+            train_ds, _ = seg_mnms.load_dataset(augmented)
+            check(len(train_ds) == 2 * n_train, f"M&Ms training frames {len(train_ds)}")
+            return train_ds
+
+        # a. the augmented training loader alone: an epoch to start its workers, then one timed; every mode
+        # gives the same batches. b. ConvUNetR-base steps fed from the 4-thread and the 4-process loader
+        # inside the loop, as run_train feeds them (no synchronisation between steps; the loader's wait is
+        # the time blocked on its next batch), then from a loader of items without augmentation
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
+        check(model.encoder.remat, "grad_ckpt did not reach the encoder")
+
+        def fed_steps(label: str, loader, epoch: int, prob: float) -> dict:
+            state, step_fn = supervised_step(config, model, segmentation_loss_fn)
+            batches = loader.epoch(epoch)
+            state, _ = step_fn(state, to_device(next(batches), cuda))  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            waits, losses = [], []
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                w0 = time.perf_counter()
+                batch = next(batches)
+                waits.append(time.perf_counter() - w0)
+                state, metrics = step_fn(state, to_device(batch, cuda))
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            got = read()
+            if profile and label == "threads":  # a fed step's device time against its wall time
+                again = loader.epoch(epoch + 1)
+                reset()
+                report["mnms_fed_profile"] = profile_call(
+                    "mnms_fed_profile", lambda: step_fn(state, to_device(next(again), cuda)), smi)
+                read()
+            losses = [float(x) for x in losses]
+            check(got == (n_timed * 2 * depth, n_timed * depth, 0, 0),
+                  f"{n_timed} fed M&Ms steps launched {got}, expected {2 * depth} + {depth} a step")
+            check(all(x == x and abs(x) < 1e4 for x in losses), f"fed M&Ms losses not finite: {losses}")
+            row = {"prob": prob, "workers": loader.n_workers,
+                   "processes": loader.processes, "steps": n_timed, "ms_per_step": total_s * 1e3 / n_timed,
+                   "samples_per_s": n_timed * batch_size / total_s,
+                   "loader_wait_ms_per_step": sum(waits) * 1e3 / n_timed, "loader_wait_ms": [w * 1e3 for w in waits],
+                   "losses": losses, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                   "launches": dict(zip(counters, got))}
+            print(f"mnms_fed_{label}", json.dumps(row), f"on {smi}", flush=True)
+            return row
+
+        loader_rows, fed, first_batches = {}, {}, None
+        for mode, workers, processes in (("1_thread", 1, False), (f"{n_workers}_threads", n_workers, False),
+                                         (f"{n_workers}_processes", n_workers, True)):
+            with BatchLoader(train_dataset(config.transform.prob), batch_size, seed=config.seed, n_workers=workers,
+                             processes=processes) as loader:
+                t0 = time.perf_counter()
+                n_first = len(list(loader.epoch(0)))
+                start_s = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                batches = list(loader.epoch(1))
+                epoch_s = time.perf_counter() - t0
+                check(n_first == len(batches) == 2 * n_train // batch_size
+                      and batches[0]["sax_image"].shape == (batch_size, *patch, 1)
+                      and batches[0]["sax_label"].shape == (batch_size, *patch), f"{mode} loader batches")
+                if first_batches is None:
+                    first_batches = batches
+                check(all(np.array_equal(a[k], b[k]) for a, b in zip(first_batches, batches)
+                          for k in ("sax_image", "sax_label")), f"the {mode} loader gave other batches than one thread")
+                loader_rows[mode] = {"workers": workers, "processes": processes, "first_epoch_s": start_s,
+                                     "ms_per_batch": epoch_s * 1e3 / len(batches),
+                                     "items_per_s": len(batches) * batch_size / epoch_s}
+                print("mnms_loader", mode, json.dumps(loader_rows[mode]), f"on {smi}", flush=True)
+                if workers > 1:
+                    label = "processes" if processes else "threads"
+                    fed[label] = fed_steps(label, loader, 2, config.transform.prob)
+        with BatchLoader(train_dataset(0.0), batch_size, seed=config.seed, n_workers=n_workers) as loader:
+            fed["no_augmentation"] = fed_steps("no_augmentation", loader, 0, 0.0)
+        report["mnms_loader"], report["mnms_fed"] = loader_rows, fed
+        del model
+
+        # c. one epoch of each entry point's run, evaluated once; its checkpoint and safetensors reloaded
+        runs = {}
+        val_keys = {"classification": ("val_accuracy",), "regression": ("val_mae", "val_rmse"),
+                    "segmentation": ("val_mean_dice_score",)}
+        for task in MNMS_TASKS:
+            family, name = task.split("/")
+            entry = importlib.import_module(f"cinema_tpu_torch.tasks.{family}.{name}")
+            cfg = from_dict(PACKAGED[task])
+            cfg.data.dir = str(Path(tmp) / name)
+            cfg.logging.dir = str(Path(tmp) / "runs" / family / name)
+            cfg.train.update(n_epochs=1, eval_interval=1, batch_size=batch_size)
+            train_ds, val_ds = entry.load_dataset(cfg)
+            steps = len(train_ds) // batch_size
+            image = torch.from_numpy(val_ds.load(0, 0)["sax_image"][None]).to(cuda)
+            reset()
+            t0 = time.perf_counter()
+            out_dir = entry.run(cfg, device="cuda")
+            run_s = time.perf_counter() - t0
+            got = read()
+            # grad_ckpt as packaged: two forward launches a block and step; one per block and evaluated item
+            # (a classified study or a segmented frame, each one patch)
+            check(got == (2 * depth * steps + depth * len(val_ds), depth * steps, 0, 0),
+                  f"the {task} run launched {got}, expected {2 * depth} + {depth} a step and {depth} an evaluated item")
+            build = get_segmentation_model if family == "segmentation" else get_classification_model
+            runs[task] = {"seconds": run_s, "steps": steps, "evaluated": len(val_ds), "launches": dict(zip(counters, got)),
+                          **check_run_and_reload(task, cfg, out_dir, lambda: build(cfg, dtype=torch.bfloat16, device=cuda),
+                                                 lambda m: supervised_step(cfg, m, segmentation_loss_fn), steps,
+                                                 {"sax": image}, val_keys[family])}
+            print(f"mnms_run {task}", json.dumps(runs[task]), f"on {smi}", flush=True)
+        report["mnms_runs"] = runs
+    report["mnms"] = {
+        "write_s": write_s,
+        "loader_ms_per_batch": {k: v["ms_per_batch"] for k, v in loader_rows.items()},
+        "fed_ms_per_step": {k: v["ms_per_step"] for k, v in fed.items()},
+        "fed_loader_wait_ms_per_step": {k: v["loader_wait_ms_per_step"] for k, v in fed.items()},
+        "fed_peak_mem_gib": fed["threads"]["peak_mem_gib"],
+        **({"fed_idle_share": report["mnms_fed_profile"]["idle_share"]} if profile else {}),
+        "run_s": {k: v["seconds"] for k, v in runs.items()},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    print("mnms", json.dumps(report["mnms"]), f"on {smi}", flush=True)
+    report["mnms_launches"] = counters
     return counters
 
 
@@ -1644,24 +1897,30 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 8. the five paths at full width, launch counts set to 0 before each and read after
+    # 4. to 9. the six paths at full width, launch counts set to 0 before each and read after
+    t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
     tune = finetune_phase(report, smi, args.profile)
     seg = segmentation_phase(report, smi, args.profile)
     lmk = landmark_phase(report, smi, args.profile)
+    mnms = mnms_phase(report, smi, args.profile)
+    report["paths_s"] = time.perf_counter() - t0
+    print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
     kernels = [
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
-                   serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"],
+                   serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
+                   + mnms["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
-                    "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"]}, fwd_rows),
+                    "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"]},
+                   fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
-                   train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"],
+                   train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"] + mnms["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"],
-                    "landmark": lmk["packed_bwd"]}, bwd_rows),
+                    "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
@@ -1671,6 +1930,7 @@ def main() -> None:
     ]
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched")
     check(all(k["launches_by_path"]["landmark"] > 0 for k in kernels[:2]), "the landmark path launched no packed kernel")
+    check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:
@@ -1701,8 +1961,18 @@ def profile_call(label: str, fn, smi: str) -> dict:
     check(bool(kernels), "the profiler recorded no device time")
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in kernels), key=lambda r: -r[1])
     total = sum(r[1] for r in rows)
+    # the time the device was busy: the union of its kernels' intervals (kernels may overlap, so their
+    # durations can add up to more than the wall time); the idle share is against the call timed without
+    # the profiler, whose host overhead would lengthen a host-bound call (near 0, or a little below, where
+    # the device is busy throughout)
+    busy_us, end = 0.0, float("-inf")
+    for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                              if e.device_type == torch.autograd.DeviceType.CUDA):
+        busy_us += max(stop - max(start, end), 0.0)
+        end = max(end, stop)
     result = {
-        "device_ms": total, "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
+        "device_ms": total, "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
         "attention_fwd_ms": sum(ms for key, ms, _ in rows if "flash_fwd" in key),
         "attention_bwd_ms": sum(ms for key, ms, _ in rows if "flash_bwd" in key),
         "top": [{"kernel": key[:100], "ms": ms, "calls": n} for key, ms, n in rows[:25]],

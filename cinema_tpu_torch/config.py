@@ -271,6 +271,28 @@ LANDMARK_SEGMENTATION["model"]["convunetr"]["enc_patch_size"] = [4, 4]
 # cinema_tpu/configs/regression/landmark.yaml: ConvViT (ViT-base) regression of the six coordinates
 LANDMARK_REGRESSION = _landmark(_acdc_finetune("regression", {}, {}), {"n_frames": 1, "out_chans": 6})
 
+def _on(base: Dict[str, Any], name: str, **data: Any) -> Dict[str, Any]:
+    """``base`` on the dataset ``name``: its data name and directory, and the data fields ``data`` in place
+    of the ACDC ones of the same purpose (the class names, the regression columns)."""
+    config = copy.deepcopy(base)
+    for key in ("pathology", "ef", "bmi"):
+        config["data"].pop(key, None)
+    config["data"].update(name=name, dir=f"~/.cache/cinema_datasets/{name}/processed", **data)
+    return config
+
+
+_MNMS_EF = {"mean": 50.0, "std": 15.0}
+# cinema_tpu/configs/{classification,regression,segmentation}/{mnms,mnms2}.yaml: the ACDC tasks'
+# models and training on M&Ms and M&Ms2 (processed as cinema_tpu/data/preprocess/mnms{,2}.py writes them)
+MNMS_CLASSIFICATION = _on(ACDC_CLASSIFICATION, "mnms", pathology=["DCM", "HCM", "NOR", "ARV", "HHD"])
+MNMS2_CLASSIFICATION = _on(ACDC_CLASSIFICATION, "mnms2", pathology=["ARR", "CIA", "FALL", "HCM", "LV", "NOR"])
+MNMS_REGRESSION = _on(ACDC_REGRESSION, "mnms", ef=_MNMS_EF, age={"mean": 60.0, "std": 15.0})
+MNMS2_REGRESSION = _on(ACDC_REGRESSION, "mnms2", ef=_MNMS_EF)
+MNMS_SEGMENTATION = _on(ACDC_SEGMENTATION, "mnms")
+MNMS2_SEGMENTATION = _on(ACDC_SEGMENTATION, "mnms2", lax={"spacing": [1.0, 1.0], "patch_size": [256, 256],
+                                                           "in_chans": 1})
+MNMS2_SEGMENTATION["transform"]["lax"] = {"rotate_range": [180], "translate_range": [64, 64], "dropout_size": [50, 50]}
+
 PACKAGED = {
     "segmentation/acdc": ACDC_SEGMENTATION,
     "mae": MAE_PRETRAIN,
@@ -278,4 +300,10 @@ PACKAGED = {
     "regression/acdc": ACDC_REGRESSION,
     "segmentation/landmark": LANDMARK_SEGMENTATION,
     "regression/landmark": LANDMARK_REGRESSION,
+    "classification/mnms": MNMS_CLASSIFICATION,
+    "classification/mnms2": MNMS2_CLASSIFICATION,
+    "regression/mnms": MNMS_REGRESSION,
+    "regression/mnms2": MNMS2_REGRESSION,
+    "segmentation/mnms": MNMS_SEGMENTATION,
+    "segmentation/mnms2": MNMS2_SEGMENTATION,
 }

@@ -1,0 +1,349 @@
+"""The datasets and the batch loader of the task entry points (port of cinema_tpu/data/datasets.py:32-195,
+:288-360, :447-594).
+
+- The EDES datasets read the processed NIfTI studies that the JAX package's preprocessing
+  writes (cinema_tpu/data/preprocess/{acdc,mnms,mnms2}.py): ``data_dir/<pid>/<pid>_<view>_{ed,es}.nii.gz``
+  and the ``_gt.nii.gz`` labels beside them, one row of a metadata table per study
+  (:func:`read_metadata`). Each item is augmented by the task's transform with its own
+  generator, ``np.random.default_rng([seed, epoch, index])``, as the JAX package's
+  ``SeededItemRNG`` draws it, so an item is a pure function of (seed, epoch, index).
+- The landmark datasets read 8-bit grayscale PNGs and their metadata tables; their items
+  take no transform, as the JAX package's landmark tasks build them.
+- :class:`BatchLoader` loads the items of a batch in worker threads or worker processes.
+"""
+
+from __future__ import annotations
+
+import csv
+import multiprocessing
+import struct
+import zlib
+from collections import deque
+from concurrent.futures import Executor, Future, ProcessPoolExecutor, ThreadPoolExecutor
+from pathlib import Path
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Union
+
+import numpy as np
+
+from cinema_tpu_torch.data.nifti import load_nifti
+
+Sample = Dict[str, Any]
+Transform = Callable[[Sample, np.random.Generator], Sample]
+Rows = List[Dict[str, Optional[str]]]
+
+
+def fit_to_size(x: np.ndarray, size: Sequence[int]) -> np.ndarray:
+    """End-pad with zeros or crop the leading axes of ``x`` to ``size``."""
+    x = x[tuple(slice(0, s) for s in size)]
+    return np.pad(x, [(0, s - n) for n, s in zip(x.shape, size)] + [(0, 0)] * (x.ndim - len(size)))
+
+
+def collate(items: Sequence[Sample]) -> Sample:
+    """One batch of items: each array field stacked along a new leading axis, each string field
+    (``pid``) a list."""
+    return {key: [item[key] for item in items] if isinstance(items[0][key], str)
+            else np.stack([item[key] for item in items]) for key in items[0]}
+
+
+_WORKER_DATASET = None  # the dataset of a worker process, set once by its initializer
+
+
+def _worker_init(dataset) -> None:
+    global _WORKER_DATASET
+    _WORKER_DATASET = dataset
+
+
+def _worker_load(index: int, epoch: int) -> Sample:
+    return _WORKER_DATASET.load(index, epoch)
+
+
+class BatchLoader:
+    """Batches of a dataset whose ``load(index, epoch)`` returns a dict of arrays (and strings).
+
+    The order of an epoch is the JAX package's: ``np.random.default_rng(seed + epoch)`` shuffles
+    it, and the incomplete last batch is dropped unless asked otherwise. ``n_workers`` threads,
+    or with ``processes`` as many worker processes (``spawn``: a worker starts from a fresh
+    import and never touches CUDA; the dataset is sent to it once), load the items while the
+    consumer runs: ``depth`` batches and one item per worker ahead of it. Items depend on
+    (seed, epoch, index) alone, so threads and processes give the same batches. A worker's
+    exception is raised to the consumer. ``close`` stops the workers.
+    """
+
+    def __init__(self, dataset, batch_size: int, seed: int = 0, depth: int = 2, shuffle: bool = True,
+                 drop_last: bool = True, n_workers: int = 1, processes: bool = False) -> None:
+        self.dataset, self.batch_size, self.seed, self.depth = dataset, batch_size, seed, depth
+        self.shuffle, self.drop_last = shuffle, drop_last
+        self.n_workers, self.processes = max(1, n_workers), processes
+        self._pool: Optional[Executor] = None
+
+    def __len__(self) -> int:
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+
+    def __enter__(self) -> "BatchLoader":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def close(self) -> None:
+        """Stop the workers and wait for them; the next epoch starts new ones."""
+        if self._pool is not None:
+            self._pool.shutdown(wait=True, cancel_futures=True)
+            self._pool = None
+
+    def _submit(self, index: int, epoch: int) -> Future:
+        if self._pool is None:
+            if self.processes:
+                self._pool = ProcessPoolExecutor(self.n_workers, mp_context=multiprocessing.get_context("spawn"),
+                                                 initializer=_worker_init, initargs=(self.dataset,))
+            else:
+                self._pool = ThreadPoolExecutor(self.n_workers)
+        if self.processes:
+            return self._pool.submit(_worker_load, index, epoch)
+        return self._pool.submit(self.dataset.load, index, epoch)
+
+    def epoch(self, epoch: int) -> Iterator[Sample]:
+        """The batches of one epoch."""
+        order = np.arange(len(self.dataset))
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        indices = iter(order[: len(self) * self.batch_size].tolist())
+        ahead = self.depth * self.batch_size + self.n_workers
+        pending: Deque[Future] = deque()
+        try:
+            for b in range(len(self)):
+                while len(pending) < ahead and (index := next(indices, None)) is not None:
+                    pending.append(self._submit(index, epoch))
+                n = min(self.batch_size, len(order) - b * self.batch_size)
+                yield collate([pending.popleft().result() for _ in range(n)])
+        finally:
+            for future in pending:
+                future.cancel()
+
+
+def read_metadata(path: Union[str, Path]) -> Rows:
+    """The rows of a metadata table (``train_metadata.csv``, ``val_metadata.csv``) as dicts of strings,
+    ``None`` where a field is empty (pandas' missing value): ``pid`` stays a string, as
+    ``pd.read_csv(..., dtype={"pid": str})`` reads it."""
+    with open(path, newline="") as f:
+        return [{k: v if v != "" else None for k, v in row.items()} for row in csv.DictReader(f)]
+
+
+def _check_meta(rows: Rows, cols: Sequence[str] = ("pid", "n_slices")) -> None:
+    for col in cols:
+        if rows and col not in rows[0]:
+            raise ValueError(f"Column {col} is required in meta_df.")
+
+
+def _load_view_image(pid_dir: Path, pid: str, view: str, frame_name: str) -> np.ndarray:
+    return load_nifti(pid_dir / f"{pid}_{view}_{frame_name}.nii.gz")[0].astype(np.float32)
+
+
+class _EDESDataset:
+    """The studies of ``rows`` under ``data_dir``, the views ``views`` of each; ``transform`` applied to
+    each item with its own generator, ``np.random.default_rng([seed, epoch, index])``."""
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, views: Union[str, Sequence[str]],
+                 transform: Optional[Transform] = None, seed: int = 0) -> None:
+        _check_meta(rows)
+        self.data_dir, self.rows = Path(data_dir), list(rows)
+        self.views = [views] if isinstance(views, str) else list(views)
+        self.transform, self.seed = transform, seed
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def _transformed(self, data: Sample, index: int, epoch: int) -> Sample:
+        if self.transform:
+            data = self.transform(data, np.random.default_rng([int(self.seed), int(epoch), int(index)]))
+        return data
+
+    def _ed_es_images(self, row: Dict[str, Optional[str]], data: Sample) -> Sample:
+        """``{view}_image``: the ED and ES frames as two channels, (x, y, z, 2) for ``sax`` and
+        (x, y, 2) for a ``lax_*`` view (its single slice)."""
+        pid = str(row["pid"])
+        for view in self.views:
+            image = np.stack([_load_view_image(self.data_dir / pid, pid, view, f) for f in ("ed", "es")], axis=-1)
+            data[f"{view}_image"] = image if view == "sax" else image[:, :, 0]
+        return data
+
+
+class EDESSegmentationDataset(_EDESDataset):
+    """The ED and ES frames of each study with their labels (the JAX package's ``EDESSegmentationDataset``;
+    reference segmentation/dataset.py:33-137). Item ``i`` is frame ``i % 2`` (0 ED, 1 ES) of study
+    ``i // 2``: ``pid``, ``is_ed``, per view ``{view}_image`` (x, y[, z], 1) float32, ``{view}_label``
+    (x, y[, z]) int8, ``{view}_width`` and ``{view}_height`` before the transform, and for ``sax``
+    ``n_slices`` from the metadata."""
+
+    def __len__(self) -> int:
+        return 2 * len(self.rows)
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        row = self.rows[index // 2]
+        is_ed = index % 2 == 0
+        pid = str(row["pid"])
+        frame = "ed" if is_ed else "es"
+        data: Sample = {"pid": pid, "is_ed": np.asarray(is_ed)}
+        for view in self.views:
+            image = _load_view_image(self.data_dir / pid, pid, view, frame)
+            label, _ = load_nifti(self.data_dir / pid / f"{pid}_{view}_{frame}_gt.nii.gz")
+            data[f"{view}_width"] = np.asarray(image.shape[0])
+            data[f"{view}_height"] = np.asarray(image.shape[1])
+            if view == "sax":
+                data["n_slices"] = np.asarray(int(float(row["n_slices"])))
+            else:
+                image, label = image[..., 0], label[..., 0]
+            data[f"{view}_image"] = image[..., None]
+            data[f"{view}_label"] = label.astype(np.int8)
+        return self._transformed(data, index, epoch)
+
+
+class EDESClassificationDataset(_EDESDataset):
+    """ED and ES as two channels with the index of the study's ``class_col`` in ``classes`` as ``label``
+    (the JAX package's ``EDESClassificationDataset``; reference classification/dataset.py:32-133)."""
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, class_col: str, classes: Sequence[str],
+                 views: Union[str, Sequence[str]], transform: Optional[Transform] = None, seed: int = 0) -> None:
+        super().__init__(data_dir, rows, views, transform, seed)
+        self.class_col, self.classes = class_col, list(classes)
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        row = self.rows[index]
+        data: Sample = {"pid": str(row["pid"]), "label": np.asarray(self.classes.index(row[self.class_col]))}
+        return self._transformed(self._ed_es_images(row, data), index, epoch)
+
+
+class EDESRegressionDataset(_EDESDataset):
+    """ED and ES as two channels with the study's ``reg_col`` z-normalised by ``reg_mean`` and ``reg_std`` as
+    ``label`` (the JAX package's ``EDESRegressionDataset``; reference regression/dataset.py:22-133)."""
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, reg_col: str, reg_mean: float, reg_std: float,
+                 views: Union[str, Sequence[str]], transform: Optional[Transform] = None, seed: int = 0) -> None:
+        super().__init__(data_dir, rows, views, transform, seed)
+        self.reg_col, self.reg_mean, self.reg_std = reg_col, reg_mean, reg_std
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        row = self.rows[index]
+        value = (float(row[self.reg_col]) - self.reg_mean) / self.reg_std
+        data: Sample = {"pid": str(row["pid"]), "label": np.asarray(value, np.float32)}
+        return self._transformed(self._ed_es_images(row, data), index, epoch)
+
+
+def gaussian_heatmap(shape: Sequence[int], centers: np.ndarray, sigma: float = 3.0) -> np.ndarray:
+    """Gaussian heatmaps of landmarks (reference segmentation/landmark/dataset.py:19-38): (w, h) and
+    (n, 2) centres -> (w, h, n) float32 in [0, 1], 1 at a centre on the grid."""
+    w, h = shape
+    xs, ys = np.meshgrid(np.arange(w), np.arange(h), indexing="ij")
+    maps = [np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) / (2 * sigma**2)) for cx, cy in centers]
+    return np.stack(maps, axis=-1).astype(np.float32)
+
+
+_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
+
+def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray) -> np.ndarray:
+    """One scanline of one byte per pixel, its PNG filter undone (None, Sub, Up, Average, Paeth)."""
+    if kind == 0:
+        return line
+    if kind == 1:  # Sub: a running sum of the row, mod 256
+        return np.cumsum(line, dtype=np.uint8)
+    if kind == 2:  # Up
+        return line + prior
+    f, b = line.tolist(), prior.tolist()
+    out, a, c = [0] * len(f), 0, 0
+    if kind == 3:  # Average of the left and the upper neighbour
+        for i, (fi, bi) in enumerate(zip(f, b)):
+            a = (fi + ((a + bi) >> 1)) & 255
+            out[i] = a
+    elif kind == 4:  # Paeth: of left, upper and upper-left, the one nearest to left + upper - upper-left
+        for i, (fi, bi) in enumerate(zip(f, b)):
+            pa, pb, pc = abs(bi - c), abs(a - c), abs(a + bi - 2 * c)
+            a = (fi + (a if pa <= pb and pa <= pc else bi if pb <= pc else c)) & 255
+            out[i], c = a, bi
+    else:
+        raise ValueError(f"Unknown PNG filter type {kind}.")
+    return np.asarray(out, np.uint8)
+
+
+def read_png_gray(path: Union[str, Path]) -> np.ndarray:
+    """An 8-bit grayscale, non-interlaced PNG as a float32 (x, y) array, the JAX package's
+    ``np.asarray(Image.open(path).convert("L"), np.float32).T`` for the PNGs its landmark
+    preprocessing writes; ancillary chunks are skipped. Any other PNG raises ``ValueError``."""
+    data = Path(path).read_bytes()
+    if data[:8] != _PNG_SIGNATURE:
+        raise ValueError(f"{path} is not a PNG file.")
+    header, idat, pos = None, [], 8
+    while pos + 12 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
+        body = data[pos + 8 : pos + 8 + length]
+        (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
+        if zlib.crc32(kind + body) != crc:
+            raise ValueError(f"{path}: CRC mismatch in the {kind!r} chunk.")
+        if kind == b"IHDR":
+            header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"IEND":
+            break
+        pos += 12 + length
+    if header is None or not idat:
+        raise ValueError(f"{path}: no IHDR or IDAT chunk.")
+    width, height, bit_depth, colour_type, _, _, interlace = header
+    if (bit_depth, colour_type, interlace) != (8, 0, 0):
+        raise ValueError(
+            f"{path}: bit depth {bit_depth}, colour type {colour_type}, interlace {interlace}; only 8-bit "
+            "grayscale non-interlaced PNGs are read here. Other images wait for the port of the data engine "
+            "(ROADMAP.md, Queue 1, item 14).")
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    if raw.size != height * (width + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {height * (width + 1)}.")
+    rows = raw.reshape(height, width + 1)
+    image = np.empty((height, width), np.uint8)
+    prior = np.zeros(width, np.uint8)
+    for r in range(height):
+        prior = image[r] = _unfilter_row(int(rows[r, 0]), rows[r, 1:], prior)
+    return image.T.astype(np.float32)
+
+
+class LandmarkDetectionDataset:
+    """Landmark PNGs with Gaussian heatmap labels (the JAX package's ``LandmarkDetectionDataset``,
+    cinema_tpu/data/datasets.py:288-336; reference segmentation/landmark/dataset.py).
+
+    ``rows`` are metadata rows; where they have a ``view`` column only this view's are kept. Item ``i``:
+    ``{view}_image`` (x, y, 1) float32 with the PNG's 0-255 intensities, ``{view}_label`` (x, y, 3) the
+    Gaussian heatmaps (sigma 3) of the three landmarks, ``{view}_width`` and ``{view}_height`` int64. No
+    transform: the image keeps its size and intensities.
+    """
+
+    def __init__(self, data_dir: Union[str, Path], rows: Sequence[Dict[str, str]], view: str) -> None:
+        self.data_dir, self.view = Path(data_dir), view
+        self.rows = [r for r in rows if r.get("view", view) == view]
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def _image_and_coords(self, index: int):
+        row = self.rows[index]
+        image = read_png_gray(self.data_dir / row["path"])
+        coords = np.array([[float(row[f"{a}{i}"]) for a in "xy"] for i in (1, 2, 3)], dtype=np.float32)
+        return image, coords
+
+    def _item(self, image: np.ndarray, **fields: np.ndarray) -> Dict[str, np.ndarray]:
+        return {f"{self.view}_image": image[..., None], **fields,
+                f"{self.view}_width": np.asarray(image.shape[0]), f"{self.view}_height": np.asarray(image.shape[1])}
+
+    def load(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        image, coords = self._image_and_coords(index)
+        return self._item(image, **{f"{self.view}_label": gaussian_heatmap(image.shape, coords)})
+
+
+class LandmarkRegressionDataset(LandmarkDetectionDataset):
+    """Landmark PNGs with the coordinates as the label (the JAX package's ``LandmarkRegressionDataset``,
+    cinema_tpu/data/datasets.py:339-360; reference regression/landmark/dataset.py): ``label`` (6,) float32
+    [x1, y1, x2, y2, x3, y3] divided by the image's (width, height)."""
+
+    def load(self, index: int, epoch: int = 0) -> Dict[str, np.ndarray]:
+        image, coords = self._image_and_coords(index)
+        scale = np.array(image.shape, np.float32)
+        return self._item(image, label=(coords / scale).reshape(-1).astype(np.float32))

@@ -22,26 +22,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from cinema_tpu_torch.data.transforms import scale_intensity, spatial_pad
 from cinema_tpu_torch.factory import from_finetuned
 from cinema_tpu_torch.inference import video_forward
 from cinema_tpu_torch.models.convunetr import ConvUNetR
 from cinema_tpu_torch.ops.window import crop_start
 
 CHUNK = 8
-
-
-def scale_intensity(x: np.ndarray) -> np.ndarray:
-    """Min-max rescale to [0, 1] (cinema_tpu/data/transforms.py ScaleIntensityd)."""
-    x = x.astype(np.float32)
-    lo, hi = x.min(), x.max()
-    return (x - lo) / (hi - lo) if hi > lo else np.zeros_like(x)
-
-
-def spatial_pad(x: np.ndarray, spatial_size: Sequence[int]) -> np.ndarray:
-    """End-pad the spatial axes of (*spatial, ch) to at least ``spatial_size``
-    (cinema_tpu/data/transforms.py SpatialPadd)."""
-    pads = [(0, max(0, t - s)) for s, t in zip(x.shape[:-1], spatial_size)]
-    return np.pad(x, [*pads, (0, 0)])
 
 
 def preprocess(video: np.ndarray, patch_size: Sequence[int]) -> np.ndarray:

@@ -16,9 +16,9 @@ checkpoint ``ckpt_{epoch}.pt`` and the model as ``cinema.safetensors``;
 Data: ``data.dir`` holds one ``.npz`` per study with one array per view,
 ``sax`` as (x, y, z, t) and the ``lax_*`` views as (x, y, t). Each epoch
 takes one seeded random frame of every study, min-max scales it to [0, 1]
-and end-pads or crops it to the view's patch size. NIfTI input, the
-manifest cache, worker processes and the augmentation transforms of the
-JAX package are not ported yet.
+and end-pads or crops it to the view's patch size. Pretraining on NIfTI
+(frame seeks, ``UKBCineDataset``, ``RandZoomd`` and the pretraining
+transforms of the JAX package) and the manifest cache are not ported yet.
 """
 
 from __future__ import annotations
@@ -31,10 +31,10 @@ from typing import Dict, List, Sequence, Union
 import numpy as np
 import torch
 
-from cinema_tpu_torch.data import BatchLoader, fit_to_size
 from cinema_tpu_torch.config import PACKAGED, Config, apply_overrides, from_dict, load_config
+from cinema_tpu_torch.data import BatchLoader, fit_to_size
+from cinema_tpu_torch.data.transforms import scale_intensity
 from cinema_tpu_torch.factory import get_mae_model, init_weights, resolve_device
-from cinema_tpu_torch.serve import scale_intensity
 from cinema_tpu_torch.train.checkpoint import (
     CheckpointRetention,
     load_checkpoint,

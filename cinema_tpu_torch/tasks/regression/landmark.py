@@ -29,7 +29,7 @@ from torch import nn
 
 from cinema_tpu_torch.config import Config
 from cinema_tpu_torch.convert import load_pretrained
-from cinema_tpu_torch.data import LandmarkRegressionDataset, read_landmark_metadata
+from cinema_tpu_torch.data import LandmarkRegressionDataset, read_metadata
 from cinema_tpu_torch.losses import landmark_coordinate_loss
 from cinema_tpu_torch.tasks.classification import get_classification_model
 from cinema_tpu_torch.tasks.cli import task_main
@@ -81,8 +81,8 @@ def landmark_regression_eval_dataloader(model: nn.Module, dataloader: Any, confi
 def load_dataset(config: Config) -> Tuple[LandmarkRegressionDataset, LandmarkRegressionDataset]:
     data_dir = Path(config.data.dir).expanduser()
     view = config.model.views if isinstance(config.model.views, str) else config.model.views[0]
-    train, val = maybe_subset_dataset(config, read_landmark_metadata(data_dir / "train_metadata.csv"),
-                                      read_landmark_metadata(data_dir / "val_metadata.csv"))
+    train, val = maybe_subset_dataset(config, read_metadata(data_dir / "train_metadata.csv"),
+                                      read_metadata(data_dir / "val_metadata.csv"))
     return LandmarkRegressionDataset(data_dir, train, view), LandmarkRegressionDataset(data_dir, val, view)
 
 

@@ -31,7 +31,7 @@ from torch import nn
 
 from cinema_tpu_torch.config import Config
 from cinema_tpu_torch.convert import load_pretrained
-from cinema_tpu_torch.data import LandmarkDetectionDataset, read_landmark_metadata
+from cinema_tpu_torch.data import LandmarkDetectionDataset, read_metadata
 from cinema_tpu_torch.factory import get_segmentation_model
 from cinema_tpu_torch.inference import sliding_window_forward
 from cinema_tpu_torch.losses import landmark_heatmap_loss
@@ -108,8 +108,8 @@ def landmark_eval_dataloader(model: nn.Module, dataloader: Any, config: Config) 
 def load_dataset(config: Config) -> Tuple[LandmarkDetectionDataset, LandmarkDetectionDataset]:
     data_dir = Path(config.data.dir).expanduser()
     view = config.model.views if isinstance(config.model.views, str) else config.model.views[0]
-    train, val = maybe_subset_dataset(config, read_landmark_metadata(data_dir / "train_metadata.csv"),
-                                      read_landmark_metadata(data_dir / "val_metadata.csv"))
+    train, val = maybe_subset_dataset(config, read_metadata(data_dir / "train_metadata.csv"),
+                                      read_metadata(data_dir / "val_metadata.csv"))
     return LandmarkDetectionDataset(data_dir, train, view), LandmarkDetectionDataset(data_dir, val, view)
 
 

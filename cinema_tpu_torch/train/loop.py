@@ -73,27 +73,42 @@ def maybe_reduce_batch_size(config: Config, n: int) -> Config:
     return config
 
 
-def split_by_class(labels: np.ndarray, n_val_per_class: int = 2, seed: int = 0) -> Tuple[List[int], List[int]]:
-    """Indices (train, val): ``n_val_per_class`` seeded studies of every class go to validation."""
-    rng = np.random.default_rng(seed)
-    val: List[int] = []
-    for cls in np.unique(labels):
-        members = np.flatnonzero(labels == cls)
-        val += sorted(int(i) for i in rng.choice(members, size=min(n_val_per_class, len(members)), replace=False))
-    val_set = set(val)
-    return [i for i in range(len(labels)) if i not in val_set], sorted(val)
+def _pandas_sample(n: int, size: int, rng: np.random.RandomState) -> List[int]:
+    """The rows that pandas' ``sample`` takes of ``n`` rows, in the order it takes them: one
+    ``choice`` without replacement from the frame's generator (pandas.core.sample.sample)."""
+    return [int(i) for i in rng.choice(n, size=size, replace=False)]
+
+
+def _grouped(groups: Sequence[Any]) -> List[List[int]]:
+    """The indices of each group, in pandas' ``groupby`` order: groups by sorted key, rows in their order;
+    a missing key (``None``) belongs to no group."""
+    members: Dict[Any, List[int]] = {}
+    for i, key in enumerate(groups):
+        if key is not None:
+            members.setdefault(key, []).append(i)
+    return [members[key] for key in sorted(members)]
+
+
+def split_by_class(labels: Sequence[Any], n_val_per_class: int = 2, seed: int = 0) -> Tuple[List[int], List[int]]:
+    """Indices (train, val), each in the order of ``labels``: the studies that pandas'
+    ``groupby(labels).sample(n=n_val_per_class, random_state=seed)`` draws go to validation
+    (cinema_tpu/tasks/classification/acdc.py:30). A class smaller than ``n_val_per_class``, where
+    pandas raises, goes to validation whole."""
+    rng = np.random.RandomState(seed)
+    val = set()
+    for members in _grouped(labels):
+        val.update(members[i] for i in _pandas_sample(len(members), min(n_val_per_class, len(members)), rng))
+    return [i for i in range(len(labels)) if i not in val], sorted(val)
 
 
 def _sample_fraction(items: List[Any], frac: float, groups: Optional[Sequence[Any]]) -> List[Any]:
-    """A seeded ``frac`` of ``items``, of each group apart where ``groups`` are given, in their order.
-    ``round(frac * n)`` items of a group of n, the count of pandas' ``sample(frac=...)``."""
-    rng = np.random.default_rng(0)
-    groups = np.zeros(len(items)) if groups is None else np.asarray(groups)
+    """The items that pandas' ``sample(frac=frac, random_state=0)`` keeps, of each group apart (``groupby``)
+    where ``groups`` are given, in pandas' order: ``round(frac * n)`` of a group of n."""
+    rng = np.random.RandomState(0)
     keep: List[int] = []
-    for group in np.unique(groups):
-        members = np.flatnonzero(groups == group)
-        keep += [int(i) for i in rng.choice(members, size=round(frac * len(members)), replace=False)]
-    return [items[i] for i in sorted(keep)]
+    for members in _grouped(groups) if groups is not None else [list(range(len(items)))]:
+        keep += [members[i] for i in _pandas_sample(len(members), round(frac * len(members)), rng)]
+    return [items[i] for i in keep]
 
 
 def maybe_subset_dataset(
@@ -103,12 +118,13 @@ def maybe_subset_dataset(
     train_groups: Optional[Sequence[Any]] = None,
     val_groups: Optional[Sequence[Any]] = None,
 ) -> Tuple[List[Any], List[Any]]:
-    """The ``data.max_n_samples`` cap and the ``data.proportion`` of the training list
-    (reference train.py:49-82).
+    """The ``data.max_n_samples`` cap and the ``data.proportion`` of the training list, the rows and the
+    order that the JAX package's pandas calls give (cinema_tpu/train/loop.py:89-101; reference
+    train.py:49-82).
 
-    The cap keeps the seeded fraction ``cap / len`` of each list: of every group
-    (classification passes the class labels) or of the whole list. The proportion
-    then keeps a seeded ``int(proportion * len)`` of the training list.
+    The cap keeps the fraction ``cap / len`` of each list: of every group (classification passes the
+    class labels) or of the whole list. The proportion then keeps ``int(proportion * len)`` of the
+    training list, drawn with ``config.seed``.
     """
     cap = config.data.get("max_n_samples", -1)
     if cap > 0:
@@ -118,8 +134,7 @@ def maybe_subset_dataset(
             val = _sample_fraction(val, min(cap / len(val), 1.0), val_groups)
     proportion = config.data.get("proportion", 1.0)
     if proportion < 1:
-        rng = np.random.default_rng(config.seed)
-        keep = sorted(rng.choice(len(train), size=int(proportion * len(train)), replace=False))
+        keep = _pandas_sample(len(train), int(proportion * len(train)), np.random.RandomState(config.seed))
         train = [train[i] for i in keep]
     return train, val
 
@@ -164,8 +179,12 @@ def run_train(
         if hasattr(ds, "seed"):
             ds.seed = config.seed  # reproducible per-item choices
     config = maybe_reduce_batch_size(config, len(train_dataset))
-    train_loader = BatchLoader(train_dataset, config.train.batch_size_per_device, seed=config.seed)
-    val_loader = BatchLoader(val_dataset, 1, shuffle=False, drop_last=False)
+    # the items load in ``train.n_workers`` threads: on the card's host they keep a ConvUNetR-base step fed,
+    # where worker processes load no faster and take seconds to start (PERF.md, section 6)
+    n_workers = config.train.get("n_workers", 4)
+    train_loader = BatchLoader(train_dataset, config.train.batch_size_per_device, seed=config.seed,
+                               n_workers=n_workers)
+    val_loader = BatchLoader(val_dataset, 1, shuffle=False, drop_last=False, n_workers=n_workers)
     n_accum_steps = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device, 1)
     steps_per_epoch = max(len(train_loader) // n_accum_steps, 1)
 
@@ -220,43 +239,44 @@ def run_train(
     retention = CheckpointRetention(config.train.max_n_ckpts)
     saved_any = False
 
-    for epoch in range(start_epoch, config.train.n_epochs):
-        epoch_metrics: Dict[str, list] = {}
-        for batch in train_loader.epoch(epoch):
-            state, metrics = step_fn(state, to_device(batch, device))
-            for k, v in metrics.items():
-                epoch_metrics.setdefault(k, []).append(v)
-        # the epoch's one read from the device
-        logged = {f"train_{k}": float(torch.stack(v).float().mean()) for k, v in epoch_metrics.items()}
-        logged.update({"epoch": epoch, "n_samples": state.n_samples})
-        metrics_logger.log(logged)
+    with train_loader, val_loader:
+        for epoch in range(start_epoch, config.train.n_epochs):
+            epoch_metrics: Dict[str, list] = {}
+            for batch in train_loader.epoch(epoch):
+                state, metrics = step_fn(state, to_device(batch, device))
+                for k, v in metrics.items():
+                    epoch_metrics.setdefault(k, []).append(v)
+            # the epoch's one read from the device
+            logged = {f"train_{k}": float(torch.stack(v).float().mean()) for k, v in epoch_metrics.items()}
+            logged.update({"epoch": epoch, "n_samples": state.n_samples})
+            metrics_logger.log(logged)
 
-        if (epoch + 1) % config.train.eval_interval != 0:
-            continue
+            if (epoch + 1) % config.train.eval_interval != 0:
+                continue
 
-        val_metrics = {f"val_{k}": v for k, v in eval_dataloader_fn(model, val_loader, config).items()}
-        val_metrics["epoch"] = epoch
-        metrics_logger.log(val_metrics)
-        print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items() if isinstance(v, float)),
-              flush=True)
+            val_metrics = {f"val_{k}": v for k, v in eval_dataloader_fn(model, val_loader, config).items()}
+            val_metrics["epoch"] = epoch
+            metrics_logger.log(val_metrics)
+            print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items() if isinstance(v, float)),
+                  flush=True)
 
-        early_metric = val_metrics[config.train.early_stopping.metric]
-        if config.train.early_stopping.mode == "max":
-            early_metric = -early_metric
-        early_stop.update(early_metric)
+            early_metric = val_metrics[config.train.early_stopping.metric]
+            if config.train.early_stopping.mode == "max":
+                early_metric = -early_metric
+            early_stop.update(early_metric)
 
-        # the first evaluation of a fresh run always saves (the reference's epoch-0 save,
-        # train.py:335-342): a metric that is NaN at every epoch never improves
-        if early_stop.has_improved or not (saved_any or resumed_meta):
-            saved_any = True
-            path = save_checkpoint(out_dir, state, epoch)
-            (path.parent / f"{path.name}.meta.json").write_text(
-                json.dumps({**early_stop.state_dict(), "epoch": epoch})
-            )
-            save_params_safetensors(state.params, out_dir / f"model_{epoch}.safetensors")
-            retention.add(path, epoch)
-            print(f"Saved checkpoint of epoch {epoch} at {path}.", flush=True)
-        if early_stop.should_stop:
-            print("Met early stopping criteria, breaking.", flush=True)
-            break
+            # the first evaluation of a fresh run always saves (the reference's epoch-0 save,
+            # train.py:335-342): a metric that is NaN at every epoch never improves
+            if early_stop.has_improved or not (saved_any or resumed_meta):
+                saved_any = True
+                path = save_checkpoint(out_dir, state, epoch)
+                (path.parent / f"{path.name}.meta.json").write_text(
+                    json.dumps({**early_stop.state_dict(), "epoch": epoch})
+                )
+                save_params_safetensors(state.params, out_dir / f"model_{epoch}.safetensors")
+                retention.add(path, epoch)
+                print(f"Saved checkpoint of epoch {epoch} at {path}.", flush=True)
+            if early_stop.should_stop:
+                print("Met early stopping criteria, breaking.", flush=True)
+                break
     return out_dir

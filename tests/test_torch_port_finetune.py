@@ -2,7 +2,7 @@
 supervised train steps of the port against ``cinema_tpu.train.state.make_supervised_train_step``
 from identical parameters and batches (classification and regression, with layer
 decay, with and without accumulation); and a rehearsal of the task entry points on
-the CPU with synthetic ``.npz`` studies: train, evaluate, early-stop, save, resume.
+the CPU with synthetic processed NIfTI studies: train, evaluate, early-stop, save, resume.
 
 f32 on both sides, drop-path off (the two packages draw different noise). The JAX
 side runs its packed Pallas kernels in interpret mode. Losses agree to 2e-4
@@ -20,12 +20,14 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pandas as pd
 import pytest
 import torch
 
 from cinema_tpu_torch import losses, metrics
 from cinema_tpu_torch.config import PACKAGED, from_dict, load_config
 from cinema_tpu_torch.convert import load_safetensors, state_dict_from_jax
+from cinema_tpu_torch.data import save_nifti
 from cinema_tpu_torch.factory import from_finetuned, get_convvit_model
 from cinema_tpu_torch.tasks import classification, regression
 from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
@@ -286,15 +288,22 @@ def test_patched_evaluation_matches_jax():
 
 
 def _write_studies(data_dir, n=19, seed=0):
-    """Synthetic studies whose class shows in the image: class c brightens one z-slab."""
+    """Synthetic studies in the processed ACDC layout (``train/<pid>/<pid>_sax_{ed,es}.nii.gz``, uint8, and
+    ``train_metadata.csv``) whose class shows in the image: class c brightens one z-slab."""
     rng = np.random.default_rng(seed)
-    data_dir.mkdir()
+    classes = PACKAGED["classification/acdc"]["data"]["pathology"]
+    lines = ["pid,n_slices,pathology,ef"]
     for i in range(n):
         label = i % 5
-        image = rng.random((18, 16, 5, 2)).astype(np.float32) * 50
-        image[:, :, label % 4] += 100 + 40 * label
-        ef = np.float32(np.nan if i == 18 else 20.0 + 5.0 * label + rng.normal())
-        np.savez(data_dir / f"study_{i:03d}.npz", sax_image=image, label=np.int64(label), ef=ef)
+        image = rng.random((18, 16, 5, 2)) * 50
+        image[:, :, label % 4] += 60 + 35 * label
+        pid = f"patient{i:03d}"
+        (data_dir / "train" / pid).mkdir(parents=True)
+        for f, frame in enumerate(("ed", "es")):
+            save_nifti(data_dir / "train" / pid / f"{pid}_sax_{frame}.nii.gz", image[..., f].astype(np.uint8))
+        ef = "" if i == 18 else f"{20.0 + 5.0 * label + rng.normal():.4f}"
+        lines.append(f"{pid},5,{classes[label]},{ef}")
+    (data_dir / "train_metadata.csv").write_text("\n".join(lines) + "\n")
 
 
 def _task_config(kind, data_dir, n_epochs=3):
@@ -388,6 +397,9 @@ def test_maybe_reduce_batch_size_and_task_model_dispatch():
 
 def test_split_by_class_holds_out_two_of_every_class():
     labels = np.array([0, 1, 2] * 5 + [3])
-    train, val = clf_acdc.split_by_class(labels)
+    train, val = loop.split_by_class(labels.tolist())
     assert sorted(train + val) == list(range(16)) and [int((labels[val] == c).sum()) for c in range(4)] == [2, 2, 2, 1]
-    assert clf_acdc.split_by_class(labels) == (train, val)
+    assert loop.split_by_class(labels.tolist()) == (train, val)
+    # where every class has two studies, the studies pandas draws (the one-study class aside, where it raises)
+    want = pd.DataFrame({"c": labels[:15]}).groupby("c").sample(n=2, random_state=0).index
+    assert loop.split_by_class(labels[:15].tolist())[1] == sorted(want)

@@ -206,3 +206,84 @@ def test_landmark_coordinate_train_step_through_the_kernels_agrees_with_the_cpu_
              "lax_2c_width": torch.full((2,), 64), "lax_2c_height": torch.full((2,), 64)}
     launches = _step_on_the_cpu_and_the_card(card, build, landmark_regression_loss_fn, batch)
     assert launches == (4, 2)
+
+
+def _write_mnms_tree(root, name, n, size, seed):
+    """``n`` seeded training studies in the processed layout of ``name`` (uint8 SAX images, a bright box
+    on noise, and its uint8 label) with ``train_metadata.csv`` (``pid``, ``n_slices``, ``pathology``)."""
+    import csv
+
+    from cinema_tpu_torch.config import PACKAGED
+    from cinema_tpu_torch.data import save_nifti
+
+    rng = np.random.default_rng(seed)
+    classes = PACKAGED[f"classification/{name}"]["data"]["pathology"]
+    rows = []
+    for i in range(n):
+        pid = str(i + 1)
+        (root / "train" / pid).mkdir(parents=True)
+        for frame in ("ed", "es"):
+            label = np.zeros(size, np.uint8)
+            x, y = (int(v) for v in rng.integers(8, 20, size=2))
+            label[x : x + 20, y : y + 16] = 2
+            label[x + 4 : x + 14, y + 4 : y + 12] = 1
+            label[x + 20 : x + 28, y : y + 12] = 3
+            image = np.clip(label * 60 + rng.normal(40, 15, size), 0, 255).astype(np.uint8)
+            save_nifti(root / "train" / pid / f"{pid}_sax_{frame}.nii.gz", image)
+            save_nifti(root / "train" / pid / f"{pid}_sax_{frame}_gt.nii.gz", label)
+        rows.append({"pid": pid, "n_slices": size[2], "pathology": classes[i % len(classes)]})
+    for split in ("train", "val"):
+        with open(root / f"{split}_metadata.csv", "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=list(rows[0]))
+            writer.writeheader()
+            writer.writerows(rows)
+
+
+def _augmented_batch(task, root, patch, keys):
+    """The first batch of 2 of ``task``'s training loader (its packaged transforms at ``prob`` 1, the
+    patch size ``patch``) on the studies under ``root``, the entries ``keys`` as tensors."""
+    import importlib
+
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import BatchLoader
+
+    config = from_dict(PACKAGED[task])
+    config.data.dir, config.data.sax.patch_size, config.transform.prob = str(root), list(patch), 1.0
+    family, name = task.split("/")
+    train, _ = importlib.import_module(f"cinema_tpu_torch.tasks.{family}.{name}").load_dataset(config)
+    with BatchLoader(train, 2, n_workers=2, processes=True) as loader:
+        batch = next(iter(loader.epoch(0)))
+    return {k: torch.from_numpy(batch[k]) for k in keys}
+
+
+@pytest.mark.gpu
+def test_mnms_segmentation_step_on_augmented_nifti_batches_agrees_with_the_cpu_step(card, tmp_path):
+    """One f32 step of a small ConvUNetR on the first augmented batch of ``segmentation/mnms`` (NIfTI
+    studies, loaded by worker processes): the packed kernels on the card, every parameter's gradient as
+    the CPU's (``_step_on_the_cpu_and_the_card``)."""
+    from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
+
+    _write_mnms_tree(tmp_path, "mnms", 4, (72, 70, 5), seed=11)
+    batch = _augmented_batch("segmentation/mnms", tmp_path, (64, 64, 4), ("sax_image", "sax_label"))
+    assert batch["sax_image"].shape == (2, 64, 64, 4, 1) and batch["sax_label"].dtype == torch.int8
+    launches = _step_on_the_cpu_and_the_card(card, lambda: _convunetr("sax", (64, 64, 4), 4), segmentation_loss_fn,
+                                             batch, zero_grad="dec_image_conv_block_dict.sax.norm1.weight")
+    assert launches == (4, 2)
+
+
+@pytest.mark.gpu
+def test_mnms2_classification_step_on_augmented_nifti_batches_agrees_with_the_cpu_step(card, tmp_path):
+    """As the segmentation step, for a small ConvViT on ED + ES of ``classification/mnms2`` (six classes)."""
+    from cinema_tpu_torch.models.convvit import ConvViT
+    from cinema_tpu_torch.tasks.classification import classification_loss_fn
+
+    def build():
+        return ConvViT(image_size_dict={"sax": (32, 32, 4)}, in_chans_dict={"sax": 1}, n_frames=2, out_chans=6,
+                       enc_patch_size_dict={"sax": (4, 4, 1)}, enc_scale_factor_dict={"sax": (2, 2, 1)},
+                       enc_conv_chans=(8, 16), enc_conv_n_blocks=1, enc_embed_dim=64, enc_depth=2, enc_n_heads=2,
+                       remat=True)
+
+    _write_mnms_tree(tmp_path, "mnms2", 6, (40, 36, 5), seed=12)
+    batch = _augmented_batch("classification/mnms2", tmp_path, (32, 32, 4), ("sax_image", "label"))
+    assert batch["sax_image"].shape == (2, 32, 32, 4, 2)
+    assert _step_on_the_cpu_and_the_card(card, build, classification_loss_fn, batch) == (4, 2)

@@ -50,6 +50,14 @@ SEGMENTATION_MODULES = {
 # and every module that the landmark slice added
 LANDMARK_MODULES = {"cinema_tpu_torch.tasks.segmentation.landmark", "cinema_tpu_torch.tasks.regression.landmark"}
 
+# and every module of the processed-NIfTI slice: the data package and the M&Ms and M&Ms2 tasks
+NIFTI_MODULES = {
+    "cinema_tpu_torch.data.datasets", "cinema_tpu_torch.data.nifti", "cinema_tpu_torch.data.transforms",
+    "cinema_tpu_torch.tasks.edes",
+    *(f"cinema_tpu_torch.tasks.{family}.{name}" for family in ("classification", "regression", "segmentation")
+      for name in ("mnms", "mnms2")),
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -57,10 +65,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 36, proc.stdout
+    assert int(n_modules) >= 46, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    assert PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES <= set(names.split()), \
-        proc.stdout
+    wanted = PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
+    assert wanted <= set(names.split()), proc.stdout
 
 
 def _no_card():
@@ -96,7 +104,9 @@ def test_packaged_mae_config_is_the_jax_packages_yaml():
 
 
 @pytest.mark.parametrize("task", ["classification", "regression", "segmentation", "segmentation/landmark",
-                                  "regression/landmark"])
+                                  "regression/landmark", *(f"{family}/{name}" for name in ("mnms", "mnms2")
+                                                           for family in ("classification", "regression",
+                                                                          "segmentation"))])
 def test_packaged_finetune_configs_are_the_jax_packages_yamls(task):
     import yaml
 

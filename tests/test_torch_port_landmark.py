@@ -419,7 +419,7 @@ def test_landmark_datasets_match_jax_item_for_item(tmp_path, with_view):
     from cinema_tpu.data.datasets import LandmarkRegressionDataset as JaxRegression
 
     root = _write_landmark_data(tmp_path, {"train": [(32, 32), (48, 40), (40, 36)]}, with_view, names=("train",))
-    rows = data.read_landmark_metadata(root / "train_metadata.csv")
+    rows = data.read_metadata(root / "train_metadata.csv")
     assert len(rows) == (5 if with_view else 3)
     for port_cls, jax_cls in ((LandmarkDetectionDataset, JaxDetection), (LandmarkRegressionDataset, JaxRegression)):
         port = port_cls(root, rows, VIEW)
@@ -538,7 +538,7 @@ def _heatmap_evaluation(tmp_path, jax_metrics=True, **intensities):
     port = _port_model("segmentation")
     root = _write_landmark_data(tmp_path, {"val": list(WINDOW_SIZES.values())}, names=("val",), **intensities)
     config = _tiny_config("segmentation")
-    loader = BatchLoader(LandmarkDetectionDataset(root, data.read_landmark_metadata(root / "val_metadata.csv"), VIEW),
+    loader = BatchLoader(LandmarkDetectionDataset(root, data.read_metadata(root / "val_metadata.csv"), VIEW),
                          1, shuffle=False, drop_last=False)
     batches = list(loader.epoch(0))
     assert [b[f"{VIEW}_image"].shape[1:3] for b in batches] == list(WINDOW_SIZES.values())
@@ -585,7 +585,7 @@ def test_landmark_coordinate_evaluation_matches_jax(tmp_path):
     port = _port_model("regression")
     root = _write_landmark_data(tmp_path, {"val": [PATCH] * 3}, names=("val",))
     config = _tiny_config("regression")
-    loader = BatchLoader(LandmarkRegressionDataset(root, data.read_landmark_metadata(root / "val_metadata.csv"), VIEW),
+    loader = BatchLoader(LandmarkRegressionDataset(root, data.read_metadata(root / "val_metadata.csv"), VIEW),
                          1, shuffle=False, drop_last=False)
     got = reg_landmark.landmark_regression_eval_dataloader(port, loader, config)
     assert not port.training

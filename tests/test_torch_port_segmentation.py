@@ -3,7 +3,7 @@
 of a tiny ConvUNetR against ``cinema_tpu.tasks.segmentation`` and
 ``cinema_tpu.train.state.make_supervised_train_step`` from the same weights and inputs; the
 ED/ES dataset, the seeded ``data.max_n_samples`` subset, and a rehearsal of the task's entry
-point on the CPU with synthetic ``.npz`` studies.
+point on the CPU with synthetic processed NIfTI studies.
 
 f32 on both sides (tests/conftest.py pins XLA matmuls to "highest"); the JAX side runs its
 packed Pallas kernels in interpret mode. Logits and losses agree to 2e-4, as in the other
@@ -30,7 +30,8 @@ import torch
 from cinema_tpu_torch import factory, losses, metrics
 from cinema_tpu_torch.config import PACKAGED, from_dict
 from cinema_tpu_torch.convert import load_safetensors, state_dict_from_jax
-from cinema_tpu_torch.data import NpzEDESSegmentationDataset, random_crop_starts
+from cinema_tpu_torch.data import EDESSegmentationDataset, load_nifti, read_metadata, save_nifti
+from cinema_tpu_torch.data.transforms import get_segmentation_transforms
 from cinema_tpu_torch.models.convunetr import ConvUNetR as PortConvUNetR
 from cinema_tpu_torch.tasks import segmentation
 from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
@@ -368,33 +369,56 @@ def test_convunetr_factory_honours_grad_ckpt_with_the_same_gradients():
 
 # --- data ----------------------------------------------------------------------------
 
+ACDC = PACKAGED["classification/acdc"]["data"]["pathology"]
+
+
 def _write_seg_studies(data_dir, sizes, n_per_class=3, n_classes=5, seed=10):
-    """Seeded studies: per frame three nested boxes (LV, myocardium, RV) on noise, the image
-    brightest where the label is highest, so that image and label can be told apart and matched."""
+    """Seeded studies in the processed ACDC layout (``train/<pid>/<pid>_sax_{ed,es}[_gt].nii.gz``, uint8,
+    and ``train_metadata.csv``): per frame three nested boxes (LV, myocardium, RV) on noise, the image
+    brightest where the label is highest, so that image and label can be told apart and matched.
+    Returns the pids in their table's order."""
     rng = np.random.default_rng(seed)
-    data_dir.mkdir()
-    paths = []
+    lines, pids = ["pid,n_slices,pathology"], []
     for i in range(n_per_class * n_classes):
         size = sizes[i % len(sizes)]
-        label = np.stack([_labels(rng, size), _labels(rng, size)], axis=-1)
-        image = label.astype(np.float32) * 100 + rng.random(label.shape).astype(np.float32) * 20 + 50
-        path = data_dir / f"study_{i // n_classes:02d}_{i % n_classes}.npz"
-        np.savez(path, sax_image=image, sax_label=label, pathology=np.int64(i % n_classes))
-        paths.append(path)
-    return sorted(paths)
+        pid = f"patient{i:03d}"
+        (data_dir / "train" / pid).mkdir(parents=True)
+        for frame in ("ed", "es"):
+            label = _labels(rng, size).astype(np.uint8)
+            image = (label * 50.0 + rng.random(size) * 20 + 40).astype(np.uint8)
+            save_nifti(data_dir / "train" / pid / f"{pid}_sax_{frame}.nii.gz", image)
+            save_nifti(data_dir / "train" / pid / f"{pid}_sax_{frame}_gt.nii.gz", label)
+        lines.append(f"{pid},{size[2]},{ACDC[i % n_classes]}")
+        pids.append(pid)
+    (data_dir / "train_metadata.csv").write_text("\n".join(lines) + "\n")
+    return pids
+
+
+def _cut_of(part, whole):
+    """The offsets at which ``part`` is a cut of ``whole`` (the leading axes)."""
+    ranges = [range(w - p + 1) for p, w in zip(part.shape, whole.shape)]
+    return [o for o in np.ndindex(*map(len, ranges))
+            if np.array_equal(whole[tuple(slice(a, a + n) for a, n in zip(o, part.shape))], part)]
 
 
 def test_dataset_indexes_ed_es_and_crops_image_and_label_together(tmp_path):
-    paths = _write_seg_studies(tmp_path / "studies", [(40, 36, 6), (30, 20, 3)], n_per_class=1, n_classes=2)
-    with np.load(paths[0]) as s:
-        big = {k: s[k] for k in ("sax_image", "sax_label")}
-    train = NpzEDESSegmentationDataset(paths, PATCH, train=True, seed=3)
-    val = NpzEDESSegmentationDataset(paths, PATCH, train=False, seed=3)
+    _write_seg_studies(tmp_path / "studies", [(40, 36, 6), (30, 20, 3)], n_per_class=1, n_classes=2)
+    rows = read_metadata(tmp_path / "studies" / "train_metadata.csv")
+    config = _tiny_config()
+    config.transform.prob = 0.0  # contrast, noise, affine and dropout off: the crop alone moves the voxels
+    train_tf, val_tf = get_segmentation_transforms(config)
+    train = EDESSegmentationDataset(tmp_path / "studies" / "train", rows, "sax", train_tf, seed=3)
+    val = EDESSegmentationDataset(tmp_path / "studies" / "train", rows, "sax", val_tf, seed=3)
     assert len(train) == len(val) == 4
+
+    def frame_of(index):
+        pid, frame = rows[index // 2]["pid"], ("ed", "es")[index % 2]
+        folder = tmp_path / "studies" / "train" / pid
+        return (load_nifti(folder / f"{pid}_sax_{frame}.nii.gz")[0].astype(np.float32),
+                load_nifti(folder / f"{pid}_sax_{frame}_gt.nii.gz")[0].astype(np.int8))
+
     for index in range(4):
-        frame, study = index % 2, paths[index // 2]
-        with np.load(study) as s:
-            image, label = s["sax_image"][..., frame], s["sax_label"][..., frame]
+        image, label = frame_of(index)
         item = val.load(index, epoch=0)
         w, h, n = image.shape
         assert (int(item["sax_width"]), int(item["sax_height"]), int(item["n_slices"])) == (w, h, n)
@@ -403,17 +427,24 @@ def test_dataset_indexes_ed_es_and_crops_image_and_label_together(tmp_path):
         np.testing.assert_array_equal(item["sax_label"][:w, :h, :n], label)  # frame i % 2 of study i // 2
         assert item["sax_image"].max() == 1.0 and item["sax_image"].min() == 0.0
         assert not item["sax_label"][w:].any() and not item["sax_image"][w:].any()
-    for epoch in (0, 1):
+    image, label = frame_of(0)
+    scaled = (image - image.min()) / np.ptp(image)
+    cuts = set()
+    for epoch in (0, 1, 2):
         item = train.load(0, epoch)
         assert item["sax_image"].shape == (*PATCH, 1) and item["sax_label"].shape == PATCH
-        starts = random_crop_starts((40, 36, 6), PATCH, np.random.default_rng([3, epoch, 0]))
-        cut = tuple(slice(a, a + s) for a, s in zip(starts, PATCH))
-        np.testing.assert_array_equal(item["sax_label"], big["sax_label"][..., 0][cut])  # ED of study 0, one cut
-        scaled = (big["sax_image"][..., 0] - big["sax_image"][..., 0].min()) / np.ptp(big["sax_image"][..., 0])
-        np.testing.assert_allclose(item["sax_image"][..., 0], scaled[cut], rtol=1e-6)
-    assert train.load(1, 0)["sax_label"].shape == PATCH  # the smaller study is padded where it is short
-    small = train.load(2, 0)
+        at = [o for o in _cut_of(item["sax_label"], label) if o in _cut_of(item["sax_image"][..., 0], scaled)]
+        assert at, "the image and the label are not one cut of the ED frame of study 0"
+        cuts.add(at[0])
+        np.testing.assert_array_equal(train.load(0, epoch)["sax_image"], item["sax_image"])  # seeded
+    assert len(cuts) > 1  # another epoch cuts elsewhere
+    small = train.load(2, 0)  # the smaller study is padded where it is short
     assert small["sax_label"].shape == PATCH and not small["sax_label"][30:].any() and not small["sax_label"][:, :, 3:].any()
+    config.transform.prob = 1.0  # every augmentation fires, with the same draws for image and label
+    augmented = EDESSegmentationDataset(tmp_path / "studies" / "train", rows, "sax",
+                                        get_segmentation_transforms(config)[0], seed=3).load(0, 0)
+    assert augmented["sax_image"].shape == (*PATCH, 1) and augmented["sax_label"].dtype == np.int8
+    assert not np.array_equal(augmented["sax_label"], train.load(0, 0)["sax_label"])
 
 
 # --- the seeded max_n_samples subset ---------------------------------------------------------
@@ -430,10 +461,10 @@ def test_subset_per_class_counts_match_pandas(cap):
     train, val = loop.maybe_subset_dataset(_cap_config(cap), list(range(31)), list(range(10)), train_groups, val_groups)
     for items, groups in ((train, train_groups), (val, val_groups)):
         frame = pd.DataFrame({"g": groups})
-        want = frame.groupby("g").sample(frac=min(cap / len(groups), 1.0), random_state=0)["g"].value_counts()
+        want = frame.groupby("g").sample(frac=min(cap / len(groups), 1.0), random_state=0)
+        assert items == want.index.tolist()  # pandas' rows, group by group in the order it draws them
         got = pd.Series(groups[items]).value_counts()
-        assert got.reindex(want.index, fill_value=0).to_dict() == want.to_dict()
-        assert got.index.isin(want.index).all() and items == sorted(set(items))
+        assert got.reindex(want["g"].value_counts().index, fill_value=0).to_dict() == want["g"].value_counts().to_dict()
 
 
 @pytest.mark.parametrize("cap", [1, 7, 15, 31])
@@ -457,23 +488,23 @@ def test_a_cap_of_half_keeps_every_class_of_a_class_sorted_list(tmp_path):
     """Studies named in class order, as ACDC numbers its patients by pathology: the cap draws
     from every class, where a prefix of the sorted list would keep two classes."""
     data_dir = tmp_path / "studies"
+    lines = ["pid,n_slices,pathology"] + [f"patient{i:03d},4,{ACDC[i // 8]}" for i in range(40)]
     data_dir.mkdir()
-    rng = np.random.default_rng(12)
-    for i in range(40):
-        np.savez(data_dir / f"patient{i:03d}.npz", sax_image=rng.random((16, 16, 4, 2)).astype(np.float32),
-                 label=np.int64(i // 8))
+    (data_dir / "train_metadata.csv").write_text("\n".join(lines) + "\n")
     config = from_dict(PACKAGED["classification/acdc"])
     config.data.dir = str(data_dir)
     config.data.max_n_samples = 15  # half of the 30 training studies
     train, val = clf_acdc.load_dataset(config)
-    labels = [int(np.load(p)["label"]) for p in train.paths]
+    labels = [ACDC.index(r["pathology"]) for r in train.rows]
     assert len(train) == 15 and sorted(set(labels)) == [0, 1, 2, 3, 4] and all(labels.count(c) == 3 for c in range(5))
     assert len(val) == 10
-    seg = _write_seg_studies(tmp_path / "seg", [(16, 16, 4)], n_per_class=6)
-    config = _tiny_config(dir=str(seg[0].parent), max_n_samples=10)
+    pids = _write_seg_studies(tmp_path / "seg", [(16, 16, 4)], n_per_class=6)
+    config = _tiny_config(dir=str(tmp_path / "seg"), max_n_samples=10)
     train, val = seg_acdc.load_dataset(config)
-    assert len(train.paths) == 10 and len(val.paths) == 10 and not set(train.paths) & set(val.paths)
-    assert sorted(int(np.load(p)["pathology"]) for p in val.paths) == [0, 0, 1, 1, 2, 2, 3, 3, 4, 4]
+    train_pids, val_pids = [r["pid"] for r in train.rows], [r["pid"] for r in val.rows]
+    assert len(train_pids) == 10 and len(val_pids) == 10 and not set(train_pids) & set(val_pids)
+    assert set(train_pids) | set(val_pids) <= set(pids)
+    assert sorted(ACDC.index(r["pathology"]) for r in val.rows) == [0, 0, 1, 1, 2, 2, 3, 3, 4, 4]
 
 
 # --- the task entry point --------------------------------------------------------------
@@ -483,12 +514,12 @@ def test_segmentation_task_rehearsal_on_the_cpu(tmp_path):
     train, evaluate by sliding window with the z bucket, save, and reload the saved weights."""
     import yaml
 
-    paths = _write_seg_studies(tmp_path / "studies", [(32, 32, 4), (40, 36, 3), (34, 32, 6)])
+    _write_seg_studies(tmp_path / "studies", [(32, 32, 4), (40, 36, 3), (34, 32, 6)])
     config = _tiny_config()
     config.train.update(n_epochs=2, n_warmup_epochs=1, eval_interval=1, batch_size=4, lr=3e-3)
     config_path = tmp_path / "tiny.yaml"
     config_path.write_text(yaml.safe_dump(json.loads(json.dumps(config))))
-    seg_acdc.main(["--device", "cpu", "--config", str(config_path), f"data.dir={paths[0].parent}",
+    seg_acdc.main(["--device", "cpu", "--config", str(config_path), f"data.dir={tmp_path / 'studies'}",
                    f"logging.dir={tmp_path / 'runs'}"])
     (out_dir,) = (tmp_path / "runs").iterdir()
     records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
