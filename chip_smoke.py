@@ -1,17 +1,19 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's six paths (``cinema_tpu_torch``), serving, MAE
+Drives the port's seven paths (``cinema_tpu_torch``), serving, MAE
 pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
-landmark localization and the M&Ms and M&Ms2 tasks, at full width and holds
-every hand-written kernel of those paths against its plain PyTorch version
-on the card:
+landmark localization, the M&Ms and M&Ms2 tasks, and the EMIDEC, MyoPS2020,
+Rescan and Kaggle tasks with the evaluation of run folders, at full width and
+holds every hand-written kernel of those paths against its plain PyTorch
+version on the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
    (one process per source, all at once);
 3. kernels: the packed and the per-head attention forward and backward
    kernels against their plain versions at the paths' shapes (the landmark
-   paths' 257 tokens among them) and at ragged and cross-attention shapes
+   paths' 257 tokens, EMIDEC's 289 and MyoPS2020's 577 among them) and at
+   ragged and cross-attention shapes
    (the per-head ones with v as the strided v
    half of a fused kv projection and through transposed views), with each
    one's time per call, its device time alone (launches back to back,
@@ -82,7 +84,26 @@ on the card:
    step; with ``--profile`` the card's idle share of a fed step); one epoch
    of each of the six entry points' ``run``, with finite metrics, the
    launches its steps and evaluated items need, and its checkpoint and
-   safetensors reloaded to the same outputs.
+   safetensors reloaded to the same outputs;
+10. cine: seeded synthetic trees in the preprocessing's layouts. EMIDEC
+   (96x96x8, labels 0-4; ConvUNetR-base as packaged, 289 tokens) and
+   MyoPS2020 (192x192x4, three sequences as channels; 577 tokens), each:
+   timed ``grad_ckpt`` steps at batch 4 (24 + 12 launches a step), a NaN
+   batch, an f32 step against the plain attention path, one test volume
+   larger than the patch evaluated on the card with its grouped-class
+   metrics held to the CPU's from the same log-probabilities (rtol 1e-6),
+   and one epoch of the task's ``run`` with its checkpoint reloaded. Frame
+   seeks: a 192x192x16x25 cine written frame-indexed and as one gzip member,
+   ms per ``load_nifti_frame`` of each. Rescan (cines of 192x192x16x25):
+   ``grad_ckpt`` steps fed in the loop by the augmented loader of per-frame
+   items (the loader's wait a step), one epoch of ``rescan.run``, and the
+   label-free EF reproducibility (``rescan_ef_eval.main``, bfloat16, 48
+   launches a cine) over scan/rescan pairs. Kaggle: ``evaluate_kaggle`` on
+   three 30-frame cines (48 float32 launches a cine at (8, 2305)). Then
+   ``tasks.evaluate.main`` (float32, as in the JAX package, through the
+   kernel: every call's dtype noted) on the EMIDEC, MyoPS2020 and Rescan
+   run folders (the Rescan one on a labelled split and on test_retest_100)
+   and on an ED/ES run folder of the packaged ACDC model.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -92,7 +113,8 @@ Usage:
 
 ``--profile`` adds a torch.profiler pass over one serving chunk, one
 pretraining step, one fine-tuning step, one segmentation step, one landmark
-heatmap step and one fed M&Ms step and prints the device time by kernel.
+heatmap step, one fed M&Ms step and one EMIDEC and one MyoPS2020 step and
+prints the device time by kernel.
 """
 
 from __future__ import annotations
@@ -326,11 +348,17 @@ RAGGED = [(2, 1, 1, 768, 12), (2, 127, 127, 768, 12), (2, 129, 129, 768, 12), (2
 # four-patch evaluation, and a one-patch evaluation
 LANDMARK_PACKED = (4, 257, 257, 768, 12)
 LANDMARK_EVAL = (1, 257, 257, 768, 12)
+# the cine phase's training micro-batches: an EMIDEC patch of 96x96x8 gives a 6x6x8 grid, 288 tokens + cls =
+# 2 * 128 + 33; a MyoPS2020 patch of 192x192x4 a 12x12x4 grid, 576 + 1 = 4 * 128 + 65 (other q-tile tails
+# than the 257 / 769 / 2305 of the other paths)
+EMIDEC_PACKED = (4, 289, 289, 768, 12)
+MYOPS_PACKED = (4, 577, 577, 768, 12)
 
 
 def check_attention_shapes(gen, timed=True) -> list[dict]:
-    """The forward kernel against its plain version at the paths' shapes (the landmark shapes with sharp
-    scores too) and at ragged and cross-attention shapes, bf16 then f32; the first row is the serving shape."""
+    """The forward kernel against its plain version at the paths' shapes (the landmark, EMIDEC and MyoPS2020
+    shapes with sharp scores too) and at ragged and cross-attention shapes, bf16 then f32; the first row is
+    the serving shape."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention(8, 2305, 2305, 768, 12, dtype, gen, timed))  # serving chunk
@@ -343,6 +371,9 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
         rows.append(check_attention(*LANDMARK_PACKED, dtype, gen, timed))
         rows.append(check_attention(*LANDMARK_EVAL, dtype, gen, timed))
         rows.append(check_attention(*LANDMARK_PACKED, dtype, gen, False, q_scale=SHARP_Q))
+        for shape in (EMIDEC_PACKED, MYOPS_PACKED):
+            rows.append(check_attention(*shape, dtype, gen, timed))
+            rows.append(check_attention(*shape, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention(*shape, dtype, gen, False))
     return rows
@@ -350,8 +381,8 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
 
 def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
     """The backward kernel against its plain version at the two pretraining shapes (the first two
-    rows), the fine-tuning and the landmark shapes, with sharp scores, and at ragged and cross shapes;
-    bf16 then f32."""
+    rows), the fine-tuning, landmark, EMIDEC and MyoPS2020 shapes, with sharp scores, and at ragged and
+    cross shapes; bf16 then f32."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, timed))
@@ -361,6 +392,9 @@ def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
         rows.append(check_attention_bwd(*TRAIN_DECODER, dtype, gen, False, q_scale=SHARP_Q))
         rows.append(check_attention_bwd(*LANDMARK_PACKED, dtype, gen, timed))
         rows.append(check_attention_bwd(*LANDMARK_PACKED, dtype, gen, False, q_scale=SHARP_Q))
+        for shape in (EMIDEC_PACKED, MYOPS_PACKED):
+            rows.append(check_attention_bwd(*shape, dtype, gen, timed))
+            rows.append(check_attention_bwd(*shape, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention_bwd(*shape, dtype, gen, False))
     return rows
@@ -1099,15 +1133,16 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
 SEG_SIZES = [(192, 192, 16), (224, 208, 10), (200, 200, 18)]
 
 
-def seg_frames(rng: np.random.Generator, size: tuple) -> tuple[np.ndarray, np.ndarray]:
-    """(image, label) of one seeded synthetic ED + ES study of ``size``, uint8 (x, y, z, 2) each, ED and ES on
-    the last axis: per frame three nested ellipsoid shells at a seeded centre and radius, the LV cavity (1)
-    inside the myocardium (2) and the RV (3) beside it, smaller at ES; the image brightens by class on noise."""
+def seg_frames(rng: np.random.Generator, size: tuple, scales: tuple = (1.0, 0.85)) -> tuple[np.ndarray, np.ndarray]:
+    """(image, label) of one seeded synthetic study of ``size``, uint8 (x, y, z, len(scales)) each, the frames
+    on the last axis (by default ED and ES): per frame three nested ellipsoid shells at a seeded centre and a
+    radius times the frame's scale, the LV cavity (1) inside the myocardium (2) and the RV (3) beside it; the
+    image brightens by class on noise."""
     axes = np.meshgrid(*(np.arange(s, dtype=np.float32) for s in size), indexing="ij")
     centre = np.array(size, np.float32) * (0.42 + rng.uniform(-0.04, 0.04, 3).astype(np.float32) * (1, 1, 0.2))
     radii = np.array(size, np.float32) * (rng.uniform(0.15, 0.2), rng.uniform(0.15, 0.2), 0.45)
     labels = []
-    for frame_scale in (1.0, 0.85):  # ED, ES
+    for frame_scale in scales:
         r = radii * frame_scale
         d_lv = np.sqrt(sum(((a - c) / s) ** 2 for a, c, s in zip(axes, centre, r)))
         rv_centre = centre + (1.3 * r[0], 0, 0)
@@ -1837,6 +1872,461 @@ def mnms_phase(report: dict, smi: str, profile: bool) -> dict:
     return counters
 
 
+# sizes of the cine phase's data. EMIDEC: training volumes of one 96x96x8 patch; the evaluated test volume
+# 128x112x8, 2 x 2 patches. MyoPS2020: one 192x192x4 patch; the evaluated test volume 224x208x5, 2 x 2
+# patches in-plane and, its 5 slices padded to the z bucket of 8, 3 along z. Rescan: SAX cines of 192x192x16
+# with 25 frames. Kaggle: SAX cines of 192x192x12 (padded to 16) with 30 frames
+EMIDEC_SIZES = {"train": (96, 96, 8), "test": (128, 112, 8)}
+MYOPS_SIZES = {"train": (192, 192, 4), "test": (224, 208, 5)}
+RESCAN_CINE = (192, 192, 16, 25)
+KAGGLE_CINE = (192, 192, 12, 30)
+
+
+def cine_frames(rng: np.random.Generator, size: tuple) -> tuple[np.ndarray, np.ndarray]:
+    """(image, label) uint8 (x, y, z, t) of one seeded synthetic cine of ``size`` (``seg_frames``), the shells
+    contracting from 1 at t = 0 to 0.85 mid-cycle and back."""
+    n = size[3]
+    return seg_frames(rng, size[:3], tuple(1.0 - 0.075 * (1.0 - np.cos(2 * np.pi * t / n)) for t in range(n)))
+
+
+def write_volume_studies(root: Path, name: str, n_train: int, n_test: int, seed: int) -> None:
+    """Seeded synthetic EMIDEC (``name`` "emidec") or MyoPS2020 ("myops2020") studies in the preprocessing's
+    layout, from the shells of ``seg_frames``: EMIDEC ``<pid>/<pid>.nii.gz`` with labels 0-4 (cavity,
+    myocardium, an infarct in part of the myocardium and a no-reflow core in part of that), pids ``Case_N0ii``
+    and ``Case_P0ii`` in turn; MyoPS2020 ``<pid>/<pid>_{c0,de,t2}.nii.gz``, three contrasts, with labels 0-3
+    (myocardium, edema, scar), integer pids; each with ``<pid>_gt.nii.gz`` and ``<split>_metadata.csv``
+    (``pid``, ``n_slices``). Sizes from EMIDEC_SIZES or MYOPS_SIZES; the first test study is the larger one."""
+    from cinema_tpu_torch.data import save_nifti
+
+    sizes = EMIDEC_SIZES if name == "emidec" else MYOPS_SIZES
+    rng = np.random.default_rng(seed)
+    for split, n in (("train", n_train), ("test", n_test)):
+        rows = []
+        for i in range(n):
+            size = sizes["test"] if split == "test" and i == 0 else sizes["train"]
+            _, shells = seg_frames(rng, size, (1.0,))
+            shells = shells[..., 0]
+            x = np.arange(size[0])[:, None, None] > size[0] * 0.42
+            y = np.arange(size[1])[None, :, None] > size[1] * 0.42
+            if name == "emidec":
+                label = np.where(shells == 3, 0, shells).astype(np.uint8)
+                label[(label == 2) & x] = 3
+                label[(label == 3) & y] = 4
+                contrasts = {"": (30, 110, 160, 240, 70)}
+                pid = f"Case_{'NP'[i % 2]}{i // 2 + 1 + 100 * (split == 'test'):03d}"
+            else:
+                label = np.where(shells == 2, 1, 0).astype(np.uint8)
+                label[(label == 1) & x] = 2
+                label[(label == 2) & y] = 3
+                contrasts = {"_c0": (30, 200, 180, 170), "_de": (40, 60, 150, 250), "_t2": (50, 90, 230, 200)}
+                pid = str(101 + i + 100 * (split == "test"))
+            (root / split / pid).mkdir(parents=True)
+            spacing = (1.458, 1.458, 10.0) if name == "emidec" else (1.0, 1.0, 10.0)
+            for suffix, levels in contrasts.items():
+                image = np.array(levels, np.float32)[label] + rng.normal(0, 25, size).astype(np.float32)
+                save_nifti(root / split / pid / f"{pid}{suffix}.nii.gz", np.clip(image, 0, 255).astype(np.uint8),
+                           spacing=spacing)
+            save_nifti(root / split / pid / f"{pid}_gt.nii.gz", label, spacing=spacing)
+            rows.append({"pid": pid, "n_slices": size[2]})
+        write_metadata(root / f"{split}_metadata.csv", rows)
+
+
+def write_rescan_studies(root: Path, seed: int) -> None:
+    """Seeded synthetic Rescan cines (``cine_frames``, RESCAN_CINE, frame-indexed as the port writes them): per
+    study ``<split>/<pid>/sax_t.nii.gz`` and ``sax_gt_t.nii.gz``; ``train`` four studies of two groups
+    (``G00/s_0001``..``s_0003``, ``G01/s_0001``), ``test`` one, and ``test_retest_100`` two subjects scanned
+    twice (``scan_0i_{A,B}``, images only, ``ef`` given for the A scans), each split with its metadata table."""
+    from cinema_tpu_torch.data import save_nifti
+
+    rng = np.random.default_rng(seed)
+    splits = {"train": ["G00/s_0001", "G00/s_0002", "G00/s_0003", "G01/s_0001"], "test": ["G02/s_0001"],
+              "test_retest_100": [f"scan_{i:02d}_{acq}" for i in range(2) for acq in "AB"]}
+    for split, pids in splits.items():
+        rows = []
+        for pid in pids:
+            image, label = cine_frames(rng, RESCAN_CINE)
+            (root / split / pid).mkdir(parents=True)
+            save_nifti(root / split / pid / "sax_t.nii.gz", image, spacing=(1.0, 1.0, 10.0, 1.0), frame_indexed=True)
+            row = {"pid": pid, "n_slices": RESCAN_CINE[2], "n_frames": RESCAN_CINE[3]}
+            if split == "test_retest_100":
+                row["ef"] = round(float(rng.uniform(45, 65)), 2) if pid.endswith("A") else ""
+            else:
+                save_nifti(root / split / pid / "sax_gt_t.nii.gz", label, spacing=(1.0, 1.0, 10.0, 1.0),
+                           frame_indexed=True)
+            rows.append(row)
+        write_metadata(root / f"{split}_metadata.csv", rows)
+
+
+def write_kaggle_studies(root: Path, n: int, seed: int) -> None:
+    """Seeded synthetic Kaggle cines (``cine_frames``, KAGGLE_CINE): ``validate/<pid>/<pid>_sax_t.nii.gz`` and
+    ``validate_metadata.csv`` with the volumes (``diastole_volume``, ``systole_volume``)."""
+    from cinema_tpu_torch.data import save_nifti
+
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        pid = str(700 + i)
+        image, _ = cine_frames(rng, KAGGLE_CINE)
+        (root / "validate" / pid).mkdir(parents=True)
+        save_nifti(root / "validate" / pid / f"{pid}_sax_t.nii.gz", image, spacing=(1.0, 1.0, 10.0, 1.0))
+        edv = round(float(rng.uniform(100, 200)), 1)
+        rows.append({"pid": pid, "n_slices": KAGGLE_CINE[2], "n_frames": KAGGLE_CINE[3], "diastole_volume": edv,
+                     "systole_volume": round(edv * float(rng.uniform(0.35, 0.6)), 1)})
+    write_metadata(root / "validate_metadata.csv", rows)
+
+
+@contextlib.contextmanager
+def attention_dtypes(dtypes: list):
+    """Inside the block the models' packed attention notes the dtype of each call's q in ``dtypes``."""
+    from cinema_tpu_torch.models import vit
+
+    inner = vit.flash_attention_packed_kv
+
+    def noting(q, kv, n_heads):
+        dtypes.append(q.dtype)
+        return inner(q, kv, n_heads)
+
+    with swapped(vit, "flash_attention_packed_kv", noting):
+        yield
+
+
+def cine_phase(report: dict, smi: str, profile: bool) -> dict:
+    """The EMIDEC, MyoPS2020, Rescan and Kaggle tasks, NIfTI frame seeks and the evaluation of run folders
+    (``tasks.evaluate``, float32 as in the JAX package, and the bfloat16 label-free EF) at full width; returns
+    the packed kernels' launches on this path."""
+    from cinema_tpu_torch import metrics as seg_metrics
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import (
+        BatchLoader,
+        EMIDECDataset,
+        MYOPS2020Dataset,
+        load_nifti_frame,
+        read_metadata,
+        save_nifti,
+    )
+    from cinema_tpu_torch.data.transforms import get_segmentation_transforms
+    from cinema_tpu_torch.factory import get_segmentation_model, init_weights
+    from cinema_tpu_torch.models import vit
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv_plain
+    from cinema_tpu_torch.ops.window import crop_start
+    from cinema_tpu_torch.tasks import evaluate
+    from cinema_tpu_torch.tasks.segmentation import (
+        emidec,
+        kaggle,
+        myops2020,
+        patch_and_spacing_dicts,
+        rescan,
+        rescan_ef_eval,
+        segmentation_eval_batch,
+        segmentation_loss_fn,
+    )
+    from cinema_tpu_torch.train.checkpoint import save_params_safetensors
+    from cinema_tpu_torch.train.loop import to_device
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    batch_size, n_timed, depth = 4, 6, 12
+    cuda = torch.device("cuda")
+    out: dict = {}
+
+    def plain_attention():
+        return swapped(vit, "flash_attention_packed_kv", flash_attention_packed_kv_plain)
+
+    def cinema_eval(label: str, folder: Path, split: str, expected: int, tables: tuple, key: str) -> dict:
+        """``tasks.evaluate.main`` on a run folder: float32, as in the JAX package, through the kernel, ``expected``
+        launches; it must write ``tables`` to ``<folder>/<data>_eval`` (data: the run's dataset, the label's first
+        word) and a finite ``key`` mean."""
+        dtypes: list = []
+        reset()
+        t0 = time.perf_counter()
+        with attention_dtypes(dtypes):
+            evaluate.main(["--folder_path", str(folder), "--split", split, "--device", "cuda"])
+        seconds = time.perf_counter() - t0
+        got = read()
+        check(got == (expected, 0, 0, 0) and len(dtypes) == expected and set(dtypes) == {torch.float32},
+              f"cinema_eval {label} launched {got} over {len(dtypes)} calls of {set(dtypes)}, expected {expected} "
+              f"float32 packed forward launches")
+        out_dir = folder / f"{label.split('_')[0]}_eval"
+        written = sorted(p.name for p in out_dir.iterdir())
+        check(set(tables) <= set(written), f"cinema_eval {label} wrote {written}, expected {tables}")
+        (means,) = list(csv.DictReader((out_dir / "mean_metrics.csv").read_text().splitlines()))
+        check(np.isfinite(float(means[key])), f"cinema_eval {label}: {key} {means[key]}")
+        row = {"split": split, "seconds": seconds, "f32_launches": got[0], key: float(means[key])}
+        print(f"cine_eval {label}", json.dumps(row), f"on {smi}", flush=True)
+        return row
+
+    def volume_task(name: str, entry, dataset_cls, metrics_fn, data_dir: Path) -> tuple:
+        """EMIDEC or MyoPS2020: timed grad_ckpt steps, a NaN batch, an f32 step, the larger test volume evaluated
+        on the card and its grouped metrics held to the CPU's, one epoch of ``run``; returns (rows, run folder)."""
+        config = from_dict(PACKAGED[f"segmentation/{name}"])  # grad_ckpt on, as packaged
+        config.train.batch_size = batch_size  # no accumulation: every step is an update
+        config.data.dir = str(data_dir)
+        patch_size_dict, spacing_dict = patch_and_spacing_dicts(config)
+        patch = patch_size_dict["sax"]
+        in_chans = config.data.sax.in_chans
+        train_ds, val_ds = entry.load_dataset(config)
+        with BatchLoader(train_ds, batch_size, seed=0) as loader:
+            batches = [to_device(b, cuda) for b in loader.epoch(0)]
+        check(batches[0]["sax_image"].shape == (batch_size, *patch, in_chans)
+              and batches[0]["sax_label"].shape == (batch_size, *patch), f"{name} batch {batches[0]['sax_image'].shape}")
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
+        check(model.encoder.remat, "grad_ckpt did not reach the encoder")
+        state, step_fn = supervised_step(config, model, segmentation_loss_fn)
+        # a one-channel input's LayerNorm outputs its bias: its weight may stay (phase 7)
+        may_stay = frozenset({"dec_image_conv_block_dict.sax.norm1.weight"} if in_chans == 1 else ())
+        rows = {"steps": timed_steps(launches, smi, name, model, state, step_fn, batches, n_timed,
+                                     (2 * depth, depth, 0, 0), may_stay)}
+        state = check_nan_batch(name, launches, model, state, step_fn, batches[0], "sax_image")
+        if profile:
+            reset()
+            rows["profile"] = profile_call(f"{name}_profile", lambda: step_fn(state, batches[0]), smi)
+            read()
+        del state, step_fn
+        model32 = get_segmentation_model(config, dtype=torch.float32, device=cuda).train()
+        model32.load_state_dict(model.state_dict())
+        for module in model32.modules():  # no dropout or drop-path noise: both passes see the same network
+            if hasattr(module, "rate"):
+                module.rate = 0.0
+        small = {k: v[:2] for k, v in batches[1].items()}
+        rows["f32"] = check_f32_step(f"{name}_f32", launches, model32, segmentation_loss_fn, small, plain_attention(),
+                                     (2 * depth, depth, 0, 0))
+        del model32
+
+        # the larger test volume: sliding window on the card, the grouped metrics against the CPU's from the
+        # same log-probabilities (the same argmax, counts exact in f32, the same host HD95)
+        _, val_transform = get_segmentation_transforms(config)
+        test = dataset_cls(data_dir / "test", read_metadata(data_dir / "test_metadata.csv"), val_transform)
+        item = {k: v[None] for k, v in test.load(0).items() if k != "pid"}
+        size = tuple(int(item[k][0]) for k in ("sax_width", "sax_height", "n_slices"))
+        batch = {**item, **to_device({k: item[k] for k in ("sax_image", "sax_label")}, cuda)}
+        model.eval()
+        with torch.no_grad():
+            segmentation_eval_batch(model, batch, patch_size_dict, spacing_dict, metrics_fn, z_bucket=4)  # warm-up
+            torch.cuda.synchronize()
+            reset()
+            t0 = time.perf_counter()
+            logits, row = segmentation_eval_batch(model, batch, patch_size_dict, spacing_dict, metrics_fn, z_bucket=4)
+            eval_s = time.perf_counter() - t0
+            got = read()
+        check(got == (depth, 0, 0, 0), f"an evaluated {name} volume launched {got}, expected {depth}")
+        host = logits["sax"].float().cpu()
+        check(host.shape == (1, *size, config.model.out_chans), f"{name} evaluated logits {tuple(host.shape)}")
+        label = crop_start(torch.from_numpy(np.asarray(item["sax_label"])), host.shape[:-1])
+        want = {k: float(v[0]) for k, v in metrics_fn(host, label, spacing_dict["sax"]).items()}
+        differ = {k: (row[k], v) for k, v in want.items()
+                  if not (np.isnan(v) and np.isnan(row[k]) or abs(row[k] - v) <= 1e-6 * abs(v) + 1e-9)}
+        check(not differ, f"{name} evaluated metrics, card against CPU: {differ}")
+        rows["eval"] = {"size": list(size), "launches": got[0], "ms": eval_s * 1e3,
+                        "mean_dice_score": row["mean_dice_score"]}
+        print(f"{name}_eval", json.dumps(rows["eval"]), f"on {smi}", flush=True)
+
+        # one epoch of the entry point, evaluated once; its checkpoint and safetensors reloaded
+        config.logging.dir = str(data_dir.parent / "runs" / name)
+        config.train.update(n_epochs=1, eval_interval=1)
+        steps = len(train_ds) // batch_size
+        reset()
+        t0 = time.perf_counter()
+        out_dir = entry.run(config, device="cuda")
+        run_s = time.perf_counter() - t0
+        got = read()
+        check(got == (2 * depth * steps + depth * len(val_ds), depth * steps, 0, 0),
+              f"the {name} run launched {got}, expected {2 * depth} + {depth} a step and {depth} an evaluated volume")
+        image = torch.from_numpy(val_ds.load(0, 0)["sax_image"][None]).to(cuda)
+        rows["run"] = {"seconds": run_s, "steps": steps, "evaluated": len(val_ds), "launches": dict(zip(counters, got)),
+                       **check_run_and_reload(name, config, out_dir,
+                                              lambda: get_segmentation_model(config, dtype=torch.bfloat16, device=cuda),
+                                              lambda m: supervised_step(config, m, segmentation_loss_fn), steps,
+                                              {"sax": image}, ("val_mean_dice_score",))}
+        print(f"{name}_run", json.dumps(rows["run"]), f"on {smi}", flush=True)
+        return rows, out_dir
+
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        t0 = time.perf_counter()
+        write_volume_studies(root / "emidec", "emidec", 12, 2, seed=30)
+        write_volume_studies(root / "myops2020", "myops2020", 10, 2, seed=31)
+        write_rescan_studies(root / "rescan", seed=32)
+        write_kaggle_studies(root / "kaggle", 3, seed=33)
+        out["write_s"] = time.perf_counter() - t0
+
+        # a. EMIDEC and MyoPS2020, 289 and 577 tokens
+        out["emidec"], emidec_dir = volume_task("emidec", emidec, EMIDECDataset, emidec.emidec_segmentation_metrics,
+                                                root / "emidec")
+        out["myops2020"], myops_dir = volume_task("myops2020", myops2020, MYOPS2020Dataset,
+                                                  myops2020.myops2020_segmentation_metrics, root / "myops2020")
+
+        # b. frame seeks: one cine written frame-indexed and as one gzip member, each frame read alone
+        image, _ = cine_frames(np.random.default_rng(34), RESCAN_CINE)
+        reads = {}
+        for kind, indexed in (("frame_indexed", True), ("single_member", False)):
+            path = root / f"seek_{kind}.nii.gz"
+            save_nifti(path, image, spacing=(1.0, 1.0, 10.0, 1.0), frame_indexed=indexed)
+            seconds = []
+            for t in range(RESCAN_CINE[3]):
+                t0 = time.perf_counter()
+                frame, _ = load_nifti_frame(path, t)
+                seconds.append(time.perf_counter() - t0)
+                check(np.array_equal(frame, image[..., t]), f"{kind} frame {t} differs from the written one")
+            reads[kind] = {"ms_per_frame": statistics.mean(seconds) * 1e3, "ms_first": seconds[0] * 1e3,
+                           "ms_last": seconds[-1] * 1e3, "file_mb": path.stat().st_size / 1e6}
+        print("frame_seek", json.dumps(reads), f"on {smi}", flush=True)
+        out["frame_seek"] = reads
+
+        # c. Rescan: ConvUNetR-base grad_ckpt steps fed from the augmented loader of per-frame items in the loop,
+        # then one epoch of rescan.run
+        config = from_dict(PACKAGED["segmentation/rescan"])
+        config.train.batch_size = batch_size
+        config.data.dir = str(root / "rescan")
+        train_ds, val_ds = rescan.load_dataset(config)
+        check((len(train_ds), len(val_ds)) == (2 * RESCAN_CINE[3], 2 * RESCAN_CINE[3]),
+              f"Rescan split {len(train_ds)} / {len(val_ds)} frames")
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
+        state, step_fn = supervised_step(config, model, segmentation_loss_fn)
+        with BatchLoader(train_ds, batch_size, seed=config.seed, n_workers=config.train.n_workers) as loader:
+            epoch = loader.epoch(0)
+            state, _ = step_fn(state, to_device(next(epoch), cuda))  # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset()
+            waits, losses = [], []
+            t0 = time.perf_counter()
+            for _ in range(n_timed):
+                w0 = time.perf_counter()
+                batch = next(epoch)
+                waits.append(time.perf_counter() - w0)
+                state, metrics = step_fn(state, to_device(batch, cuda))
+                losses.append(metrics["loss"])
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            got = read()
+        losses = [float(x) for x in losses]
+        check(got == (n_timed * 2 * depth, n_timed * depth, 0, 0), f"{n_timed} fed Rescan steps launched {got}")
+        check(all(x == x and abs(x) < 1e4 for x in losses), f"fed Rescan losses not finite: {losses}")
+        out["rescan_fed"] = {"workers": config.train.n_workers, "steps": n_timed, "ms_per_step": total_s * 1e3 / n_timed,
+                             "loader_wait_ms_per_step": sum(waits) * 1e3 / n_timed,
+                             "loader_wait_ms": [w * 1e3 for w in waits], "losses": losses,
+                             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        print("rescan_fed", json.dumps(out["rescan_fed"]), f"on {smi}", flush=True)
+        del model, state, step_fn
+
+        config.logging.dir = str(root / "runs" / "rescan")
+        config.train.update(n_epochs=1, eval_interval=1)
+        steps = len(train_ds) // batch_size
+        reset()
+        t0 = time.perf_counter()
+        rescan_dir = rescan.run(config, device="cuda")
+        run_s = time.perf_counter() - t0
+        got = read()
+        check(got == (2 * depth * steps + depth * len(val_ds), depth * steps, 0, 0),
+              f"the Rescan run launched {got}, expected {2 * depth} + {depth} a step and {depth} an evaluated frame")
+        image = torch.from_numpy(val_ds.load(0, 0)["sax_image"][None]).to(cuda)
+        out["rescan_run"] = {"seconds": run_s, "steps": steps, "evaluated": len(val_ds),
+                             "launches": dict(zip(counters, got)),
+                             **check_run_and_reload("rescan", config, rescan_dir,
+                                                    lambda: get_segmentation_model(config, dtype=torch.bfloat16,
+                                                                                   device=cuda),
+                                                    lambda m: supervised_step(config, m, segmentation_loss_fn), steps,
+                                                    {"sax": image}, ("val_mean_dice_score",))}
+        print("rescan_run", json.dumps(out["rescan_run"]), f"on {smi}", flush=True)
+
+        # d. the label-free EF reproducibility of the run folder, bfloat16 as its entry point loads it: every cine
+        # in chunks of 8 frames, 25 frames padded to 32
+        chunks = -(-RESCAN_CINE[3] // kaggle.VIDEO_CHUNK)
+        n_retest = len(read_metadata(root / "rescan" / "test_retest_100_metadata.csv"))
+        dtypes: list = []
+        reset()
+        t0 = time.perf_counter()
+        with attention_dtypes(dtypes):
+            rescan_ef_eval.main(["--folder_path", str(rescan_dir), "--device", "cuda"])
+        ef_s = time.perf_counter() - t0
+        got = read()
+        check(got == (n_retest * chunks * depth, 0, 0, 0) and set(dtypes) == {torch.bfloat16},
+              f"rescan_ef_eval launched {got} ({set(dtypes)}), expected {chunks * depth} bfloat16 launches a cine")
+        ef_rows = list(csv.DictReader((rescan_dir / "rescan_test_retest_100_ef_eval" / "ef_metrics.csv").read_text()
+                                      .splitlines()))
+        check(len(ef_rows) == n_retest and all(0.0 <= float(r["esv"]) <= float(r["edv"]) for r in ef_rows),
+              f"rescan_ef_eval rows {ef_rows}")
+        out["rescan_ef_eval"] = {"seconds": ef_s, "cines": n_retest, "ms_per_cine": ef_s * 1e3 / n_retest,
+                                 "bf16_launches": got[0], "ef": [r["ef"] for r in ef_rows]}
+        print("rescan_ef_eval", json.dumps(out["rescan_ef_eval"]), f"on {smi}", flush=True)
+
+        # e. Kaggle: the label-free EF of whole cines, float32 as cinema_eval runs it, with the Rescan run's weights
+        kaggle_config, model32 = evaluate.load_run(rescan_dir, device="cuda")
+        kaggle_config.data.dir = str(root / "kaggle")
+        n_videos = len(read_metadata(root / "kaggle" / "validate_metadata.csv"))
+        chunks = -(-kaggle.MAX_N_FRAMES // kaggle.VIDEO_CHUNK)  # every video is padded to MAX_N_FRAMES
+        kaggle.evaluate_kaggle(model32, kaggle_config, "validate", 1)  # warm-up
+        torch.cuda.synchronize()
+        dtypes = []
+        reset()
+        t0 = time.perf_counter()
+        with attention_dtypes(dtypes):
+            metrics = kaggle.evaluate_kaggle(model32, kaggle_config, "validate")
+        kaggle_s = time.perf_counter() - t0
+        got = read()
+        check(got == (n_videos * chunks * depth, 0, 0, 0) and set(dtypes) == {torch.float32},
+              f"evaluate_kaggle launched {got} ({set(dtypes)}), expected {chunks * depth} float32 launches a video")
+        check(metrics["n_samples"] == n_videos and all(k in metrics for k in ("ef_mae", "ef_rmse", "ef_region_accuracy")),
+              f"evaluate_kaggle {metrics}")
+        out["kaggle"] = {"videos": n_videos, "ms_per_video": kaggle_s * 1e3 / n_videos, "f32_launches": got[0],
+                         **metrics}
+        print("kaggle", json.dumps(out["kaggle"]), f"on {smi}", flush=True)
+        del model32
+
+        # f. cinema_eval on the run folders of this phase and on an ED/ES one, float32 through the kernel
+        # one forward a test volume (all its patches together), one a chunk of 8 frames of a cine
+        per_item = ("metrics.csv", "mean_metrics.csv")
+        evals = {name: cinema_eval(name, folder, "test", 2 * depth, per_item, "mean_dice_score")
+                 for name, folder in (("emidec", emidec_dir), ("myops2020", myops_dir))}
+        evals["rescan"] = cinema_eval("rescan", rescan_dir, "test", depth * -(-RESCAN_CINE[3] // 8), per_item,
+                                      "mean_dice_score")
+        evals["rescan_test_retest_100"] = cinema_eval(
+            "rescan_test_retest_100", rescan_dir, "test_retest_100",
+            n_retest * depth * -(-RESCAN_CINE[3] // kaggle.VIDEO_CHUNK), ("ef_metrics.csv", "mean_metrics.csv"),
+            "n_pairs")
+        # an ED/ES run folder as run_train leaves it (run.json, model safetensors) of the packaged ACDC model, on
+        # two studies of one patch (SEG_SIZES[0]) in the processed ACDC layout
+        acdc_dir = root / "runs" / "acdc"
+        acdc_config = from_dict(PACKAGED["segmentation/acdc"])
+        acdc_config.data.dir = str(root / "acdc")
+        rng = np.random.default_rng(35)
+        for i in range(2):
+            write_seg_study(root / "acdc" / "test", f"patient{i:03d}", *seg_frames(rng, SEG_SIZES[0]))
+        write_metadata(root / "acdc" / "test_metadata.csv",
+                       [{"pid": f"patient{i:03d}", "n_slices": SEG_SIZES[0][2], "pathology": "NOR"} for i in range(2)])
+        acdc_dir.mkdir(parents=True)
+        (acdc_dir / "run.json").write_text(json.dumps({"tags": ["segmentation", "acdc"], "config": acdc_config}))
+        save_params_safetensors(init_weights(get_segmentation_model(acdc_config, device=cuda), seed=0),
+                                acdc_dir / "model_0.safetensors")
+        evals["acdc"] = cinema_eval("acdc", acdc_dir, "test", depth * 4, (*per_item, "ef_metrics.csv"),
+                                    "mean_dice_score")
+        out["cinema_eval"] = evals
+
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["cine"] = out
+    summary = {
+        "write_s": out["write_s"],
+        "ms_per_step": {k: out[k]["steps"]["ms_per_step"] for k in ("emidec", "myops2020")},
+        "peak_mem_gib": {k: out[k]["steps"]["peak_mem_gib"] for k in ("emidec", "myops2020")},
+        **({"idle_share": {k: out[k]["profile"]["idle_share"] for k in ("emidec", "myops2020")}} if profile else {}),
+        "eval_ms": {k: out[k]["eval"]["ms"] for k in ("emidec", "myops2020")},
+        "frame_seek_ms": {k: v["ms_per_frame"] for k, v in out["frame_seek"].items()},
+        "rescan_fed_ms_per_step": out["rescan_fed"]["ms_per_step"],
+        "rescan_fed_loader_wait_ms": out["rescan_fed"]["loader_wait_ms_per_step"],
+        "run_s": {"emidec": out["emidec"]["run"]["seconds"], "myops2020": out["myops2020"]["run"]["seconds"],
+                  "rescan": out["rescan_run"]["seconds"]},
+        "rescan_ef_eval_ms_per_cine": out["rescan_ef_eval"]["ms_per_cine"],
+        "kaggle_ms_per_video": out["kaggle"]["ms_per_video"],
+        "cinema_eval_s": {k: v["seconds"] for k, v in out["cinema_eval"].items()},
+        "f32_launches": sum(v["f32_launches"] for v in out["cinema_eval"].values()) + out["kaggle"]["f32_launches"],
+        "phase_s": out["phase_s"],
+    }
+    print("cine", json.dumps(summary), f"on {smi}", flush=True)
+    report["cine_summary"], report["cine_launches"] = summary, counters
+    return counters
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
@@ -1897,7 +2387,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 9. the six paths at full width, launch counts set to 0 before each and read after
+    # 4. to 10. the seven paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -1905,6 +2395,7 @@ def main() -> None:
     seg = segmentation_phase(report, smi, args.profile)
     lmk = landmark_phase(report, smi, args.profile)
     mnms = mnms_phase(report, smi, args.profile)
+    cine = cine_phase(report, smi, args.profile)
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
@@ -1912,15 +2403,17 @@ def main() -> None:
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
                    serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
-                   + mnms["packed_fwd"],
+                   + mnms["packed_fwd"] + cine["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
-                    "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"]},
+                    "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"],
+                    "cine": cine["packed_fwd"]},
                    fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
-                   train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"] + mnms["packed_bwd"],
+                   train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"] + mnms["packed_bwd"]
+                   + cine["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"],
-                    "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"]}, bwd_rows),
+                    "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"], "cine": cine["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
@@ -1931,6 +2424,7 @@ def main() -> None:
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched")
     check(all(k["launches_by_path"]["landmark"] > 0 for k in kernels[:2]), "the landmark path launched no packed kernel")
     check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
+    check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

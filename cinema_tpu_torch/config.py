@@ -293,6 +293,27 @@ MNMS2_SEGMENTATION = _on(ACDC_SEGMENTATION, "mnms2", lax={"spacing": [1.0, 1.0],
                                                            "in_chans": 1})
 MNMS2_SEGMENTATION["transform"]["lax"] = {"rotate_range": [180], "translate_range": [64, 64], "dropout_size": [50, 50]}
 
+
+def _segmentation_on(name: str, sax: Dict[str, Any], out_chans: int = 4, **train: Any) -> Dict[str, Any]:
+    """cinema_tpu/configs/segmentation/{emidec,myops2020,rescan,kaggle}.yaml: the ACDC segmentation config on
+    the dataset ``name``, with the ``sax`` data fields, the number of output classes and the ``train`` fields
+    given."""
+    config = _on(ACDC_SEGMENTATION, name)
+    config["data"]["sax"].update(sax)
+    config["model"]["out_chans"] = out_chans
+    config["train"].update(train)
+    return config
+
+
+# EMIDEC delayed enhancement: 96x96x8 patches at its 1.458 mm in-plane spacing, five classes
+EMIDEC_SEGMENTATION = _segmentation_on("emidec", {"spacing": [1.458, 1.458, 10.0], "patch_size": [96, 96, 8]}, 5)
+# MyoPS2020: bSSFP, LGE and T2 as three input channels, 192x192x4 patches
+MYOPS2020_SEGMENTATION = _segmentation_on("myops2020", {"patch_size": [192, 192, 4], "in_chans": 3})
+# Rescan cines, every frame an item: fewer epochs, evaluated more often
+RESCAN_SEGMENTATION = _segmentation_on("rescan", {}, n_epochs=400, eval_interval=10)
+# Kaggle Data Science Bowl cines: evaluation only (cinema_tpu_torch/tasks/segmentation/kaggle.py)
+KAGGLE_SEGMENTATION = _segmentation_on("kaggle", {})
+
 PACKAGED = {
     "segmentation/acdc": ACDC_SEGMENTATION,
     "mae": MAE_PRETRAIN,
@@ -306,4 +327,8 @@ PACKAGED = {
     "regression/mnms2": MNMS2_REGRESSION,
     "segmentation/mnms": MNMS_SEGMENTATION,
     "segmentation/mnms2": MNMS2_SEGMENTATION,
+    "segmentation/emidec": EMIDEC_SEGMENTATION,
+    "segmentation/myops2020": MYOPS2020_SEGMENTATION,
+    "segmentation/rescan": RESCAN_SEGMENTATION,
+    "segmentation/kaggle": KAGGLE_SEGMENTATION,
 }

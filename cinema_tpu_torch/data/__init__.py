@@ -1,33 +1,45 @@
-"""The port's data engine (port of cinema_tpu/data): the NIfTI reader and writer (``nifti``), the
-augmentation transforms (``transforms``), and the datasets with their batch loader (``datasets``)."""
+"""The port's data engine (port of cinema_tpu/data): the NIfTI reader and writer with frame seeks
+(``nifti``), the augmentation transforms (``transforms``), and the datasets with their batch loader
+(``datasets``): the ED/ES datasets, the per-frame cine, EMIDEC, MyoPS2020 and Kaggle video datasets,
+and the landmark datasets."""
 
 from cinema_tpu_torch.data.datasets import (
     BatchLoader,
+    CineSegmentationDataset,
     EDESClassificationDataset,
     EDESRegressionDataset,
     EDESSegmentationDataset,
+    EMIDECDataset,
+    KaggleVideoDataset,
     LandmarkDetectionDataset,
     LandmarkRegressionDataset,
+    MYOPS2020Dataset,
     collate,
     fit_to_size,
     gaussian_heatmap,
     read_metadata,
     read_png_gray,
 )
-from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_header, save_nifti
+from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame, load_nifti_header, read_frame_index, save_nifti
 
 __all__ = [
     "BatchLoader",
+    "CineSegmentationDataset",
     "EDESClassificationDataset",
     "EDESRegressionDataset",
     "EDESSegmentationDataset",
+    "EMIDECDataset",
+    "KaggleVideoDataset",
     "LandmarkDetectionDataset",
     "LandmarkRegressionDataset",
+    "MYOPS2020Dataset",
     "collate",
     "fit_to_size",
     "gaussian_heatmap",
     "load_nifti",
+    "load_nifti_frame",
     "load_nifti_header",
+    "read_frame_index",
     "read_metadata",
     "read_png_gray",
     "save_nifti",

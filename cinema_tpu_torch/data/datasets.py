@@ -1,12 +1,16 @@
-"""The datasets and the batch loader of the task entry points (port of cinema_tpu/data/datasets.py:32-195,
-:288-360, :447-594).
+"""The datasets and the batch loader of the task entry points (port of cinema_tpu/data/datasets.py:32-360,
+:447-736).
 
-- The EDES datasets read the processed NIfTI studies that the JAX package's preprocessing
-  writes (cinema_tpu/data/preprocess/{acdc,mnms,mnms2}.py): ``data_dir/<pid>/<pid>_<view>_{ed,es}.nii.gz``
-  and the ``_gt.nii.gz`` labels beside them, one row of a metadata table per study
-  (:func:`read_metadata`). Each item is augmented by the task's transform with its own
-  generator, ``np.random.default_rng([seed, epoch, index])``, as the JAX package's
-  ``SeededItemRNG`` draws it, so an item is a pure function of (seed, epoch, index).
+- The NIfTI datasets read the processed studies that the JAX package's preprocessing writes
+  (cinema_tpu/data/preprocess/), one row of a metadata table per study (:func:`read_metadata`):
+  the EDES datasets ``data_dir/<pid>/<pid>_<view>_{ed,es}.nii.gz`` and the ``_gt.nii.gz``
+  labels beside them (ACDC, M&Ms, M&Ms2); :class:`CineSegmentationDataset` the frames of
+  4-D cines ``<pid>/<view>_t.nii.gz`` (Rescan); :class:`EMIDECDataset` ``<pid>/<pid>.nii.gz``;
+  :class:`MYOPS2020Dataset` three sequences ``<pid>/<pid>_{c0,de,t2}.nii.gz`` as channels;
+  :class:`KaggleVideoDataset` whole cines ``<pid>/<pid>_<view>_t.nii.gz``. Each item is
+  augmented by the task's transform with its own generator,
+  ``np.random.default_rng([seed, epoch, index])``, as the JAX package's ``SeededItemRNG``
+  draws it, so an item is a pure function of (seed, epoch, index).
 - The landmark datasets read 8-bit grayscale PNGs and their metadata tables; their items
   take no transform, as the JAX package's landmark tasks build them.
 - :class:`BatchLoader` loads the items of a batch in worker threads or worker processes.
@@ -21,11 +25,11 @@ import zlib
 from collections import deque
 from concurrent.futures import Executor, Future, ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Union
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from cinema_tpu_torch.data.nifti import load_nifti
+from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame
 
 Sample = Dict[str, Any]
 Transform = Callable[[Sample, np.random.Generator], Sample]
@@ -130,6 +134,36 @@ def read_metadata(path: Union[str, Path]) -> Rows:
         return [{k: v if v != "" else None for k, v in row.items()} for row in csv.DictReader(f)]
 
 
+def _csv_field(value: Any) -> Any:
+    """A value as pandas' ``to_csv`` writes it: an empty field for None and NaN."""
+    if value is None or (isinstance(value, (float, np.floating)) and np.isnan(value)):
+        return ""
+    return float(value) if isinstance(value, np.floating) else value
+
+
+def write_table(path: Union[str, Path], rows: Sequence[Dict[str, Any]]) -> None:
+    """Write dict rows as ``pd.DataFrame(rows).to_csv(path, index=False)`` writes them: the columns in the
+    order they first appear, an empty field where a row lacks one or holds None or NaN."""
+    columns = list(dict.fromkeys(key for row in rows for key in row))
+    with open(path, "w", newline="") as f:
+        writer = csv.writer(f, lineterminator="\n")
+        writer.writerow(columns)
+        writer.writerows([_csv_field(row.get(c)) for c in columns] for row in rows)
+
+
+def column_means(rows: Sequence[Dict[str, Any]], drop: Sequence[str] = ()) -> Dict[str, float]:
+    """Each column's mean over the rows but the columns ``drop``, skipping missing and NaN values, as
+    ``pd.DataFrame(rows).drop(columns=drop).mean(numeric_only=True)`` gives it: the NaN-free sum over the
+    count (NaN where none)."""
+    columns = [c for c in dict.fromkeys(key for row in rows for key in row) if c not in drop]
+    means = {}
+    for c in columns:
+        values = np.array([np.nan if row.get(c) is None else float(row[c]) for row in rows], np.float64)
+        count = int(np.sum(~np.isnan(values)))
+        means[c] = float(np.nansum(values) / count) if count else float("nan")
+    return means
+
+
 def _check_meta(rows: Rows, cols: Sequence[str] = ("pid", "n_slices")) -> None:
     for col in cols:
         if rows and col not in rows[0]:
@@ -140,24 +174,39 @@ def _load_view_image(pid_dir: Path, pid: str, view: str, frame_name: str) -> np.
     return load_nifti(pid_dir / f"{pid}_{view}_{frame_name}.nii.gz")[0].astype(np.float32)
 
 
-class _EDESDataset:
-    """The studies of ``rows`` under ``data_dir``, the views ``views`` of each; ``transform`` applied to
-    each item with its own generator, ``np.random.default_rng([seed, epoch, index])``."""
+def _int(value: Optional[str]) -> int:
+    return int(float(value))
 
-    def __init__(self, data_dir: Union[str, Path], rows: Rows, views: Union[str, Sequence[str]],
-                 transform: Optional[Transform] = None, seed: int = 0) -> None:
-        _check_meta(rows)
+
+class _RowsDataset:
+    """The studies of ``rows`` under ``data_dir``; ``transform`` applied to each item with its own
+    generator, ``np.random.default_rng([seed, epoch, index])``."""
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, transform: Optional[Transform] = None,
+                 seed: int = 0) -> None:
         self.data_dir, self.rows = Path(data_dir), list(rows)
-        self.views = [views] if isinstance(views, str) else list(views)
         self.transform, self.seed = transform, seed
 
     def __len__(self) -> int:
         return len(self.rows)
 
+    def _rng(self, index: int, epoch: int) -> np.random.Generator:
+        return np.random.default_rng([int(self.seed), int(epoch), int(index)])
+
     def _transformed(self, data: Sample, index: int, epoch: int) -> Sample:
         if self.transform:
-            data = self.transform(data, np.random.default_rng([int(self.seed), int(epoch), int(index)]))
+            data = self.transform(data, self._rng(index, epoch))
         return data
+
+
+class _EDESDataset(_RowsDataset):
+    """The studies of ``rows`` under ``data_dir``, the views ``views`` of each."""
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, views: Union[str, Sequence[str]],
+                 transform: Optional[Transform] = None, seed: int = 0) -> None:
+        _check_meta(rows)
+        super().__init__(data_dir, rows, transform, seed)
+        self.views = [views] if isinstance(views, str) else list(views)
 
     def _ed_es_images(self, row: Dict[str, Optional[str]], data: Sample) -> Sample:
         """``{view}_image``: the ED and ES frames as two channels, (x, y, z, 2) for ``sax`` and
@@ -191,7 +240,7 @@ class EDESSegmentationDataset(_EDESDataset):
             data[f"{view}_width"] = np.asarray(image.shape[0])
             data[f"{view}_height"] = np.asarray(image.shape[1])
             if view == "sax":
-                data["n_slices"] = np.asarray(int(float(row["n_slices"])))
+                data["n_slices"] = np.asarray(_int(row["n_slices"]))
             else:
                 image, label = image[..., 0], label[..., 0]
             data[f"{view}_image"] = image[..., None]
@@ -228,6 +277,158 @@ class EDESRegressionDataset(_EDESDataset):
         value = (float(row[self.reg_col]) - self.reg_mean) / self.reg_std
         data: Sample = {"pid": str(row["pid"]), "label": np.asarray(value, np.float32)}
         return self._transformed(self._ed_es_images(row, data), index, epoch)
+
+
+class CineSegmentationDataset(_RowsDataset):
+    """Single frames of 4-D cines with their labels (the JAX package's ``CineSegmentationDataset``;
+    reference segmentation/rescan/dataset.py:22-130).
+
+    ``rows`` need ``pid``, ``n_slices`` and ``n_frames``; the files are the Rescan preprocessing's
+    ``<pid>/<view>_t.nii.gz`` and, for labelled rows, ``<pid>/<view>_gt_t.nii.gz``. Item ``i`` is frame
+    ``t`` of study ``r`` for the i-th (r, t) of ``index_map`` (every frame of every study, at most
+    ``max_n_frames`` of each), read alone (``load_nifti_frame``) and min-max scaled to [0, 1]:
+    ``pid``, ``frame``, per view [``n_slices`` for ``sax``], ``{view}_width``, ``{view}_height``,
+    ``{view}_image`` (x, y[, z], 1) float32 and ``{view}_label`` int8, or without labels the row's
+    ``edv``, ``esv`` and ``ef`` where the table has them (NaN where a field is empty).
+    """
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, views: Union[str, Sequence[str]] = "sax",
+                 has_labels: bool = True, transform: Optional[Transform] = None,
+                 max_n_frames: Optional[int] = None, seed: int = 0) -> None:
+        _check_meta(rows, ("pid", "n_slices", "n_frames"))
+        super().__init__(data_dir, rows, transform, seed)
+        self.views = [views] if isinstance(views, str) else list(views)
+        if has_labels and set(self.views) != {"sax"}:
+            raise ValueError(f"Only the SAX view has labels, got {self.views}.")
+        self.has_labels = has_labels
+        self.index_map: List[Tuple[int, int]] = []
+        for r, row in enumerate(self.rows):
+            n_frames = _int(row["n_frames"])
+            if max_n_frames is not None:
+                n_frames = min(n_frames, max_n_frames)
+            self.index_map += [(r, t) for t in range(n_frames)]
+
+    def __len__(self) -> int:
+        return len(self.index_map)
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        r, t = self.index_map[index]
+        row = self.rows[r]
+        pid = str(row["pid"])
+        data: Sample = {"pid": pid, "frame": np.asarray(t)}
+        for view in self.views:
+            image = load_nifti_frame(self.data_dir / pid / f"{view}_t.nii.gz", t)[0].astype(np.float32)
+            v_min, v_max = float(image.min()), float(image.max())
+            if v_max > v_min:
+                image = (image - v_min) / (v_max - v_min)
+            if view == "sax":
+                data["n_slices"] = np.asarray(_int(row["n_slices"]))
+            else:
+                image = image[..., 0]
+            data[f"{view}_width"] = np.asarray(image.shape[0])
+            data[f"{view}_height"] = np.asarray(image.shape[1])
+            data[f"{view}_image"] = image[..., None]
+            if self.has_labels:
+                label = load_nifti_frame(self.data_dir / pid / f"{view}_gt_t.nii.gz", t)[0]
+                data[f"{view}_label"] = label.astype(np.int8)
+            else:
+                for col in ("edv", "esv", "ef"):
+                    if col in row:
+                        data[col] = np.asarray(float("nan") if row[col] is None else float(row[col]))
+        return self._transformed(data, index, epoch)
+
+
+class _VolumeDataset(_RowsDataset):
+    """One SAX volume per study with its label where ``<pid>/<pid>_gt.nii.gz`` exists; ``_image`` reads
+    the (x, y, z, ch) image of a study."""
+
+    views = ["sax"]
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, transform: Optional[Transform] = None,
+                 seed: int = 0) -> None:
+        _check_meta(rows)
+        super().__init__(data_dir, rows, transform, seed)
+
+    def _pid(self, row: Dict[str, Optional[str]]) -> str:
+        return str(row["pid"])
+
+    def _image(self, pid_dir: Path, pid: str) -> np.ndarray:
+        raise NotImplementedError
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        row = self.rows[index]
+        pid = self._pid(row)
+        pid_dir = self.data_dir / pid
+        image = self._image(pid_dir, pid)
+        data: Sample = {"pid": pid, "sax_width": np.asarray(image.shape[0]), "sax_height": np.asarray(image.shape[1]),
+                        "n_slices": np.asarray(_int(row["n_slices"])), "sax_image": image}
+        gt_path = pid_dir / f"{pid}_gt.nii.gz"
+        if gt_path.exists():
+            data["sax_label"] = load_nifti(gt_path)[0].astype(np.int8)
+        return self._transformed(data, index, epoch)
+
+
+class EMIDECDataset(_VolumeDataset):
+    """EMIDEC delayed-enhancement studies (the JAX package's ``EMIDECDataset``; reference
+    segmentation/emidec/train.py:34-115): ``<pid>/<pid>.nii.gz`` and ``<pid>/<pid>_gt.nii.gz``. Item:
+    ``pid``, ``sax_width``, ``sax_height``, ``n_slices``, ``sax_image`` (x, y, z, 1) float32 and
+    ``sax_label`` int8."""
+
+    def _image(self, pid_dir: Path, pid: str) -> np.ndarray:
+        return load_nifti(pid_dir / f"{pid}.nii.gz")[0].astype(np.float32)[..., None]
+
+
+class MYOPS2020Dataset(_VolumeDataset):
+    """MyoPS2020 studies, bSSFP, LGE and T2 as three channels (the JAX package's ``MYOPS2020Dataset``;
+    reference segmentation/myops2020/train.py:34-120): ``<pid>/<pid>_{c0,de,t2}.nii.gz`` and
+    ``<pid>/<pid>_gt.nii.gz``, ``pid`` the table's as an integer (``"0101"`` is study ``101``, as pandas
+    reads it). Item: as :class:`EMIDECDataset`'s, ``sax_image`` (x, y, z, 3)."""
+
+    def _pid(self, row: Dict[str, Optional[str]]) -> str:
+        return str(int(row["pid"]))
+
+    def _image(self, pid_dir: Path, pid: str) -> np.ndarray:
+        return np.stack([load_nifti(pid_dir / f"{pid}_{seq}.nii.gz")[0] for seq in ("c0", "de", "t2")],
+                        axis=-1).astype(np.float32)
+
+
+class KaggleVideoDataset(_RowsDataset):
+    """Whole cines of the Kaggle Data Science Bowl for the label-free EF evaluation (the JAX package's
+    ``KaggleVideoDataset``; reference segmentation/kaggle/dataset.py:24-115).
+
+    ``rows`` need ``pid`` (an integer), ``n_slices``, ``n_frames``, ``diastole_volume`` and
+    ``systole_volume``; the file is ``<pid>/<pid>_<view>_t.nii.gz`` (x, y, z, t). Item: ``pid``,
+    ``n_slices``, ``n_frames``, ``edv``, ``esv``, ``ef`` (float32) and ``{view}_image`` (t, x, y[, z], 1)
+    float32 of the first ``max_n_frames`` frames, zero frames appended up to ``max_n_frames``. The
+    transform sees the video with time as the channel axis, (x, y[, z], t).
+    """
+
+    def __init__(self, data_dir: Union[str, Path], rows: Rows, view: str, max_n_frames: int,
+                 transform: Optional[Transform] = None, seed: int = 0) -> None:
+        if view not in {"sax", "lax_2c", "lax_4c"}:
+            raise ValueError(f"Invalid view {view}.")
+        super().__init__(data_dir, rows, transform, seed)
+        self.view, self.max_n_frames = view, max_n_frames
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        row = self.rows[index]
+        pid = str(int(row["pid"]))
+        video = np.moveaxis(load_nifti(self.data_dir / pid / f"{pid}_{self.view}_t.nii.gz")[0], -1, 0)
+        if self.view != "sax":
+            video = video[..., 0]
+        video = video[: self.max_n_frames].astype(np.float32)
+        edv, esv = float(row["diastole_volume"]), float(row["systole_volume"])
+        data: Sample = {"pid": pid, "n_slices": np.asarray(_int(row["n_slices"])),
+                        "n_frames": np.asarray(_int(row["n_frames"])), "edv": np.asarray(edv, np.float32),
+                        "esv": np.asarray(esv, np.float32), "ef": np.asarray((edv - esv) / edv * 100.0, np.float32)}
+        if self.transform:
+            key = f"{self.view}_image"
+            video = np.moveaxis(self.transform({key: np.moveaxis(video, 0, -1)}, self._rng(index, epoch))[key], -1, 0)
+        if video.shape[0] < self.max_n_frames:
+            video = np.concatenate([video, np.zeros((self.max_n_frames - video.shape[0], *video.shape[1:]),
+                                                    video.dtype)])
+        data[f"{self.view}_image"] = video[..., None]
+        return data
 
 
 def gaussian_heatmap(shape: Sequence[int], centers: np.ndarray, sigma: float = 3.0) -> np.ndarray:

@@ -1,17 +1,26 @@
-"""NIfTI-1 reader and writer (port of cinema_tpu/data/nifti.py:57-133, :191-215, :284-366).
+"""NIfTI-1 reader and writer with frame seeks (port of cinema_tpu/data/nifti.py:57-366).
 
 Little-endian NIfTI-1, a 348-byte header and the raw voxels, plain (``.nii``) or
 gzipped (``.nii.gz``), in the eight voxel types of ``_DTYPES``, with the header's
 ``scl_slope`` / ``scl_inter`` scaling. Arrays use ``arr[x, y, z(, t)]`` indexing, the
 transposed order of the x-fastest storage, as the JAX package's preprocessing writes
-and reads them. Frame seeks, frame-indexed gzip members and the native reader of the
-JAX package wait for the pretraining-on-NIfTI slice (ROADMAP.md, Queue 1, item 14).
+and reads them.
+
+Frame seeks: time is the slowest storage axis of a 4-D cine, so :func:`load_nifti_frame`
+reads one frame alone, by a seek in a ``.nii`` and by inflating the stream's prefix up to
+the frame's end in a ``.nii.gz``. ``save_nifti(..., frame_indexed=True)`` writes a 4-D
+``.nii.gz`` as one gzip member per frame (RFC 1952 lets a stream be a concatenation of
+members, and every reader decodes it as one), with the members' byte offsets in an FEXTRA
+subfield ``CT`` of member 0, so that a frame read inflates one member. Inflation is
+Python's ``zlib``; the JAX package's optional C++ reader (``cinema_tpu/native``) has no
+counterpart here (ROADMAP.md, Queue 1, item 14).
 """
 
 from __future__ import annotations
 
 import gzip
 import struct
+import zlib
 from dataclasses import dataclass
 from pathlib import Path
 from typing import BinaryIO, Optional, Sequence, Tuple, Union
@@ -99,6 +108,63 @@ def load_nifti_header(path: Union[str, Path]) -> NiftiHeader:
         return _parse_header(f.read(HEADER_SIZE))
 
 
+# ---- frame-indexed gzip: one member per frame and an offset table in member 0 ----
+
+_FIDX_SI = b"CT"  # the FEXTRA subfield id of the frame-offset table
+
+
+def _gzip_member(payload: bytes, extra: bytes = b"", level: int = 6) -> bytes:
+    """One complete RFC 1952 gzip member (mtime 0, OS unknown), with an FEXTRA field where ``extra`` is given."""
+    flg = 0x04 if extra else 0x00
+    hdr = struct.pack("<2sBBIBB", b"\x1f\x8b", 8, flg, 0, 0, 255)
+    if extra:
+        hdr += struct.pack("<H", len(extra)) + extra
+    co = zlib.compressobj(level, zlib.DEFLATED, -15)
+    body = co.compress(payload) + co.flush()
+    return hdr + body + struct.pack("<II", zlib.crc32(payload) & 0xFFFFFFFF, len(payload) & 0xFFFFFFFF)
+
+
+def read_frame_index(path: Union[str, Path]) -> Optional[np.ndarray]:
+    """The absolute byte offsets (nt + 1,) of the per-frame gzip members of a file that
+    ``save_nifti(..., frame_indexed=True)`` wrote; None for any other file (a single-member
+    gzip, a raw ``.nii``, a foreign FEXTRA field)."""
+    try:
+        with open(path, "rb") as f:
+            head = f.read(14)
+            if len(head) < 14 or head[:2] != b"\x1f\x8b" or not (head[3] & 0x04):
+                return None
+            xlen = struct.unpack_from("<H", head, 10)[0]
+            extra = head[12:14] + f.read(xlen - 2) if xlen >= 2 else b""
+    except OSError:
+        return None
+    pos = 0
+    while pos + 4 <= len(extra):
+        si, sub_len = extra[pos : pos + 2], struct.unpack_from("<H", extra, pos + 2)[0]
+        data = extra[pos + 4 : pos + 4 + sub_len]
+        if si == _FIDX_SI and len(data) == sub_len and sub_len >= 12:
+            nt = struct.unpack_from("<I", data, 0)[0]
+            if sub_len == 4 + 8 * (nt + 1):
+                return np.frombuffer(data, dtype="<u8", count=nt + 1, offset=4)
+        pos += 4 + sub_len
+    return None
+
+
+def _read_member(path: Path, start: int, end: int, nbytes: int) -> bytes:
+    """The first ``nbytes`` of the gzip member at the byte range [start, end), inflated."""
+    with open(path, "rb") as f:
+        f.seek(start)
+        comp = f.read(end - start)
+    return zlib.decompressobj(wbits=31).decompress(comp, nbytes)
+
+
+def _seek_read(path: Path, offset: int, nbytes: int) -> bytes:
+    """``nbytes`` of the voxel stream from ``offset``: a seek in a ``.nii``; in a ``.nii.gz`` the stream's
+    prefix is inflated up to there (a gzip stream can only be read in order)."""
+    with _open(path) as f:
+        f.seek(offset)
+        return f.read(nbytes)
+
+
 def load_nifti(path: Union[str, Path], apply_scaling: bool = True) -> Tuple[np.ndarray, NiftiHeader]:
     """A whole NIfTI volume: (the array of ``header.shape``, indexed ``arr[x, y, ...]``, the header).
 
@@ -116,18 +182,50 @@ def load_nifti(path: Union[str, Path], apply_scaling: bool = True) -> Tuple[np.n
     return np.ascontiguousarray(arr), header
 
 
+def load_nifti_frame(path: Union[str, Path], t: int) -> Tuple[np.ndarray, NiftiHeader]:
+    """Frame ``t`` of a 4-D NIfTI, read without the rest: ((nx, ny, nz) array, header).
+
+    A frame-indexed ``.nii.gz`` inflates frame t's member alone; any other ``.nii.gz`` the
+    stream up to the frame's end; a ``.nii`` seeks to it. The header's scaling is applied as
+    :func:`load_nifti` applies it. A volume that is not 4-D, or ``t`` outside [0, nt), raises
+    ``ValueError``.
+    """
+    path = Path(path)
+    header = load_nifti_header(path)
+    if len(header.shape) != 4:
+        raise ValueError(f"Expected 4D volume, got shape {header.shape}.")
+    nx, ny, nz, nt = header.shape
+    if not 0 <= t < nt:
+        raise ValueError(f"Frame {t} out of range [0, {nt}).")
+    frame_items = nx * ny * nz
+    frame_bytes = frame_items * header.dtype.itemsize
+    index = read_frame_index(path) if path.suffix == ".gz" else None
+    if index is not None and len(index) == nt + 1:  # frame t is gzip member t + 1
+        buf = _read_member(path, int(index[t]), int(index[t + 1]), frame_bytes)
+    else:
+        buf = _seek_read(path, header.vox_offset + t * frame_bytes, frame_bytes)
+    arr = np.frombuffer(buf, dtype=header.dtype, count=frame_items).reshape((nz, ny, nx)).transpose(2, 1, 0)
+    if header.scl_slope != 1.0 or header.scl_inter != 0.0:
+        arr = arr.astype(np.float32) * header.scl_slope + header.scl_inter
+    return np.ascontiguousarray(arr), header
+
+
 def save_nifti(
     path: Union[str, Path],
     array: np.ndarray,
     spacing: Optional[Sequence[float]] = None,
     affine: Optional[np.ndarray] = None,
     descrip: bytes = b"cinema_tpu",
+    frame_indexed: bool = False,
     scl: Tuple[float, float] = (1.0, 0.0),
 ) -> None:
     """Write a 2-D to 4-D ``arr[x, y, ...]`` array as NIfTI-1, gzipped where the path ends in ``.gz``.
 
     A dtype outside ``_DTYPES`` is written as float32. ``spacing`` defaults to ones and
     ``affine`` (the sform) to ``diag(spacing)``; ``scl`` (slope, intercept) is written as given.
+    ``frame_indexed`` writes a 4-D ``.nii.gz`` as one gzip member per frame with the offset table
+    (module docstring), byte for byte as the JAX package writes it; it is ignored for a ``.nii``
+    and for fewer dimensions.
     """
     array = np.asarray(array)
     if array.dtype not in _DTYPE_CODES:
@@ -156,6 +254,22 @@ def save_nifti(
     struct.pack_into("<h", header, 254, 1)  # sform_code
     struct.pack_into("<12f", header, 280, *affine[:3].reshape(-1).astype(np.float32))
     header[344:348] = b"n+1\x00"
+    head_payload = bytes(header) + b"\x00\x00\x00\x00"  # and the extension flag
+    stored = np.ascontiguousarray(array.transpose(tuple(range(ndim - 1, -1, -1))))
+    if frame_indexed and ndim == 4 and str(path).endswith(".gz"):
+        nt = array.shape[-1]
+        frames = [_gzip_member(stored[t].tobytes()) for t in range(nt)]  # time is the slowest axis
+        # member 0's size follows from its deterministic deflate body and the table's length, so the
+        # absolute offsets are known before it is written
+        extra_len = 4 + 4 + 8 * (nt + 1)  # subfield id and length, u32 nt, the offsets
+        base = len(_gzip_member(head_payload)) + 2 + extra_len
+        offsets = np.cumsum([base] + [len(m) for m in frames]).astype("<u8")
+        table = _FIDX_SI + struct.pack("<HI", 4 + 8 * (nt + 1), nt) + offsets.tobytes()
+        with open(path, "wb") as f:
+            f.write(_gzip_member(head_payload, extra=table))
+            for m in frames:
+                f.write(m)
+        return
     with _open(path, "wb") as f:
-        f.write(bytes(header) + b"\x00\x00\x00\x00")  # and the extension flag
-        f.write(np.ascontiguousarray(array.transpose(tuple(range(ndim - 1, -1, -1)))).tobytes())
+        f.write(head_payload)
+        f.write(stored.tobytes())

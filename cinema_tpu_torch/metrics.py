@@ -25,6 +25,8 @@ from scipy import ndimage
 # EF clinical thresholds in percent (cinema_tpu/constants.py; reference cinema/metric.py:14-16)
 REDUCED_EF = 40
 NORMAL_EF = 55
+# the label of the LV cavity in the segmentation tasks' maps (cinema_tpu/constants.py:21)
+LV_LABEL = 3
 
 ArrayLike = Union[torch.Tensor, np.ndarray, float]
 

@@ -3,7 +3,7 @@ reference cinema/segmentation/train.py)."""
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -16,6 +16,9 @@ from cinema_tpu_torch.losses import segmentation_loss
 from cinema_tpu_torch.metrics import segmentation_metrics
 from cinema_tpu_torch.ops.window import crop_start
 from cinema_tpu_torch.train.loop import to_device
+
+MetricsFn = Callable[[torch.Tensor, torch.Tensor, Sequence[float]], Dict[str, np.ndarray]]
+
 
 def segmentation_loss_fn(
     model: nn.Module, batch: Dict[str, torch.Tensor]
@@ -47,6 +50,7 @@ def segmentation_eval_batch(
     batch: Mapping[str, Any],
     patch_size_dict: Dict[str, Tuple[int, ...]],
     spacing_dict: Dict[str, Tuple[float, ...]],
+    metrics_fn: Optional[MetricsFn] = segmentation_metrics,
     z_bucket: Optional[int] = None,
     per_sample: bool = False,
 ) -> Tuple[Dict[str, torch.Tensor], Union[Dict[str, float], List[Dict[str, float]]]]:
@@ -58,6 +62,9 @@ def segmentation_eval_batch(
         batch: ``{view}_image`` (b, *s, ch) and ``{view}_label`` (b, *s) tensors on the forward's
             device; ``{view}_width``, ``{view}_height`` and ``n_slices``, the size before padding,
             as anything numpy reads (the first entry is used).
+        metrics_fn: (log-probabilities, labels, spacing) -> per metric name a (batch,) array; the
+            default is the ED/ES tasks' suite, EMIDEC and MyoPS2020 pass their grouped-class metrics.
+            None returns no metrics.
         z_bucket: when set, the z axis of a 3-D view is zero-padded to
             ``max(patch_z, ceil(z / z_bucket) * z_bucket)`` first, as the JAX package does so that
             studies of one bucket share one compiled program; the predictions are cropped back.
@@ -88,14 +95,14 @@ def segmentation_eval_batch(
         return crop_start(x, (x.shape[0], *size, x.shape[-1]))
 
     logits_dict = {v: crop_to_original(logits_dict[v], v) for v in views}
-    if f"{views[0]}_label" not in batch:
+    if metrics_fn is None or f"{views[0]}_label" not in batch:
         return logits_dict, ([] if per_sample else {})
 
     per_view: Dict[str, Dict[str, np.ndarray]] = {}
     metric_keys: List[str] = []
     for view in views:
         label = crop_start(batch[f"{view}_label"], logits_dict[view].shape[:-1])
-        metrics_view = segmentation_metrics(logits_dict[view], label, spacing_dict[view])
+        metrics_view = metrics_fn(logits_dict[view], label, spacing_dict[view])
         metric_keys = list(metrics_view)
         per_view[view] = {k: np.asarray(v, dtype=np.float64).reshape(-1) for k, v in metrics_view.items()}
 
@@ -126,9 +133,11 @@ def patch_and_spacing_dicts(config: Config) -> Tuple[Dict[str, Tuple[int, ...]],
 
 
 @torch.no_grad()
-def segmentation_eval_dataloader(model: nn.Module, dataloader: Any, config: Config) -> Dict[str, float]:
-    """The ``nanmean`` of every metric over a batch-1 loader (reference segmentation/train.py:361-400);
-    ``eval.z_bucket`` (default 4) as :func:`segmentation_eval_batch` says. The model is left in eval mode."""
+def segmentation_eval_dataloader(model: nn.Module, dataloader: Any, config: Config,
+                                 metrics_fn: MetricsFn = segmentation_metrics) -> Dict[str, float]:
+    """The ``nanmean`` of every metric of ``metrics_fn`` over a batch-1 loader (reference
+    segmentation/train.py:361-400); ``eval.z_bucket`` (default 4) as :func:`segmentation_eval_batch`
+    says. The model is left in eval mode."""
     model.eval()
     device = next(model.parameters()).device
     patch_size_dict, spacing_dict = patch_and_spacing_dicts(config)
@@ -136,7 +145,7 @@ def segmentation_eval_dataloader(model: nn.Module, dataloader: Any, config: Conf
     all_metrics: Dict[str, List[float]] = {}
     for batch in dataloader.epoch(0):
         tensors = to_device({k: v for k, v in batch.items() if k.endswith(("_image", "_label"))}, device)
-        _, metrics = segmentation_eval_batch(model, {**batch, **tensors}, patch_size_dict, spacing_dict,
+        _, metrics = segmentation_eval_batch(model, {**batch, **tensors}, patch_size_dict, spacing_dict, metrics_fn,
                                              z_bucket=z_bucket)
         for k, v in metrics.items():
             all_metrics.setdefault(k, []).append(v)

@@ -73,7 +73,7 @@ def maybe_reduce_batch_size(config: Config, n: int) -> Config:
     return config
 
 
-def _pandas_sample(n: int, size: int, rng: np.random.RandomState) -> List[int]:
+def pandas_sample(n: int, size: int, rng: np.random.RandomState) -> List[int]:
     """The rows that pandas' ``sample`` takes of ``n`` rows, in the order it takes them: one
     ``choice`` without replacement from the frame's generator (pandas.core.sample.sample)."""
     return [int(i) for i in rng.choice(n, size=size, replace=False)]
@@ -89,15 +89,20 @@ def _grouped(groups: Sequence[Any]) -> List[List[int]]:
     return [members[key] for key in sorted(members)]
 
 
+def groupby_sample(groups: Sequence[Any], n: int, seed: int = 0) -> List[int]:
+    """The indices that pandas' ``groupby(groups).sample(n=n, random_state=seed)`` draws, in the order of its
+    result: group by group in sorted key order, each group's in drawn order. A group smaller than ``n``, where
+    pandas raises, is taken whole."""
+    rng = np.random.RandomState(seed)
+    return [members[i] for members in _grouped(groups)
+            for i in pandas_sample(len(members), min(n, len(members)), rng)]
+
+
 def split_by_class(labels: Sequence[Any], n_val_per_class: int = 2, seed: int = 0) -> Tuple[List[int], List[int]]:
     """Indices (train, val), each in the order of ``labels``: the studies that pandas'
     ``groupby(labels).sample(n=n_val_per_class, random_state=seed)`` draws go to validation
-    (cinema_tpu/tasks/classification/acdc.py:30). A class smaller than ``n_val_per_class``, where
-    pandas raises, goes to validation whole."""
-    rng = np.random.RandomState(seed)
-    val = set()
-    for members in _grouped(labels):
-        val.update(members[i] for i in _pandas_sample(len(members), min(n_val_per_class, len(members)), rng))
+    (cinema_tpu/tasks/classification/acdc.py:30)."""
+    val = set(groupby_sample(labels, n_val_per_class, seed))
     return [i for i in range(len(labels)) if i not in val], sorted(val)
 
 
@@ -107,7 +112,7 @@ def _sample_fraction(items: List[Any], frac: float, groups: Optional[Sequence[An
     rng = np.random.RandomState(0)
     keep: List[int] = []
     for members in _grouped(groups) if groups is not None else [list(range(len(items)))]:
-        keep += [members[i] for i in _pandas_sample(len(members), round(frac * len(members)), rng)]
+        keep += [members[i] for i in pandas_sample(len(members), round(frac * len(members)), rng)]
     return [items[i] for i in keep]
 
 
@@ -134,7 +139,7 @@ def maybe_subset_dataset(
             val = _sample_fraction(val, min(cap / len(val), 1.0), val_groups)
     proportion = config.data.get("proportion", 1.0)
     if proportion < 1:
-        keep = _pandas_sample(len(train), int(proportion * len(train)), np.random.RandomState(config.seed))
+        keep = pandas_sample(len(train), int(proportion * len(train)), np.random.RandomState(config.seed))
         train = [train[i] for i in keep]
     return train, val
 

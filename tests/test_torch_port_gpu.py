@@ -104,6 +104,32 @@ def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dty
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("n_tokens", [289, 577], ids=["emidec-289", "myops-577"])
+def test_packed_kernels_at_the_emidec_and_myops_token_counts_agree_with_their_plain_versions(card, dtype, atol,
+                                                                                            n_tokens):
+    """The packed forward and backward at batch 4, embed 768, 12 heads and the token counts of an EMIDEC
+    (96x96x8: 288 + 1) and a MyoPS2020 (192x192x4: 576 + 1) patch, whose last q tiles hold 33 and 65 rows;
+    k and v the column halves of a fused kv projection."""
+    rng = np.random.default_rng(n_tokens)
+    q = torch.from_numpy(rng.normal(size=(4, n_tokens, 768)).astype(np.float32)).to(card, dtype).requires_grad_()
+    kv = torch.from_numpy(rng.normal(size=(4, n_tokens, 1536)).astype(np.float32)).to(card, dtype).requires_grad_()
+    g = torch.from_numpy(rng.normal(size=(4, n_tokens, 768)).astype(np.float32)).to(card, dtype)
+    before = (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches)
+    out = fa.flash_attention_packed_kv(q, kv, 12)
+    dq, dkv = torch.autograd.grad(out, (q, kv), g)
+    assert (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches) == (before[0] + 1,
+                                                                                          before[1] + 1)
+    k, v = kv[..., :768].detach(), kv[..., 768:].detach()
+    want_out = fa.flash_attention_packed_plain(q.detach(), k, v, 12)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=0)
+    want = fa.flash_attention_packed_bwd_plain(q.detach(), k, v, out.detach(), g, 12)
+    torch.testing.assert_close(dq.float(), want[0].float(), atol=atol, rtol=0)
+    torch.testing.assert_close(dkv[..., :768].float(), want[1].float(), atol=atol, rtol=0)
+    torch.testing.assert_close(dkv[..., 768:].float(), want[2].float(), atol=atol, rtol=0)
+
+
 def _step_on_the_cpu_and_the_card(card, build, loss_fn, batch, zero_grad: str = ""):
     """One f32 step of ``loss_fn`` with block recomputation, from ``init_weights(build(), seed=2)``, on the
     CPU (plain attention) and on the card (the packed kernels), held as chip_smoke.py holds its f32 steps:

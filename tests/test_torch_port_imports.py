@@ -58,6 +58,11 @@ NIFTI_MODULES = {
       for name in ("mnms", "mnms2")),
 }
 
+# and every module of the cine slice: the EMIDEC, MyoPS2020, Rescan and Kaggle tasks and the evaluation
+CINE_MODULES = {"cinema_tpu_torch.tasks.evaluate",
+                *(f"cinema_tpu_torch.tasks.segmentation.{name}"
+                  for name in ("emidec", "myops2020", "rescan", "kaggle", "rescan_ef_eval"))}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -65,9 +70,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 46, proc.stdout
+    assert int(n_modules) >= 52, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    wanted = PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
+    wanted = PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES | CINE_MODULES
     assert wanted <= set(names.split()), proc.stdout
 
 
@@ -163,6 +168,35 @@ def test_landmark_factory_and_entry_point_default_to_the_card(task, tmp_path):
         landmark.run(config)
     with pytest.raises(RuntimeError, match="CUDA"):
         landmark.main([f"data.dir={tmp_path}"])
+
+
+@pytest.mark.parametrize("name", ["emidec", "myops2020", "rescan"])
+def test_cine_slice_entry_points_default_to_the_card(name, tmp_path):
+    _no_card()
+    import importlib
+
+    entry = importlib.import_module(f"cinema_tpu_torch.tasks.segmentation.{name}")
+    config = from_dict(PACKAGED[f"segmentation/{name}"])
+    config.data.dir = str(tmp_path)
+    (tmp_path / "train_metadata.csv").write_text("pid,n_slices,n_frames\n")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.run(config)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        entry.main([f"data.dir={tmp_path}"])
+
+
+def test_evaluation_entry_points_default_to_the_card(tmp_path):
+    _no_card()
+    import json
+
+    from cinema_tpu_torch.tasks import evaluate
+    from cinema_tpu_torch.tasks.segmentation import rescan_ef_eval
+
+    (tmp_path / "run.json").write_text(json.dumps({"config": PACKAGED["segmentation/rescan"]}))
+    (tmp_path / "model_0.safetensors").write_bytes(b"")
+    for entry in (evaluate.main, rescan_ef_eval.main, evaluate.main_rescan_seg):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            entry(["--folder_path", str(tmp_path)])
 
 
 def test_from_finetuned_defaults_to_the_card():
