@@ -1,11 +1,11 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's seven paths (``cinema_tpu_torch``), serving, MAE
+Drives the port's eight paths (``cinema_tpu_torch``), serving, MAE
 pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
-landmark localization, the M&Ms and M&Ms2 tasks, and the EMIDEC, MyoPS2020,
-Rescan and Kaggle tasks with the evaluation of run folders, at full width and
-holds every hand-written kernel of those paths against its plain PyTorch
-version on the card:
+landmark localization, the M&Ms and M&Ms2 tasks, the EMIDEC, MyoPS2020,
+Rescan and Kaggle tasks with the evaluation of run folders, and the UNet and
+ResNet baselines, at full width and holds every hand-written kernel of those
+paths against its plain PyTorch version on the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
@@ -26,13 +26,21 @@ version on the card:
    serving run are checked, and one chunk's f32 logits through the kernel
    are held against the plain attention path;
 5. training: CineMA-base from the packaged MAE config with seeded random
-   weights, bf16, four views, batch 16, on seeded synthetic studies:
-   ``tasks.pretrain.run`` takes one epoch and writes its checkpoint and
-   ``cinema.safetensors``, which are reloaded; then one warm-up and six
-   timed steps of ``make_mae_train_step`` with the launch counts, losses and
-   counters checked, a NaN batch that must leave the state bit-identical,
-   and one f32 step at batch 2 whose loss and gradients through the kernels
-   are held against the plain attention path;
+   weights, bf16, four views, batch 16, on 32 seeded synthetic studies
+   written as the UKB preprocessing writes them (``<pid>/<pid>_<view>.nii.gz``,
+   uint8, one gzip member per frame; SAX 192x192x16, LAX 256x256x1; 10
+   frames where UKB has 50): ``tasks.pretrain.run`` takes one epoch (the
+   manifest, the loader's worker processes, ``device_prefetch``) and writes
+   the manifest's cache, its checkpoint and ``cinema.safetensors``, which are
+   reloaded, and a second scan reads the cache; the pretraining loader alone
+   (ms per batch of 16, items/s) with threads and with processes, which must
+   give the same batches; six steps fed through ``device_prefetch`` from the
+   processes (ms per step, the loader's wait per step; each batch on the card
+   equal to the loader's); six timed steps with the batch already on the
+   card, with the launch counts, losses and counters checked, a NaN batch
+   that must leave the state bit-identical, and one f32 step at batch 2
+   whose loss and gradients through the kernels are held against the plain
+   attention path;
 6. fine-tuning: ConvViT-base from the packaged ACDC classification config
    (SAX 192x192x16, two frames as channels, 2305 tokens, batch 4, bf16,
    seeded weights, seeded synthetic studies in the processed ACDC layout:
@@ -76,8 +84,8 @@ version on the card:
    ``age``). The augmented training loader of ``segmentation/mnms`` alone
    (ms per batch of 4 and items/s with 1 thread, ``train.n_workers`` threads
    and as many processes, which must give the same batches); ConvUNetR-base
-   ``grad_ckpt`` steps at batch 4 fed from that loader inside the loop (a
-   warm-up and six timed steps with 4 threads and with 4 processes at
+   ``grad_ckpt`` steps at batch 4 fed from that loader through
+   ``device_prefetch`` inside the loop (a warm-up and six timed steps with 4 threads and with 4 processes at
    ``transform.prob`` 0.5, and with 4 threads, as ``run_train`` loads, at
    ``prob`` 0:
    ms per step, the loader's wait per step, peak memory, 24 + 12 launches a
@@ -95,7 +103,7 @@ version on the card:
    and one epoch of the task's ``run`` with its checkpoint reloaded. Frame
    seeks: a 192x192x16x25 cine written frame-indexed and as one gzip member,
    ms per ``load_nifti_frame`` of each. Rescan (cines of 192x192x16x25):
-   ``grad_ckpt`` steps fed in the loop by the augmented loader of per-frame
+   ``grad_ckpt`` steps fed in the loop through ``device_prefetch`` by the augmented loader of per-frame
    items (the loader's wait a step), one epoch of ``rescan.run``, and the
    label-free EF reproducibility (``rescan_ef_eval.main``, bfloat16, 48
    launches a cine) over scan/rescan pairs. Kaggle: ``evaluate_kaggle`` on
@@ -103,7 +111,18 @@ version on the card:
    ``tasks.evaluate.main`` (float32, as in the JAX package, through the
    kernel: every call's dtype noted) on the EMIDEC, MyoPS2020 and Rescan
    run folders (the Rescan one on a labelled split and on test_retest_100)
-   and on an ED/ES run folder of the packaged ACDC model.
+   and on an ED/ES run folder of the packaged ACDC model;
+11. baselines: the UNet (``PACKAGED["segmentation/acdc"]`` with
+   ``model.name=unet``: chans 32-512, instance norm, 192x192x16) and the
+   ResNet (``classification/acdc`` and ``regression/acdc`` with
+   ``model.name=resnet``: basic blocks [3, 4, 6, 3], ED and ES as two
+   channels) in bf16 at batch 4 on eight synthetic ACDC studies: timed steps
+   with peak memory, a NaN batch (the ResNet's running statistics too), f32
+   logits and one f32 step on the card against the CPU's from the same
+   weights (a 96x96x16 crop for the UNet), one 224x208x10 study evaluated by
+   sliding window, one regression step, and one epoch of the segmentation
+   and classification entry points' ``run`` with the checkpoint reloaded;
+   no attention kernel is launched.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -112,8 +131,9 @@ Usage:
     python3 chip_smoke.py [--out report.json] [--profile]
 
 ``--profile`` adds a torch.profiler pass over one serving chunk, one
-pretraining step, one fine-tuning step, one segmentation step, one landmark
-heatmap step, one fed M&Ms step and one EMIDEC and one MyoPS2020 step and
+pretraining step and one fed through ``device_prefetch``, one fine-tuning
+step, one segmentation step, one landmark heatmap step, one fed M&Ms step,
+one EMIDEC and one MyoPS2020 step and one UNet and one ResNet step and
 prints the device time by kernel.
 """
 
@@ -123,6 +143,7 @@ import argparse
 import contextlib
 import csv
 import json
+import os
 import statistics
 import struct
 import subprocess
@@ -166,6 +187,12 @@ LOGITS_ATOL = 1e-3
 # through 20 blocks forward and back
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_GRAD_RTOL = 1e-3
+# f32 UNet and ResNet logits, the card (cuDNN, TF32 off) against the CPU from the same weights: the two sum
+# each convolution in another order (~1e-6 relative), carried through 20-40 layers; against the largest logit
+BASELINE_LOGITS_RTOL = 1e-4
+# the ResNet's f32 train-mode gradient, the card's against the CPU's float64 one: within this factor of the CPU's
+# own float32 gradient's largest distance from its float64 one (each relative to a parameter's largest entry)
+RESNET_F32_WITNESS_FACTOR = 2.0
 
 
 def fail(msg: str) -> None:
@@ -642,26 +669,51 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     return serve_launches
 
 
-def write_studies(data_dir: Path, n: int, sizes: dict, seed: int) -> None:
-    """Seeded synthetic studies, one .npz each: two frames per view, smooth blobs on noise."""
-    rng = torch.Generator().manual_seed(seed)
-    for i in range(n):
-        study = {}
+# UKB cines hold 50 frames; 10 keep the writing of the synthetic studies short, and a frame seek reads one
+# frame's gzip member whatever their number
+UKB_FRAMES = 10
+# the loader's and the fed steps' epoch lists the synthetic studies this many times (16 batches of 16)
+UKB_REPEAT = 8
+
+
+def write_ukb_studies(data_dir: Path, n: int, sizes: dict, n_frames: int, seed: int) -> list:
+    """Seeded synthetic studies as the UKB preprocessing writes them (cinema_tpu/data/preprocess/ukb_dicom.py):
+    ``<pid>/<pid>_<view>.nii.gz``, uint8, one gzip member per frame, ``sax`` (x, y, z, t) and the ``lax_*``
+    views (x, y, 1, t); noise with a bright disc whose radius follows the frame. Eight threads write them
+    (zlib works without the interpreter lock). Returns the pids."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from cinema_tpu_torch.data import save_nifti
+
+    def write(i: int) -> str:
+        rng = np.random.default_rng([seed, i])
+        pid = f"{1000000 + i}_2"
+        (data_dir / pid).mkdir()
         for view, size in sizes.items():
-            frames = torch.rand((*size, 2), generator=rng)
-            axes = torch.meshgrid(*(torch.linspace(-1, 1, s) for s in size), indexing="ij")
-            centre = torch.rand(len(size), generator=rng) - 0.5
-            blob = torch.exp(-4 * sum((a - c) ** 2 for a, c in zip(axes, centre)))
-            study[view] = (500 * (frames * 0.2 + blob[..., None])).numpy()
-        np.savez(data_dir / f"study_{i:04d}.npz", **study)
+            shape = (*size, 1) if len(size) == 2 else tuple(size)
+            image = rng.integers(0, 60, (*shape, n_frames), dtype=np.uint8)
+            gx, gy = np.ogrid[: shape[0], : shape[1]]
+            r2 = (gx - shape[0] / 2) ** 2 + (gy - shape[1] / 2) ** 2
+            for t in range(n_frames):
+                image[r2 < (20 + 2 * t) ** 2, ..., t] += 150
+            save_nifti(data_dir / pid / f"{pid}_{view}.nii.gz", image, spacing=(1.0, 1.0, 10.0, 1.0),
+                       frame_indexed=True)
+        return pid
+
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(write, range(n)))
 
 
 def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
-    """CineMA-base MAE pretraining at full width; returns (forward, backward) launches of the timed steps."""
+    """CineMA-base MAE pretraining at full width on synthetic UKB studies; returns the (forward, backward)
+    launches of the path: ``pretrain.run``, the steps fed through ``device_prefetch`` and the timed steps."""
     import copy
+    import itertools
 
     from cinema_tpu_torch.config import PACKAGED, from_dict
     from cinema_tpu_torch.convert import load_safetensors
+    from cinema_tpu_torch.data import BatchLoader, UKBCineDataset, device_prefetch
+    from cinema_tpu_torch.data.transforms import get_pretrain_transforms
     from cinema_tpu_torch.factory import get_mae_model, init_weights
     from cinema_tpu_torch.models import vit
     from cinema_tpu_torch.ops.flash_attention import (
@@ -675,31 +727,57 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     from cinema_tpu_torch.train.optim import build_optimizer
     from cinema_tpu_torch.train.state import TrainState, make_mae_train_step
 
-    batch_size, n_studies, n_timed = 16, 32, 6
+    t_phase = time.perf_counter()
+    cuda = torch.device("cuda")
+    batch_size, n_studies, n_timed, n_fed = 16, 32, 6, 10
     config = from_dict(PACKAGED["mae"])
     config.grad_ckpt = False  # remat off: one forward launch per attention call
     config.train.batch_size = batch_size  # no accumulation: every step is an update
     config.train.n_epochs = 1
-    sizes = {v: tuple(config.data.sax.patch_size if v == "sax" else config.data.lax.patch_size)
-             for v in config.model.views}
+    views = list(config.model.views)
+    sizes = {v: tuple(config.data.sax.patch_size if v == "sax" else config.data.lax.patch_size) for v in views}
     n_blocks = 12 + 8  # ViT-base encoder and decoder depth: attention calls per step
+    n_workers = config.train.n_workers_per_device
+    path_launches = [0, 0]
+
+    def read_launches() -> tuple:
+        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches)
+        path_launches[0] += got[0]
+        path_launches[1] += got[1]
+        return got
 
     with tempfile.TemporaryDirectory() as tmp:
-        data_dir = Path(tmp) / "studies"
+        data_dir = Path(tmp) / "ukb"
         data_dir.mkdir()
-        write_studies(data_dir, n_studies, sizes, seed=2)
+        t0 = time.perf_counter()
+        pids = write_ukb_studies(data_dir, n_studies, sizes, UKB_FRAMES, seed=2)
+        write_s = time.perf_counter() - t0
         config.data.dir = str(data_dir)
         config.logging.dir = str(Path(tmp) / "runs")
 
-        # a. the entry point: one epoch of two steps, checkpoint and export
+        # a. the entry point: the manifest, one epoch of two steps fed by its loader's worker processes,
+        # checkpoint and export; then a second scan of the folder reads the manifest's cache
         flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
         t0 = time.perf_counter()
         out_dir = pretrain.run(config, device="cuda")
         run_s = time.perf_counter() - t0
         steps = n_studies // batch_size
-        run_launches = (flash_attention_packed.launches, flash_attention_packed.bwd_launches)
+        run_launches = read_launches()
         check(run_launches == (n_blocks * steps, n_blocks * steps),
               f"pretrain.run launched {run_launches}, expected {n_blocks * steps} each way")
+        cache = data_dir / f"manifest_pids_{'_'.join(sorted(views))}.json"
+        check(cache.exists() and json.loads(cache.read_text()) == {"pids": pids, "n_dir_entries": n_studies},
+              "pretrain.run did not write the manifest cache of its studies")
+        written_ns = cache.stat().st_mtime_ns
+        t0 = time.perf_counter()
+        cached = pretrain.scan_manifest(data_dir, views)
+        cached_ms = (time.perf_counter() - t0) * 1e3
+        check(cached == pids and cache.stat().st_mtime_ns == written_ns,
+              "a second scan did not take the studies from the manifest's cache")
+        t0 = time.perf_counter()
+        scanned = pretrain.scan_manifest(data_dir, views, rescan=True)
+        scan_ms = (time.perf_counter() - t0) * 1e3
+        check(scanned == pids, "a fresh scan lists other studies than the manifest's cache")
         record = json.loads((out_dir / "metrics.jsonl").read_text().splitlines()[-1])
         check(record["n_samples"] == n_studies and record["skipped_nan"] == 0, f"epoch record {record}")
         check(record["loss"] == record["loss"] and abs(record["loss"]) < 1e4, f"epoch loss {record['loss']}")
@@ -723,16 +801,103 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
         moved = sum(not torch.equal(initial[k], v) for k, v in model.state_dict().items())
         check(moved == len(initial), f"only {moved} of {len(initial)} parameters moved in pretrain.run")
         report["pretrain_run"] = {"steps": steps, "seconds": run_s, "loss": record["loss"], "launches": run_launches,
-                                  "ckpt_mib": ckpt.stat().st_size / 2**20}
+                                  "ckpt_mib": ckpt.stat().st_size / 2**20, "write_s": write_s,
+                                  "manifest_cached_ms": cached_ms, "manifest_scan_ms": scan_ms}
         print("pretrain_run", json.dumps(report["pretrain_run"]), f"on {smi}", flush=True)
 
-        # b. timed steps from the resumed state, through make_mae_train_step
-        loader = pretrain.BatchLoader(
-            pretrain.NpzCineDataset(data_dir, config.model.views, sizes, seed=config.seed), batch_size, seed=config.seed
-        )
-        batches = [{v: torch.from_numpy(x).cuda() for v, x in b.items()} for b in loader.epoch(1)]
-    step_fn = make_mae_train_step(model, tx, config.train.enc_mask_ratio, seed=config.seed)
-    state, _ = step_fn(state, batches[0])  # warm-up
+        # b. the loader alone, as pretrain.run builds it, over an epoch of many batches: the 32 studies listed
+        # UKB_REPEAT times (an item draws its frames and zoom from (seed, epoch, index), so no two items are
+        # alike). The loader looks ahead depth * batch + workers items (48 here), more than an epoch of two
+        # batches, and submits nothing of the next epoch until it is asked for, so short epochs would time
+        # the epoch's cold start; a UKB epoch is thousands of batches. Two batches start the workers and fill
+        # the look-ahead, the next ones are timed (four with a single thread, the rest of the epoch with the
+        # workers); every mode gives the same batches
+        dataset = UKBCineDataset(data_dir, pids * UKB_REPEAT, views, get_pretrain_transforms(config), seed=config.seed)
+        n_long = len(dataset) // batch_size
+        loader_rows, loaders, reference = {}, {}, None
+        for mode, workers, processes in (("1_thread", 1, False), ("threads", n_workers, False),
+                                         ("processes", n_workers, True)):
+            loader = BatchLoader(dataset, batch_size, seed=config.seed, n_workers=workers, processes=processes)
+            first = loader.epoch(0)
+            t0 = time.perf_counter()
+            batches = [next(first), next(first)]
+            start_s = time.perf_counter() - t0
+            n_batches = 4 if workers == 1 else n_long - 2
+            t0 = time.perf_counter()
+            batches += list(itertools.islice(first, n_batches))
+            timed_s = time.perf_counter() - t0
+            first.close()
+            if workers == 1:
+                loader.close()
+            else:
+                loaders[mode] = loader
+            check(len(batches) == 2 + n_batches and all(batches[0][v].shape == (batch_size, *sizes[v], 1) for v in views),
+                  f"{mode} loader batches {len(batches)}, {[batches[0][v].shape for v in views]}")
+            if reference is None:
+                reference = batches
+            check(all(np.array_equal(a[v], b[v]) for a, b in zip(reference, batches) for v in views),
+                  f"the {mode} loader gave other batches than one thread")
+            loader_rows[mode] = {"workers": workers, "host_cpus": len(os.sched_getaffinity(0)),
+                                 "epoch_batches": n_long, "start_s": start_s, "batches_timed": n_batches,
+                                 "ms_per_batch": timed_s * 1e3 / n_batches, "items_per_s": n_batches * batch_size / timed_s}
+            print("pretrain_loader", mode, json.dumps(loader_rows[mode]), f"on {smi}", flush=True)
+        report["pretrain_loader"] = loader_rows
+        del batches
+
+        # c. steps fed through device_prefetch inside one long epoch, from the worker processes (as pretrain.run
+        # feeds them on a host of more than 4 cores) and from the threads; no synchronisation between steps,
+        # the wait is the time blocked on the next batch on the card. A warm-up step takes the epoch's first
+        # batch; each batch on the card equals the loader's
+        step_fn = make_mae_train_step(model, tx, config.train.enc_mask_ratio, seed=config.seed)
+        report["train_fed"] = {}
+        for epoch, mode in enumerate(("processes", "threads"), start=1):
+            host = []
+
+            def recorded(loader, epoch=epoch, host=host):
+                for b in loader.epoch(epoch):
+                    host.append(b)
+                    yield b
+
+            with loaders[mode] as loader:
+                fed_iter = device_prefetch(recorded(loader), cuda, depth=2)
+                on_card = [next(fed_iter)]
+                state, _ = step_fn(state, on_card[0])  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+                waits, losses = [], []
+                t0 = time.perf_counter()
+                for _ in range(n_fed):
+                    w0 = time.perf_counter()
+                    on_card.append(next(fed_iter))
+                    waits.append(time.perf_counter() - w0)
+                    state, metrics = step_fn(state, on_card[-1])
+                    losses.append(metrics["loss"])
+                torch.cuda.synchronize()
+                fed_s = time.perf_counter() - t0
+                fed_launches = read_launches()
+                if profile and mode == "processes":  # a fed step's device time against its wall time
+                    report["train_fed_profile"] = profile_call("train_fed_profile",
+                                                               lambda: step_fn(state, next(fed_iter)), smi)
+                fed_iter.close()
+            losses = [float(x) for x in losses]
+            check(fed_launches == (n_blocks * n_fed, n_blocks * n_fed),
+                  f"{n_fed} fed steps launched {fed_launches}, expected {n_blocks} each way per step")
+            check(all(x == x and abs(x) < 1e4 for x in losses), f"fed losses not finite: {losses}")
+            check(all(torch.equal(d[v].cpu(), torch.from_numpy(h[v])) for d, h in zip(on_card, host) for v in views)
+                  and set(on_card[0]) == set(views), f"a batch on the card differs from the {mode} loader's")
+            report["train_fed"][mode] = {
+                "batch": batch_size, "steps": n_fed, "workers": n_workers, "epoch_batches": n_long,
+                "ms_per_step": fed_s * 1e3 / n_fed, "clips_per_s": n_fed * batch_size / fed_s,
+                "loader_wait_ms_per_step": sum(waits) * 1e3 / n_fed, "loader_wait_ms": [w * 1e3 for w in waits],
+                "losses": losses, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "launches_fwd": fed_launches[0], "launches_bwd": fed_launches[1]}
+            print("train_fed", mode, json.dumps(report["train_fed"][mode]), f"on {smi}", flush=True)
+            del on_card, host
+        batches = [{v: torch.from_numpy(b[v]).cuda() for v in views} for b in reference[:steps]]
+
+    # d. the same steps with the batch already on the card, through make_mae_train_step
+    done_before = state.step
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: v.clone() for k, v in model.state_dict().items()}
@@ -745,12 +910,12 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
         seconds.append(time.perf_counter() - t0)
         losses.append(float(metrics["loss"]))
         skipped.append(float(metrics["skipped_nan"]))
-    fwd, bwd = flash_attention_packed.launches, flash_attention_packed.bwd_launches
+    fwd, bwd = read_launches()
     check(fwd == n_blocks * n_timed and bwd == n_blocks * n_timed,
           f"{n_timed} train steps launched {fwd} forward and {bwd} backward kernels, expected {n_blocks} each per step")
     check(all(x == x and abs(x) < 1e4 for x in losses), f"losses not finite: {losses}")
     check(sum(skipped) == 0, f"steps skipped: {skipped}")
-    done = steps + 1 + n_timed
+    done = done_before + n_timed
     check(state.step == done and state.n_samples == done * batch_size and int(state.opt_state.count) == done,
           f"counters {state.step} {state.n_samples} {int(state.opt_state.count)}, expected {done} steps")
     moved = sum(not torch.equal(before[k], v) for k, v in model.state_dict().items())
@@ -764,7 +929,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     }
     print("train", json.dumps(report["train"]), f"on {smi}", flush=True)
 
-    # c. a batch of NaNs leaves parameters, moments and count bit-identical
+    # e. a batch of NaNs leaves parameters, moments and count bit-identical
     snapshot = copy.deepcopy((model.state_dict(), state.opt_state.state_dict()))
     state, metrics = step_fn(state, {v: torch.full_like(x, float("nan")) for v, x in batches[0].items()})
     check(float(metrics["skipped_nan"]) == 1.0, "the NaN batch was not skipped")
@@ -779,7 +944,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
         report["train_profile"] = profile_call("train_profile", lambda: step_fn(state, batches[0]), smi)
     del snapshot, now, before, initial, state, tx
 
-    # d. one f32 step at batch 2: loss and gradients through the kernels against the plain attention
+    # f. one f32 step at batch 2: loss and gradients through the kernels against the plain attention
     model32 = get_mae_model(config, dtype=torch.float32, device="cuda")
     model32.load_state_dict(model.state_dict())
     del model
@@ -807,7 +972,9 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_RTOL * abs(loss_p.item()), "f32 losses differ")
     check(abs(norm_k - norm_p) <= TRAIN_GRAD_RTOL * norm_p, "f32 gradient norms differ")
     check(worst <= TRAIN_GRAD_RTOL, f"f32 gradients through the kernels differ by {worst} of a parameter's largest")
-    return fwd, bwd
+    report["train_phase"] = {"launches": path_launches, "phase_s": time.perf_counter() - t_phase}
+    print("train_phase", json.dumps(report["train_phase"]), f"on {smi}", flush=True)
+    return path_launches[0], path_launches[1]
 
 
 def write_metadata(path: Path, rows: list[dict]) -> None:
@@ -993,7 +1160,7 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
     from cinema_tpu_torch.tasks.classification import classification_loss_fn
     from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
-    from cinema_tpu_torch.train.loop import to_device
+    from cinema_tpu_torch.data import to_device
 
     launches = Launches()
     reset, read, counters = launches.reset, launches.read, launches.totals
@@ -1189,7 +1356,7 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
     from cinema_tpu_torch import metrics as seg_metrics
     from cinema_tpu_torch.config import PACKAGED, from_dict
     from cinema_tpu_torch.convert import load_safetensors
-    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.data import BatchLoader, to_device
     from cinema_tpu_torch.factory import get_convunetr_model, get_segmentation_model, init_weights
     from cinema_tpu_torch.models import vit
     from cinema_tpu_torch.ops.flash_attention import (
@@ -1204,7 +1371,6 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
         segmentation_loss_fn,
     )
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
-    from cinema_tpu_torch.train.loop import to_device
 
     launches = Launches()
     reset, read, counters = launches.reset, launches.read, launches.totals
@@ -1490,7 +1656,7 @@ def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
     coordinates; returns the packed kernels' launches on this path."""
     from cinema_tpu_torch import metrics as lmk_metrics
     from cinema_tpu_torch.config import PACKAGED, from_dict
-    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.data import BatchLoader, to_device
     from cinema_tpu_torch.factory import get_segmentation_model, init_weights
     from cinema_tpu_torch.models import vit
     from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv_plain
@@ -1498,7 +1664,6 @@ def landmark_phase(report: dict, smi: str, profile: bool) -> dict:
     from cinema_tpu_torch.tasks.classification import get_classification_model
     from cinema_tpu_torch.tasks.regression import landmark as reg_landmark
     from cinema_tpu_torch.tasks.segmentation import landmark as seg_landmark
-    from cinema_tpu_torch.train.loop import to_device
 
     t_phase = time.perf_counter()
     launches = Launches()
@@ -1721,12 +1886,11 @@ def mnms_phase(report: dict, smi: str, profile: bool) -> dict:
     import importlib
 
     from cinema_tpu_torch.config import PACKAGED, from_dict
-    from cinema_tpu_torch.data import BatchLoader
+    from cinema_tpu_torch.data import BatchLoader, device_prefetch, to_device
     from cinema_tpu_torch.factory import get_segmentation_model, init_weights
     from cinema_tpu_torch.tasks.classification import get_classification_model
     from cinema_tpu_torch.tasks.segmentation import mnms as seg_mnms
     from cinema_tpu_torch.tasks.segmentation import segmentation_loss_fn
-    from cinema_tpu_torch.train.loop import to_device
 
     t_phase = time.perf_counter()
     launches = Launches()
@@ -1755,15 +1919,16 @@ def mnms_phase(report: dict, smi: str, profile: bool) -> dict:
 
         # a. the augmented training loader alone: an epoch to start its workers, then one timed; every mode
         # gives the same batches. b. ConvUNetR-base steps fed from the 4-thread and the 4-process loader
-        # inside the loop, as run_train feeds them (no synchronisation between steps; the loader's wait is
-        # the time blocked on its next batch), then from a loader of items without augmentation
+        # through device_prefetch inside the loop, as run_train feeds them (no synchronisation between steps;
+        # the loader's wait is the time blocked on its next batch on the card), then from a loader of items
+        # without augmentation
         model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
         check(model.encoder.remat, "grad_ckpt did not reach the encoder")
 
         def fed_steps(label: str, loader, epoch: int, prob: float) -> dict:
             state, step_fn = supervised_step(config, model, segmentation_loss_fn)
-            batches = loader.epoch(epoch)
-            state, _ = step_fn(state, to_device(next(batches), cuda))  # warm-up
+            batches = device_prefetch(loader.epoch(epoch), cuda, depth=2)
+            state, _ = step_fn(state, next(batches))  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset()
@@ -1773,16 +1938,15 @@ def mnms_phase(report: dict, smi: str, profile: bool) -> dict:
                 w0 = time.perf_counter()
                 batch = next(batches)
                 waits.append(time.perf_counter() - w0)
-                state, metrics = step_fn(state, to_device(batch, cuda))
+                state, metrics = step_fn(state, batch)
                 losses.append(metrics["loss"])
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
             got = read()
             if profile and label == "threads":  # a fed step's device time against its wall time
-                again = loader.epoch(epoch + 1)
+                again = device_prefetch(loader.epoch(epoch + 1), cuda, depth=2)
                 reset()
-                report["mnms_fed_profile"] = profile_call(
-                    "mnms_fed_profile", lambda: step_fn(state, to_device(next(again), cuda)), smi)
+                report["mnms_fed_profile"] = profile_call("mnms_fed_profile", lambda: step_fn(state, next(again)), smi)
                 read()
             losses = [float(x) for x in losses]
             check(got == (n_timed * 2 * depth, n_timed * depth, 0, 0),
@@ -2000,9 +2164,11 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
         BatchLoader,
         EMIDECDataset,
         MYOPS2020Dataset,
+        device_prefetch,
         load_nifti_frame,
         read_metadata,
         save_nifti,
+        to_device,
     )
     from cinema_tpu_torch.data.transforms import get_segmentation_transforms
     from cinema_tpu_torch.factory import get_segmentation_model, init_weights
@@ -2021,7 +2187,6 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
         segmentation_loss_fn,
     )
     from cinema_tpu_torch.train.checkpoint import save_params_safetensors
-    from cinema_tpu_torch.train.loop import to_device
 
     t_phase = time.perf_counter()
     launches = Launches()
@@ -2184,8 +2349,8 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
         model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=config.seed)
         state, step_fn = supervised_step(config, model, segmentation_loss_fn)
         with BatchLoader(train_ds, batch_size, seed=config.seed, n_workers=config.train.n_workers) as loader:
-            epoch = loader.epoch(0)
-            state, _ = step_fn(state, to_device(next(epoch), cuda))  # warm-up
+            epoch = device_prefetch(loader.epoch(0), cuda, depth=2)
+            state, _ = step_fn(state, next(epoch))  # warm-up
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             reset()
@@ -2195,7 +2360,7 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
                 w0 = time.perf_counter()
                 batch = next(epoch)
                 waits.append(time.perf_counter() - w0)
-                state, metrics = step_fn(state, to_device(batch, cuda))
+                state, metrics = step_fn(state, batch)
                 losses.append(metrics["loss"])
             torch.cuda.synchronize()
             total_s = time.perf_counter() - t0
@@ -2327,6 +2492,259 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
     return counters
 
 
+def write_baseline_studies(data_dir: Path, n: int, seed: int) -> None:
+    """Seeded synthetic ED + ES studies in the processed ACDC layout (``seg_frames``; 192x192x16 and 224x208x10
+    in turn) with ``train_metadata.csv``: ``pid``, ``n_slices``, ``pathology`` (DCM and NOR in pairs: each
+    class holds n / 2 studies, two of them held out for validation) and an ``ef`` that follows the class."""
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        size = SEG_SIZES[i % 2]
+        pid = f"patient{i:03d}"
+        write_seg_study(data_dir / "train", pid, *seg_frames(rng, size))
+        label = (i // 2) % 2
+        rows.append({"pid": pid, "n_slices": size[2], "pathology": ("DCM", "NOR")[label],
+                     "ef": round(float(25 + 30 * label + rng.normal()), 4)})
+    write_metadata(data_dir / "train_metadata.csv", rows)
+
+
+def check_against_the_cpu(label: str, build, state_dict: dict, loss_fn, batch: dict,
+                          noise: frozenset = frozenset(), grad_dtype: torch.dtype = torch.float32) -> dict:
+    """From the same weights (``state_dict`` into ``build(device, dtype)``), on the card against the CPU: the
+    f32 logits in eval mode within BASELINE_LOGITS_RTOL of their largest; one train-mode step's f32 loss
+    within TRAIN_LOSS_RTOL; its gradients, computed in ``grad_dtype`` on both devices, each within
+    TRAIN_GRAD_RTOL of its parameter's largest entry, or for a bias that a norm removes (``noise``: zero
+    gradient analytically, rounding noise on both sides) of its convolution's weight gradient's largest.
+
+    ``grad_dtype`` float64 is for the ResNet, whose train-mode gradient at seeded weights is too ill-conditioned
+    for the 1e-3 gate in float32 on any device: ``tools/resnet_grad_conditioning.py`` finds the CPU's own
+    float32 gradient 21 % of a parameter's largest entry off its float64 one, and the float64 gradient 4.2 %
+    off itself when every weight moves by 1e-7 relative (BatchNorm over batch statistics behind ReLU and
+    max-pool switches; PERF.md section 6). The card's float32 gradient is then held as a witness against the
+    CPU's float64 one: no parameter's further from it than RESNET_F32_WITNESS_FACTOR times the CPU's own
+    float32 worst. That limit separates gross faults only (a gradient lost, its sign flipped, or off by a
+    factor of 2: 1 or more of the largest); the float64 comparison holds the same code to 1e-3."""
+    outputs, losses, grads, names = [], [], {}, None
+    for device in (torch.device("cuda"), torch.device("cpu")):
+        for dtype in dict.fromkeys((torch.float32, grad_dtype)):
+            model = build(device, dtype).to(dtype)
+            model.load_state_dict(state_dict)
+            on_device = {k: v.to(device, dtype) if v.is_floating_point() else v.to(device) for k, v in batch.items()}
+            if dtype == torch.float32:
+                images = {k[: -len("_image")]: v for k, v in on_device.items() if k.endswith("_image")}
+                with torch.no_grad():
+                    out = model.eval()(images)
+                outputs.append((torch.cat(list(out.values())) if isinstance(out, dict) else out).float().cpu())
+            loss = loss_fn(model.train(), on_device)[0]
+            if dtype == torch.float32:
+                losses.append(loss.item())
+            names = [name for name, _ in model.named_parameters()]
+            grads[device.type, dtype] = [g.double().cpu() for g in torch.autograd.grad(loss, list(model.parameters()))]
+    logits_err = (outputs[0] - outputs[1]).abs().max().item()
+    logits_max = outputs[1].abs().max().item()
+
+    def distances(got: list, ref: list) -> dict:
+        """Each parameter's largest difference relative to its largest entry (a removed bias: to its
+        convolution weight's)."""
+        want = dict(zip(names, ref))
+        return {name: ((a - b).abs().max() / (want[name[: -len("bias")] + "weight"] if name in noise else b)
+                       .abs().max().clamp(min=1e-12)).item() for name, a, b in zip(names, got, ref)}
+
+    errs = distances(grads["cuda", grad_dtype], grads["cpu", grad_dtype])
+    worst = max(errs, key=errs.get)
+    row = {"logits_max_abs_err": logits_err, "logits_max_abs": logits_max, "logits_rtol": BASELINE_LOGITS_RTOL,
+           "loss": losses[0], "loss_cpu": losses[1], "grad_dtype": str(grad_dtype).split(".")[-1],
+           "max_rel_grad_err": errs[worst], "worst_parameter": worst, "loss_rtol": TRAIN_LOSS_RTOL,
+           "grad_rtol": TRAIN_GRAD_RTOL}
+    if grad_dtype != torch.float32:
+        cpu32 = distances(grads["cpu", torch.float32], grads["cpu", grad_dtype])
+        card32 = distances(grads["cuda", torch.float32], grads["cpu", grad_dtype])
+        row["f32_witness"] = {"cpu_f32_worst": max(cpu32.values()), "cpu_f32_worst_parameter": max(cpu32, key=cpu32.get),
+                              "card_f32_worst": max(card32.values()), "card_f32_worst_parameter": max(card32, key=card32.get),
+                              "limit": RESNET_F32_WITNESS_FACTOR * max(cpu32.values())}
+    print(label, json.dumps(row), flush=True)
+    check(logits_err <= BASELINE_LOGITS_RTOL * logits_max, f"{label}: f32 logits on the card differ from the CPU's")
+    check(abs(losses[0] - losses[1]) <= TRAIN_LOSS_RTOL * abs(losses[1]), f"{label}: f32 losses differ")
+    check(errs[worst] <= TRAIN_GRAD_RTOL, f"{label}: the gradient of {worst} differs by {errs[worst]} of its largest")
+    if "f32_witness" in row:
+        witness = row["f32_witness"]
+        check(witness["card_f32_worst"] <= witness["limit"],
+              f"{label}: the card's f32 gradient of {witness['card_f32_worst_parameter']} is "
+              f"{witness['card_f32_worst']} of its largest off the CPU's {grad_dtype}, beyond {witness['limit']}")
+    return row
+
+
+def baseline_phase(report: dict, smi: str, profile: bool) -> dict:
+    """The UNet and ResNet baselines at full width (bf16, batch 4) on synthetic ACDC studies: timed steps, a
+    NaN batch, f32 logits and an f32 step on the card against the CPU's, a sliding-window study, a regression
+    step and one epoch of two entry points' ``run``; no attention kernel is launched. Returns the phase's
+    launch counts (all 0)."""
+    import itertools
+
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import BatchLoader, EDESSegmentationDataset, read_metadata, to_device
+    from cinema_tpu_torch.data.transforms import get_segmentation_transforms
+    from cinema_tpu_torch.factory import get_segmentation_model, init_weights
+    from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
+    from cinema_tpu_torch.tasks.classification import classification_loss_fn, get_classification_model
+    from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
+    from cinema_tpu_torch.tasks.regression import regression_loss_fn
+    from cinema_tpu_torch.tasks.segmentation import acdc as seg_acdc
+    from cinema_tpu_torch.tasks.segmentation import (
+        patch_and_spacing_dicts,
+        segmentation_eval_batch,
+        segmentation_loss_fn,
+    )
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    cuda = torch.device("cuda")
+    batch_size, n_studies, n_timed = 4, 8, 6
+    out = {}
+
+    def baseline_config(task: str, data_dir: Path, runs: Path):
+        config = from_dict(PACKAGED[task])
+        config.model.name = "unet" if task.startswith("segmentation") else "resnet"
+        config.data.dir, config.logging.dir = str(data_dir), str(runs)
+        config.train.update(batch_size=batch_size, n_epochs=1, eval_interval=1)
+        return config
+
+    def loader_batches(entry, config, n: int) -> tuple:
+        """The first ``n`` augmented training batches of the task on the card, and its (train, val) datasets."""
+        train_ds, val_ds = entry.load_dataset(config)
+        with BatchLoader(train_ds, batch_size, seed=config.seed, n_workers=config.train.n_workers) as loader:
+            batches = [to_device(b, cuda) for b in itertools.islice(loader.epoch(0), n)]
+        return batches, train_ds, val_ds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = Path(tmp) / "acdc"
+        t0 = time.perf_counter()
+        write_baseline_studies(data_dir, n_studies, seed=40)
+        write_s = time.perf_counter() - t0
+        configs = {task: baseline_config(task, data_dir, Path(tmp) / "runs")
+                   for task in ("segmentation/acdc", "classification/acdc", "regression/acdc")}
+
+        # a. UNet (chans 32-512, instance norm) on 192x192x16: timed steps, a NaN batch, f32 against the CPU
+        seg_cfg = configs["segmentation/acdc"]
+        seg_batches, _, _ = loader_batches(seg_acdc, seg_cfg, 2)
+        unet = init_weights(get_segmentation_model(seg_cfg, dtype=torch.bfloat16, device=cuda), seed=seg_cfg.seed)
+        # the stem's and each residual block's first convolution feed an instance norm, which removes their bias
+        normed = frozenset(k for k in unet.state_dict() if k.endswith(("in_conv.conv.bias", "conv1.bias")))
+        state, step_fn = supervised_step(seg_cfg, unet, segmentation_loss_fn)
+        out["unet"] = timed_steps(launches, smi, "baseline_unet", unet, state, step_fn, seg_batches, n_timed,
+                                  (0, 0, 0, 0), may_stay=normed)
+        state = check_nan_batch("baseline_unet", launches, unet, state, step_fn, seg_batches[0], "sax_image")
+        if profile:
+            report["baseline_unet_profile"] = profile_call("baseline_unet_profile",
+                                                           lambda: step_fn(state, seg_batches[0]), smi)
+        exact = from_dict(seg_cfg)
+        exact.model.unet.dropout = 0.0  # no dropout draws, which differ between the devices
+        # a 96x96x16 crop of one item: the full width at a quarter of the voxels, for the CPU's sake
+        crop = {k: seg_batches[0][k][:1, 48:144, 48:144] for k in ("sax_image", "sax_label")}
+        out["unet_f32"] = check_against_the_cpu(
+            "baseline_unet_f32", lambda d, dtype: get_segmentation_model(exact, dtype=dtype, device=d),
+            unet.state_dict(), segmentation_loss_fn, crop, noise=normed)
+
+        # b. one 224x208x10 study (ED and ES) evaluated by sliding window (four patches a frame)
+        _, val_tf = get_segmentation_transforms(seg_cfg)
+        studies = EDESSegmentationDataset(data_dir / "train", read_metadata(data_dir / "train_metadata.csv"), "sax",
+                                          val_tf)
+        patch_size_dict, spacing_dict = patch_and_spacing_dicts(seg_cfg)
+        first = next(i for i in range(0, len(studies), 2) if int(studies.load(i, 0)["sax_width"]) == 224)
+        items = [{k: v[None] for k, v in studies.load(i, 0).items() if k != "pid"} for i in (first, first + 1)]
+        unet.eval()
+
+        def evaluate_study() -> list:
+            return [segmentation_eval_batch(unet, {**item, **to_device({k: item[k] for k in ("sax_image", "sax_label")},
+                                                                       cuda)},
+                                            patch_size_dict, spacing_dict, z_bucket=4)[1] for item in items]
+
+        with torch.no_grad():
+            evaluate_study()  # warm-up
+            torch.cuda.synchronize()
+            launches.reset()
+            t0 = time.perf_counter()
+            rows = evaluate_study()
+            study_s = time.perf_counter() - t0
+        check(launches.read() == (0, 0, 0, 0), "the evaluated UNet study launched an attention kernel")
+        check(all(0.0 <= r["mean_dice_score"] <= 1.0 for r in rows), f"UNet evaluation of a 224x208x10 study: {rows}")
+        out["unet_eval"] = {"size": [224, 208, 10], "ms_per_study": study_s * 1e3,
+                            "mean_dice_score": [r["mean_dice_score"] for r in rows]}
+        print("baseline_unet_eval", json.dumps(out["unet_eval"]), f"on {smi}", flush=True)
+        del unet, state, step_fn
+
+        # c. ResNet classification (ED and ES as two channels, basic blocks [3, 4, 6, 3]) on 192x192x16: timed
+        # steps, a NaN batch (its running statistics too: they are in the state_dict), f32 against the CPU;
+        # then one regression step
+        clf_cfg = configs["classification/acdc"]
+        clf_batches, _, _ = loader_batches(clf_acdc, clf_cfg, 1)
+        resnet = init_weights(get_classification_model(clf_cfg, dtype=torch.bfloat16, device=cuda), seed=clf_cfg.seed)
+        state, step_fn = supervised_step(clf_cfg, resnet, classification_loss_fn)
+        stats = {k: v.clone() for k, v in resnet.state_dict().items() if "running" in k}
+        out["resnet_clf"] = timed_steps(launches, smi, "baseline_resnet_clf", resnet, state, step_fn, clf_batches,
+                                        n_timed, (0, 0, 0, 0))
+        check(all(not torch.equal(v, resnet.state_dict()[k]) for k, v in stats.items()),
+              "the ResNet steps left a running statistic as it was")
+        state = check_nan_batch("baseline_resnet_clf", launches, resnet, state, step_fn, clf_batches[0], "sax_image")
+        if profile:
+            report["baseline_resnet_profile"] = profile_call("baseline_resnet_profile",
+                                                             lambda: step_fn(state, clf_batches[0]), smi)
+        out["resnet_clf_f32"] = check_against_the_cpu(
+            "baseline_resnet_clf_f32", lambda d, dtype: get_classification_model(clf_cfg, dtype=dtype, device=d),
+            resnet.state_dict(), classification_loss_fn, {k: v[:2] for k, v in clf_batches[0].items()},
+            grad_dtype=torch.float64)
+        del resnet, state, step_fn
+
+        reg_cfg = configs["regression/acdc"]
+        reg_batches, _, _ = loader_batches(reg_acdc, reg_cfg, 1)
+        resnet = init_weights(get_classification_model(reg_cfg, dtype=torch.bfloat16, device=cuda), seed=reg_cfg.seed)
+        state, step_fn = supervised_step(reg_cfg, resnet, regression_loss_fn)
+        launches.reset()
+        state, metrics = step_fn(state, reg_batches[0])
+        check(launches.read() == (0, 0, 0, 0), "the ResNet regression step launched an attention kernel")
+        out["resnet_reg"] = {"loss": float(metrics["loss"]), "skipped_nan": float(metrics["skipped_nan"])}
+        check(np.isfinite(out["resnet_reg"]["loss"]) and out["resnet_reg"]["skipped_nan"] == 0.0,
+              f"ResNet regression step {out['resnet_reg']}")
+        print("baseline_resnet_reg", json.dumps(out["resnet_reg"]), f"on {smi}", flush=True)
+        del resnet, state, step_fn
+
+        # d. one epoch of run of each, evaluated once; its checkpoint and safetensors reloaded
+        runs = {}
+        for task, entry, build, loss_fn, val_keys in (
+                ("segmentation/acdc", seg_acdc, get_segmentation_model, segmentation_loss_fn, ("val_mean_dice_score",)),
+                ("classification/acdc", clf_acdc, get_classification_model, classification_loss_fn, ("val_accuracy",))):
+            cfg = configs[task]
+            train_ds, val_ds = entry.load_dataset(cfg)
+            steps = len(train_ds) // batch_size
+            image = torch.from_numpy(val_ds.load(0, 0)["sax_image"][None]).to(cuda)
+            launches.reset()
+            t0 = time.perf_counter()
+            out_dir = entry.run(cfg, device="cuda")
+            run_s = time.perf_counter() - t0
+            check(launches.read() == (0, 0, 0, 0), f"the {task} {cfg.model.name} run launched an attention kernel")
+            runs[task] = {"model": cfg.model.name, "seconds": run_s, "steps": steps, "evaluated": len(val_ds),
+                          **check_run_and_reload(f"{task} {cfg.model.name}", cfg, out_dir,
+                                                 lambda: build(cfg, dtype=torch.bfloat16, device=cuda),
+                                                 lambda m: supervised_step(cfg, m, loss_fn), steps, {"sax": image},
+                                                 val_keys)}
+            print(f"baseline_run {task}", json.dumps(runs[task]), f"on {smi}", flush=True)
+        out["runs"] = runs
+    check(all(n == 0 for n in launches.totals.values()), f"the baselines launched attention kernels: {launches.totals}")
+    report["baselines"] = {
+        "write_s": write_s,
+        **{k: {m: out[k][m] for m in ("ms_per_step", "samples_per_s", "peak_mem_gib")} for k in ("unet", "resnet_clf")},
+        **({"unet_idle_share": report["baseline_unet_profile"]["idle_share"],
+            "resnet_idle_share": report["baseline_resnet_profile"]["idle_share"]} if profile else {}),
+        "unet_eval_ms_per_study": out["unet_eval"]["ms_per_study"],
+        "run_s": {k: v["seconds"] for k, v in out["runs"].items()},
+        "launches": launches.totals,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    report["baseline_detail"] = out
+    print("baselines", json.dumps(report["baselines"]), f"on {smi}", flush=True)
+    return launches.totals
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
@@ -2387,7 +2805,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 10. the seven paths at full width, launch counts set to 0 before each and read after
+    # 4. to 11. the eight paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -2396,6 +2814,7 @@ def main() -> None:
     lmk = landmark_phase(report, smi, args.profile)
     mnms = mnms_phase(report, smi, args.profile)
     cine = cine_phase(report, smi, args.profile)
+    baseline_phase(report, smi, args.profile)
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 

@@ -129,15 +129,26 @@ def _flatten(tree: Mapping[str, Any], prefix: Tuple[str, ...] = ()) -> Dict[Tupl
 
 
 def state_dict_from_jax(params: Mapping[str, Any]) -> Dict[str, np.ndarray]:
-    """Flax param tree ({'params': ...} or the inner tree) -> torch-named, torch-laid-out arrays.
+    """Flax variables ({'params': ...} with or without 'batch_stats', or the param tree alone) ->
+    torch-named, torch-laid-out arrays.
 
     Dense kernels (in, out) are transposed; Conv kernels (*k, in, out) and
     ConvTranspose kernels (*k, out, in) (flax ``transpose_kernel=True``) both
     go to torch's layout by one permutation, (o, i, *k) and (i, o, *k).
+    A BatchNorm's ``batch_stats`` ``mean`` and ``var`` become its ``running_mean``
+    and ``running_var``, under its parameters' key (``layer1_0/bn1`` ->
+    ``layer1.0.bn1``), as the JAX bridge exports them.
     """
-    if set(params) == {"params"}:
+    stats: Mapping[str, Any] = {}
+    if "params" in params and set(params) <= {"params", "batch_stats"}:
+        stats = params.get("batch_stats", {})
         params = params["params"]
     out = {}
+    for path, value in _flatten(stats).items():
+        if path[-1] not in ("mean", "var"):
+            raise ValueError(f"No torch key for flax batch statistic {'/'.join(path)}.")
+        module = torch_key((*path[:-1], "bias"))[: -len("bias")]
+        out[f"{module}running_{path[-1]}"] = np.ascontiguousarray(np.array(value))
     for path, value in _flatten(params).items():
         key = torch_key(path)
         if key is None:

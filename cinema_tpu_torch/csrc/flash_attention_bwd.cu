@@ -59,7 +59,8 @@
 // bf16 products accumulate in f32; P and dS are rounded to bf16 before their
 // second product, as the forward rounds P. f32 inputs stay on the CUDA cores
 // (four threads per row), as no tensor-core format keeps f32 exact; they run
-// only in the f32 check steps.
+// only in the f32 check steps (the float32 evaluation runs the f32 forward
+// alone).
 //
 // Bound at the fine-tuning shape of ConvViT-base (B=4, Tq=Tk=2305, H=12, D=64,
 // bf16): five products, 10*B*Tq*Tk*H*D = 1.6e11 flop -> 0.165 ms at 989

@@ -50,8 +50,9 @@
 // 19 (resp. 7) with a single row, streaming every key for it.
 //
 // f32 operands stay on the CUDA cores, one thread per q row over 32-key
-// tiles, as no tensor-core format keeps f32 exact; they run only in the f32
-// check steps.
+// tiles, as no tensor-core format keeps f32 exact; they run in the f32 check
+// steps and on a main path: the float32 evaluation of run folders
+// (tasks/evaluate.py) and of Kaggle cines.
 
 #include "hopper.cuh"
 

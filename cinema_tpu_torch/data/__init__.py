@@ -1,7 +1,7 @@
 """The port's data engine (port of cinema_tpu/data): the NIfTI reader and writer with frame seeks
-(``nifti``), the augmentation transforms (``transforms``), and the datasets with their batch loader
-(``datasets``): the ED/ES datasets, the per-frame cine, EMIDEC, MyoPS2020 and Kaggle video datasets,
-and the landmark datasets."""
+(``nifti``), the augmentation transforms (``transforms``), and the datasets with their batch loader and
+device prefetch (``datasets``): the ED/ES datasets, the per-frame cine, EMIDEC, MyoPS2020 and Kaggle video
+datasets, the landmark datasets and the UKB pretraining dataset."""
 
 from cinema_tpu_torch.data.datasets import (
     BatchLoader,
@@ -14,11 +14,14 @@ from cinema_tpu_torch.data.datasets import (
     LandmarkDetectionDataset,
     LandmarkRegressionDataset,
     MYOPS2020Dataset,
+    UKBCineDataset,
     collate,
-    fit_to_size,
+    device_prefetch,
+    find_view_file,
     gaussian_heatmap,
     read_metadata,
     read_png_gray,
+    to_device,
 )
 from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame, load_nifti_header, read_frame_index, save_nifti
 
@@ -33,8 +36,10 @@ __all__ = [
     "LandmarkDetectionDataset",
     "LandmarkRegressionDataset",
     "MYOPS2020Dataset",
+    "UKBCineDataset",
     "collate",
-    "fit_to_size",
+    "device_prefetch",
+    "find_view_file",
     "gaussian_heatmap",
     "load_nifti",
     "load_nifti_frame",
@@ -43,4 +48,5 @@ __all__ = [
     "read_metadata",
     "read_png_gray",
     "save_nifti",
+    "to_device",
 ]

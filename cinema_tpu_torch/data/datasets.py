@@ -1,5 +1,5 @@
-"""The datasets and the batch loader of the task entry points (port of cinema_tpu/data/datasets.py:32-360,
-:447-736).
+"""The datasets, the batch loader and the device prefetch of the task entry points (port of
+cinema_tpu/data/datasets.py).
 
 - The NIfTI datasets read the processed studies that the JAX package's preprocessing writes
   (cinema_tpu/data/preprocess/), one row of a metadata table per study (:func:`read_metadata`):
@@ -13,7 +13,11 @@
   draws it, so an item is a pure function of (seed, epoch, index).
 - The landmark datasets read 8-bit grayscale PNGs and their metadata tables; their items
   take no transform, as the JAX package's landmark tasks build them.
-- :class:`BatchLoader` loads the items of a batch in worker threads or worker processes.
+- :class:`UKBCineDataset` reads the pretraining studies that the UKB preprocessing writes
+  (cinema_tpu/data/preprocess/ukb_dicom.py): ``<pid>/<pid>_<view>.nii.gz``, one 4-D cine per view,
+  one random frame of each per item by a frame seek.
+- :class:`BatchLoader` loads the items of a batch in worker threads or worker processes, and
+  :func:`device_prefetch` copies its batches to the card ahead of the step that takes them.
 """
 
 from __future__ import annotations
@@ -25,21 +29,15 @@ import zlib
 from collections import deque
 from concurrent.futures import Executor, Future, ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
-from typing import Any, Callable, Deque, Dict, Iterator, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Deque, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame
+from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame, load_nifti_header
 
 Sample = Dict[str, Any]
 Transform = Callable[[Sample, np.random.Generator], Sample]
 Rows = List[Dict[str, Optional[str]]]
-
-
-def fit_to_size(x: np.ndarray, size: Sequence[int]) -> np.ndarray:
-    """End-pad with zeros or crop the leading axes of ``x`` to ``size``."""
-    x = x[tuple(slice(0, s) for s in size)]
-    return np.pad(x, [(0, s - n) for n, s in zip(x.shape, size)] + [(0, 0)] * (x.ndim - len(size)))
 
 
 def collate(items: Sequence[Sample]) -> Sample:
@@ -124,6 +122,66 @@ class BatchLoader:
         finally:
             for future in pending:
                 future.cancel()
+
+
+def to_device(batch: Dict[str, Any], device) -> Dict[str, Any]:
+    """The array entries of a loader batch as tensors on ``device``; string entries (``pid``) are dropped."""
+    import torch  # here, not at the top: the loader's worker processes import this module and need no torch
+
+    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items() if isinstance(v, np.ndarray)}
+
+
+def device_prefetch(batches: Iterable[Sample], device, depth: int = 2) -> Iterator[Dict[str, Any]]:
+    """The array entries of each batch as tensors on ``device``, ``depth`` batches copied ahead of the
+    one the caller takes (the JAX package's ``device_prefetch``); string entries (``pid``) are dropped.
+
+    On a CUDA device each batch is copied into a pinned host buffer and from there to the card on a
+    copy stream, so the copy overlaps the step that runs on the caller's stream; the caller's stream
+    waits for a batch's copy before it is handed out. The pinned buffers are a ring of ``depth + 1``
+    slots: a slot is refilled only after the event recorded behind its last copy has completed. On
+    another device each batch goes through :func:`to_device`.
+    """
+    import torch  # here, not at the top: the loader's worker processes import this module and need no torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in batches:
+            yield to_device(batch, device)
+        return
+    copy_stream = torch.cuda.Stream(device)
+    slots: List[Tuple[Dict[str, torch.Tensor], torch.cuda.Event]] = [
+        ({}, torch.cuda.Event()) for _ in range(depth + 1)
+    ]
+    ahead: Deque[Tuple[Dict[str, torch.Tensor], torch.cuda.Event]] = deque()
+
+    def hand_out():
+        tensors, done = ahead.popleft()
+        consumer = torch.cuda.current_stream(device)
+        consumer.wait_event(done)
+        for t in tensors.values():
+            t.record_stream(consumer)  # the copy stream's allocation is in use on the consumer's stream
+        return tensors
+
+    for n, batch in enumerate(batches):
+        pinned, done = slots[n % len(slots)]
+        done.synchronize()  # this slot's previous copy has left its buffers
+        tensors = {}
+        with torch.cuda.stream(copy_stream):
+            for key, value in batch.items():
+                if not isinstance(value, np.ndarray):
+                    continue
+                host = torch.from_numpy(np.ascontiguousarray(value))
+                buf = pinned.get(key)
+                if buf is None or buf.shape != host.shape or buf.dtype != host.dtype:
+                    buf = pinned[key] = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+                buf.copy_(host)
+                tensors[key] = buf.to(device, non_blocking=True)
+            done.record(copy_stream)
+        ahead.append((tensors, done))
+        if len(ahead) >= depth:
+            yield hand_out()
+    while ahead:
+        yield hand_out()
 
 
 def read_metadata(path: Union[str, Path]) -> Rows:
@@ -429,6 +487,47 @@ class KaggleVideoDataset(_RowsDataset):
                                                     video.dtype)])
         data[f"{self.view}_image"] = video[..., None]
         return data
+
+
+def find_view_file(pid_dir: Path, pid: str, view: str) -> Optional[Path]:
+    """A study's 4-D NIfTI of ``view``: ``<pid>_<view>_t.nii.gz`` (the bundled demos), ``<pid>_<view>_t.nii``,
+    ``<pid>_<view>.nii.gz`` (the UKB preprocessing) or ``<pid>_<view>.nii``, the first that exists; None if
+    none does."""
+    for name in (f"{pid}_{view}_t.nii.gz", f"{pid}_{view}_t.nii", f"{pid}_{view}.nii.gz", f"{pid}_{view}.nii"):
+        path = pid_dir / name
+        if path.exists():
+            return path
+    return None
+
+
+class UKBCineDataset(_RowsDataset):
+    """The pretraining studies ``pids`` under ``data_dir``, kept as ``rows`` (the JAX package's
+    ``UKBCineDataset``; reference mae/pretrain.py:88-154). Item ``i``: ``pid`` and per view of ``views`` one random frame of its 4-D cine,
+    (x, y, z, 1) for ``sax`` and (x, y, 1) for a ``lax_*`` view (its single slice), float32, read by a frame
+    seek; then the transform. The item's generator draws each view's frame in view order and then
+    drives the transform."""
+
+    def __init__(self, data_dir: Union[str, Path], pids: Sequence[str],
+                 views: Sequence[str] = ("sax", "lax_2c", "lax_3c", "lax_4c"), transform: Optional[Transform] = None,
+                 seed: int = 0) -> None:
+        super().__init__(data_dir, list(pids), transform, seed)
+        self.views = list(views)
+
+    def load(self, index: int, epoch: int = 0) -> Sample:
+        pid = self.rows[index]
+        pid_dir = self.data_dir / pid
+        rng = self._rng(index, epoch)
+        data: Sample = {"pid": pid}
+        for view in self.views:
+            path = find_view_file(pid_dir, pid, view)
+            if path is None:
+                raise FileNotFoundError(f"No 4D NIfTI for view {view} in {pid_dir}.")
+            t = int(rng.integers(0, load_nifti_header(path).shape[-1]))
+            frame, _ = load_nifti_frame(path, t)
+            if view != "sax":
+                frame = frame[:, :, 0]
+            data[view] = frame.astype(np.float32)[..., None]
+        return self.transform(data, rng) if self.transform else data
 
 
 def gaussian_heatmap(shape: Sequence[int], centers: np.ndarray, sigma: float = 3.0) -> np.ndarray:

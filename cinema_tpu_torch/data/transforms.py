@@ -1,5 +1,5 @@
-"""Host-side augmentation of the fine-tuning items (port of cinema_tpu/data/transforms.py:29-275, :323-366;
-the MONAI subset of the reference, cinema/segmentation/dataset.py:140-220).
+"""Host-side augmentation of the fine-tuning and pretraining items (port of cinema_tpu/data/transforms.py;
+the MONAI subset of the reference, cinema/segmentation/dataset.py:140-220 and mae/pretrain.py:157-200).
 
 - Arrays are channels-last numpy: an image (x, y[, z], ch), a label (x, y[, z]).
 - Every transform is a callable ``(data, rng) -> data`` that draws from the explicit
@@ -8,9 +8,6 @@ the MONAI subset of the reference, cinema/segmentation/dataset.py:140-220).
   augmentations.
 - A geometric transform applies the parameters it draws for an ``*_image`` key to the
   matching ``*_label`` key too (linear interpolation for the image, nearest for the label).
-
-``RandZoomd`` and the pretraining pipeline wait for the pretraining-on-NIfTI slice
-(ROADMAP.md, Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -255,6 +252,45 @@ class RandSpatialCropd:
         return data
 
 
+class RandZoomd:
+    """A random zoom that keeps the size (MONAI RandZoomd, keep_size=True): one zoom factor for every key,
+    each channel zoomed by ``ndimage.zoom``, then centre-cropped or zero-padded back to the input's size."""
+
+    def __init__(self, keys: Keys, prob: float, min_zoom: float = 0.9, max_zoom: float = 1.1,
+                 order: int = 1) -> None:
+        self.keys = _as_keys(keys)
+        self.prob = prob
+        self.min_zoom = min_zoom
+        self.max_zoom = max_zoom
+        self.order = order
+
+    def __call__(self, data: Data, rng: np.random.Generator) -> Data:
+        if rng.uniform() >= self.prob:
+            return data
+        zoom = rng.uniform(self.min_zoom, self.max_zoom)
+        for key in self.keys:
+            if key not in data:
+                continue
+            x = data[key].astype(np.float32)
+            nd = x.ndim - 1  # channels-last
+            zoomed = np.stack([ndimage.zoom(x[..., c], zoom, order=self.order) for c in range(x.shape[-1])],
+                              axis=-1)
+            out = np.zeros_like(x)
+            src, dst = [], []
+            for s, z in zip(x.shape[:nd], zoomed.shape[:nd]):
+                if z >= s:  # crop the centre; an odd excess leaves the extra voxel at the end
+                    start = (z - s) // 2
+                    src.append(slice(start, start + s))
+                    dst.append(slice(0, s))
+                else:  # pad around the centre; an odd deficit leaves the extra zero at the end
+                    start = (s - z) // 2
+                    src.append(slice(0, z))
+                    dst.append(slice(start, start + z))
+            out[tuple(dst) + (slice(None),)] = zoomed[tuple(src) + (slice(None),)]
+            data[key] = out
+        return data
+
+
 def get_segmentation_transforms(config) -> Tuple[Compose, Compose]:
     """The (train, val) pipelines of the fine-tuning tasks, per view of ``config.model.views``
     (reference segmentation/dataset.py:140-220).
@@ -287,3 +323,18 @@ def get_segmentation_transforms(config) -> Tuple[Compose, Compose]:
         train += [RandSpatialCropd((image, label), patch_size), SpatialPadd((image, label), patch_size)]
         val += [ScaleIntensityd(image), SpatialPadd((image, label), patch_size)]
     return Compose(train), Compose(val)
+
+
+def get_pretrain_transforms(config) -> Compose:
+    """The MAE pretraining pipeline (reference mae/pretrain.py:157-200): a random zoom of the ``sax`` frame
+    and one shared by the three ``lax_*`` frames, min-max scaling, and an end-pad up to the views' patch
+    sizes. A frame larger than its patch is padded by nothing and never cropped, as in the JAX package."""
+    scale = config.transform.scale_range
+    lax = ("lax_2c", "lax_3c", "lax_4c")
+    return Compose([
+        RandZoomd("sax", config.transform.prob, 1 - scale, 1 + scale),
+        RandZoomd(lax, config.transform.prob, 1 - scale, 1 + scale),
+        ScaleIntensityd(("sax", *lax)),
+        SpatialPadd("sax", tuple(config.data.sax.patch_size)),
+        SpatialPadd(lax, tuple(config.data.lax.patch_size)),
+    ])

@@ -1,6 +1,7 @@
-"""Model factories from config + finetuned loading (port of cinema_tpu/factory.py,
-the ConvUNetR, CineMA and ConvViT parts; reference cinema/segmentation/convunetr.py:164-210,
-487-521, cinema/mae/mae.py:231-282 and cinema/convvit.py:294-332, 558-592).
+"""Model factories from config + finetuned loading (port of cinema_tpu/factory.py: ConvUNetR,
+the UNet baseline, CineMA and ConvViT; reference cinema/segmentation/convunetr.py:164-210,
+487-521, segmentation/train.py:31-74, cinema/mae/mae.py:231-282 and cinema/convvit.py:294-332,
+558-592).
 
 Weights are float32 parameters on ``device``; ``dtype`` is the compute
 dtype of the activations (bfloat16 on the card).
@@ -21,6 +22,7 @@ from cinema_tpu_torch.convert import drop_frozen_pos_embeds, load_safetensors
 from cinema_tpu_torch.models.convunetr import ConvUNetR
 from cinema_tpu_torch.models.convvit import ConvViT
 from cinema_tpu_torch.models.mae import CineMA
+from cinema_tpu_torch.models.unet import UNet
 from cinema_tpu_torch.models.vit import get_vit_config
 from cinema_tpu_torch.ops.pos_embed import get_nd_sincos_pos_embed
 
@@ -90,14 +92,40 @@ def get_convunetr_model(
     return model.to(device).eval()
 
 
+def get_unet_model(
+    config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda"
+) -> UNet:
+    """Build the UNet baseline of one view from a segmentation config's ``model.unet`` section (reference
+    segmentation/train.py:55-69), in eval mode on ``device``; 3-D where the view's ``spacing`` has three
+    entries. Instance norm, as the JAX package builds it."""
+    device = resolve_device(device)
+    views = _views(config)
+    if len(views) > 1:
+        raise ValueError("UNet only supports single view.")
+    data = _view_data_config(config, views[0])
+    ndim = 3 if views[0] == "sax" else 2
+    m = config.model.unet
+    model = UNet(
+        n_dims=len(data.spacing),
+        in_chans=data.in_chans,
+        out_chans=config.model.out_chans,
+        patch_size=tuple(m.patch_size[:ndim]),
+        chans=tuple(m.chans),
+        scale_factor=tuple(m.scale_factor[:ndim]),
+        dropout=m.get("dropout", 0.0),
+        dtype=dtype,
+    )
+    return model.to(device).eval()
+
+
 def get_segmentation_model(
     config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda"
 ) -> nn.Module:
-    """The model ``config.model.name`` names (reference segmentation/train.py:31-74): ConvUNetR."""
+    """The model ``config.model.name`` names (reference segmentation/train.py:31-74): ConvUNetR or UNet."""
     if config.model.name == "convunetr":
         return get_convunetr_model(config, dtype=dtype, device=device)
     if config.model.name == "unet":
-        raise NotImplementedError("The UNet baseline is not ported yet (ROADMAP.md, Queue 1, item 11).")
+        return get_unet_model(config, dtype=dtype, device=device)
     raise ValueError(f"Invalid model name {config.model.name}.")
 
 
@@ -223,11 +251,12 @@ def init_weights(model: nn.Module, seed: int = 0) -> nn.Module:
     return model
 
 
-def expected_frozen_pos_embeds(model: Union[ConvUNetR, ConvViT]) -> Dict[str, np.ndarray]:
-    """The checkpoint's frozen ``enc_down_dict.{view}.pos_embed`` tables, recomputed."""
+def expected_frozen_pos_embeds(model: nn.Module) -> Dict[str, np.ndarray]:
+    """The checkpoint's frozen ``enc_down_dict.{view}.pos_embed`` tables, recomputed; none for a model
+    without a ViT encoder (the UNet and ResNet baselines)."""
     return {
         f"enc_down_dict.{view}.pos_embed": get_nd_sincos_pos_embed(enc.embed_dim, enc.grid_size)[None]
-        for view, enc in model.enc_down_dict.items()
+        for view, enc in getattr(model, "enc_down_dict", {}).items()
     }
 
 

@@ -70,11 +70,35 @@ class ConvLayerNorm(LayerNorm):
         return super().forward(x.movedim(1, -1)).movedim(-1, 1)
 
 
-def get_conv_norm(norm: str, n_chans: int, eps: float = 1e-6) -> nn.Module:
-    """Norm of the conv blocks (reference conv.py:190-209); the port has 'layer' only."""
-    if norm != "layer":
-        raise NotImplementedError(f"Conv norm {norm!r} is not ported; only 'layer' is.")
-    return ConvLayerNorm(n_chans, eps=eps)
+class InstanceNorm(nn.Module):
+    """Instance norm over the spatial axes of (batch, chans, *spatial), without affine parameters (torch's
+    default affine=False), float32 statistics, output in the input's dtype."""
+
+    def __init__(self, eps: float = 1e-6) -> None:
+        super().__init__()
+        self.eps = eps
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.instance_norm(x.float(), eps=self.eps).to(x.dtype)
+
+
+class GroupNorm(nn.GroupNorm):
+    """Group norm of (batch, chans, *spatial) with float32 statistics, output in the input's dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps).to(x.dtype)
+
+
+def get_conv_norm(norm: str, n_chans: int, eps: float = 1e-6, n_groups: int = 32) -> nn.Module:
+    """Norm of the conv blocks (reference conv.py:190-209): 'instance', 'layer' or 'group' (``n_groups``
+    clamped to the channel count)."""
+    if norm == "instance":
+        return InstanceNorm(eps=eps)
+    if norm == "layer":
+        return ConvLayerNorm(n_chans, eps=eps)
+    if norm == "group":
+        return GroupNorm(min(n_groups, n_chans), n_chans, eps=eps)
+    raise ValueError(f"Invalid norm type, got {norm}, must be 'instance' or 'layer' or 'group'.")
 
 
 class Dense(nn.Linear):
@@ -169,12 +193,13 @@ class ConvMlp(nn.Module):
 
 
 class ConvNormActBlock(nn.Module):
-    """conv -> norm -> GELU (reference conv.py:212-273); VALID padding."""
+    """conv -> norm -> GELU (reference conv.py:212-273); ``padding`` as torch's conv takes it (default 0,
+    flax's VALID; 'same' is flax's SAME at stride 1)."""
 
     def __init__(self, nd: int, in_chans: int, out_chans: int, kernel_size: KernelSize,
-                 stride: KernelSize = 1, norm: str = "layer") -> None:
+                 stride: KernelSize = 1, norm: str = "layer", padding: Union[str, int] = 0) -> None:
         super().__init__()
-        self.conv = Conv(nd, in_chans, out_chans, kernel_size, stride=stride)
+        self.conv = Conv(nd, in_chans, out_chans, kernel_size, stride=stride, padding=padding)
         self.norm = get_conv_norm(norm, out_chans)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -10,20 +10,47 @@ import torch
 from torch import nn
 
 from cinema_tpu_torch.config import Config
-from cinema_tpu_torch.factory import get_convvit_model
+from cinema_tpu_torch.factory import get_convvit_model, resolve_device
 from cinema_tpu_torch.losses import classification_loss
 from cinema_tpu_torch.metrics import classification_metrics
+from cinema_tpu_torch.models.resnet import ResNet
 from cinema_tpu_torch.ops.window import get_patch_grid, patch_grid_sample
 
 
 def get_classification_model(
     config: Config, dtype: torch.dtype = torch.float32, device: Union[str, torch.device] = "cuda"
 ) -> nn.Module:
-    """The model ``config.model.name`` names (reference classification/train.py:25-81): ConvViT."""
+    """The model ``config.model.name`` names (reference classification/train.py:25-81): ConvViT or ResNet,
+    in eval mode on ``device``.
+
+    The ResNet is built as the JAX package builds it, from ``model.resnet.layers`` and
+    ``layer_inplanes`` alone (basic blocks whatever ``depth`` says); it is 3-D for ``sax`` and 2-D for a
+    ``lax_*`` view, and takes ``model.n_frames`` frames of ``in_chans`` channels stacked as channels, the
+    channels of the task's items. Its head has one output per class of ``data.class_column``, one for
+    ``data.regression_column``, else ``model.out_chans``."""
     if config.model.name == "convvit":
         return get_convvit_model(config, dtype=dtype, device=device)
     if config.model.name == "resnet":
-        raise NotImplementedError("The ResNet baseline is not ported yet (ROADMAP.md, Queue 1, item 11).")
+        device = resolve_device(device)
+        views = [config.model.views] if isinstance(config.model.views, str) else list(config.model.views)
+        if len(views) > 1:
+            raise ValueError("ResNet only supports single view.")
+        if "class_column" in config.data:
+            out_chans = len(config.data[config.data.class_column])
+        elif "regression_column" in config.data:
+            out_chans = 1
+        else:
+            out_chans = config.model.out_chans
+        data = config.data.sax if views[0] == "sax" else config.data.lax
+        model = ResNet(
+            nd=3 if views[0] == "sax" else 2,
+            in_chans=config.model.get("n_frames", 1) * data.in_chans,
+            out_chans=out_chans,
+            layers=tuple(config.model.resnet.get("layers", (2, 2, 2, 2))),
+            layer_inplanes=tuple(config.model.resnet.layer_inplanes),
+            dtype=dtype,
+        )
+        return model.to(device).eval()
     raise ValueError(f"Invalid model name {config.model.name}.")
 
 

@@ -48,6 +48,7 @@ from cinema_tpu_torch.data import (
     LandmarkRegressionDataset,
     MYOPS2020Dataset,
     read_metadata,
+    to_device,
 )
 from cinema_tpu_torch.data.datasets import column_means, write_table
 from cinema_tpu_torch.data.transforms import get_segmentation_transforms
@@ -62,7 +63,6 @@ from cinema_tpu_torch.tasks.segmentation.kaggle import evaluate_kaggle
 from cinema_tpu_torch.tasks.segmentation.landmark import landmark_eval_dataloader
 from cinema_tpu_torch.tasks.segmentation.myops2020 import myops2020_segmentation_metrics
 from cinema_tpu_torch.tasks.segmentation.rescan_ef_eval import rescan_ef_eval
-from cinema_tpu_torch.train.loop import to_device
 
 Device = Union[str, torch.device]
 Row = Dict[str, Any]

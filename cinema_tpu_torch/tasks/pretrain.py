@@ -13,28 +13,32 @@ data. Per epoch the run directory receives a line in ``metrics.jsonl``, the
 checkpoint ``ckpt_{epoch}.pt`` and the model as ``cinema.safetensors``;
 ``train.ckpt_path=...`` resumes from a checkpoint.
 
-Data: ``data.dir`` holds one ``.npz`` per study with one array per view,
-``sax`` as (x, y, z, t) and the ``lax_*`` views as (x, y, t). Each epoch
-takes one seeded random frame of every study, min-max scales it to [0, 1]
-and end-pads or crops it to the view's patch size. Pretraining on NIfTI
-(frame seeks, ``UKBCineDataset``, ``RandZoomd`` and the pretraining
-transforms of the JAX package) and the manifest cache are not ported yet.
+Data: what the UKB preprocessing writes (cinema_tpu/data/preprocess/ukb_dicom.py): ``data.dir``
+holds one folder per study, ``<pid>/<pid>_<view>.nii.gz``, one 4-D cine per view of
+``model.views`` (uint8, one gzip member per frame). :func:`scan_manifest` lists the studies that
+hold every view and keeps the list in ``data.dir`` beside them; ``data.max_n_samples`` keeps its
+first studies. An item is one random frame of each view (``UKBCineDataset``, frame seeks), zoomed,
+min-max scaled and end-padded to the view's patch size (``get_pretrain_transforms``), as the JAX
+package loads it; ``train.n_workers_per_device`` workers load the items, in processes where
+``train.use_process_workers`` says so or, by default, on a host of more than four cores, and
+``device_prefetch`` copies two batches ahead of the step.
 """
 
 from __future__ import annotations
 
-import argparse
+import json
+import os
 import time
 from pathlib import Path
-from typing import Dict, List, Sequence, Union
+from typing import List, Union
 
-import numpy as np
 import torch
 
-from cinema_tpu_torch.config import PACKAGED, Config, apply_overrides, from_dict, load_config
-from cinema_tpu_torch.data import BatchLoader, fit_to_size
-from cinema_tpu_torch.data.transforms import scale_intensity
+from cinema_tpu_torch.config import Config
+from cinema_tpu_torch.data import BatchLoader, UKBCineDataset, device_prefetch, find_view_file
+from cinema_tpu_torch.data.transforms import get_pretrain_transforms
 from cinema_tpu_torch.factory import get_mae_model, init_weights, resolve_device
+from cinema_tpu_torch.tasks.cli import task_main
 from cinema_tpu_torch.train.checkpoint import (
     CheckpointRetention,
     load_checkpoint,
@@ -46,32 +50,42 @@ from cinema_tpu_torch.train.optim import build_optimizer, get_n_accum_steps
 from cinema_tpu_torch.train.state import TrainState, make_mae_train_step
 
 
-class NpzCineDataset:
-    """One ``.npz`` per study under ``data_dir``; an item is one frame per view,
-    {view: (*patch_size, 1) float32 in [0, 1]}."""
+def scan_manifest(data_dir: Path, views: List[str], rescan: bool = False) -> List[str]:
+    """The studies under ``data_dir`` that hold a 4-D NIfTI of every view, sorted, with the JAX package's
+    cache (reference pretrain.py:49-85).
 
-    def __init__(self, data_dir: Path, views: Sequence[str], sizes: Dict[str, Sequence[int]], seed: int = 0,
-                 max_n_samples: int = -1) -> None:
-        self.paths = sorted(Path(data_dir).glob("*.npz"))
-        if max_n_samples > 0:
-            self.paths = self.paths[:max_n_samples]
-        if not self.paths:
-            raise ValueError(f"No .npz studies found under {data_dir}.")
-        self.views, self.sizes, self.seed = list(views), sizes, seed
+    The list is kept in ``data_dir/manifest_pids_{sorted views}.json`` as ``{"pids", "n_dir_entries"}``,
+    the file the JAX package reads and writes. The cache is stale, and the folder scanned again, when its
+    first study no longer resolves, when the number of subdirectories of ``data_dir`` changed, when it is
+    the legacy list format or when it does not parse; ``rescan`` ignores it. A folder where the cache
+    cannot be written is scanned all the same.
+    """
+    cache_path = data_dir / f"manifest_pids_{'_'.join(sorted(views))}.json"
+    with os.scandir(data_dir) as it:  # the d_type of each entry: no stat() per study
+        n_dir_entries = sum(1 for e in it if e.is_dir())
+    if not rescan and cache_path.exists():
+        try:
+            with open(cache_path, encoding="utf-8") as f:
+                cached = json.load(f)
+        except (json.JSONDecodeError, OSError):
+            cached = None
+        pids = cached.get("pids") if isinstance(cached, dict) else None
+        cached_entries = cached.get("n_dir_entries", -1) if isinstance(cached, dict) else -1
+        if (pids and cached_entries == n_dir_entries
+                and find_view_file(data_dir / pids[0], pids[0], views[0]) is not None):
+            print(f"Loaded {len(pids)} studies from cache {cache_path}.", flush=True)
+            return pids
+        print(f"Manifest cache {cache_path} is stale, rescanning.", flush=True)
 
-    def __len__(self) -> int:
-        return len(self.paths)
-
-    def load(self, index: int, epoch: int) -> Dict[str, np.ndarray]:
-        rng = np.random.default_rng([self.seed, epoch, index])
-        item = {}
-        with np.load(self.paths[index]) as study:
-            n_frames = study[self.views[0]].shape[-1]
-            t = int(rng.integers(n_frames))  # the same frame for every view of the study
-            for view in self.views:
-                frame = scale_intensity(study[view][..., t])
-                item[view] = fit_to_size(frame, self.sizes[view])[..., None]
-        return item
+    pids = [d.name for d in sorted(data_dir.iterdir())
+            if d.is_dir() and all(find_view_file(d, d.name, v) is not None for v in views)]
+    if pids:
+        try:
+            with open(cache_path, "w", encoding="utf-8") as f:
+                json.dump({"pids": pids, "n_dir_entries": n_dir_entries}, f)
+        except OSError:
+            print(f"Could not write manifest cache {cache_path}.", flush=True)
+    return pids
 
 
 def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
@@ -79,16 +93,26 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
     device = resolve_device(device)
     views = list(config.model.views)
     if not config.data.get("dir"):
-        raise ValueError("config.data.dir is not set: it names the directory of .npz studies.")
+        raise ValueError("config.data.dir is not set: it names the directory of the UKB studies.")
+    data_dir = Path(config.data.dir).expanduser()
+    pids = scan_manifest(data_dir, views, rescan=bool(config.data.get("rescan", False)))
+    if config.data.get("max_n_samples", -1) > 0:
+        pids = pids[: config.data.max_n_samples]
+    if not pids:
+        raise ValueError(f"No studies with views {views} found under {data_dir}.")
     n_accum = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device, 1)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = init_weights(get_mae_model(config, dtype=dtype, device=device), seed=config.seed)
 
-    dataset = NpzCineDataset(
-        Path(config.data.dir).expanduser(), views, model.image_size_dict, seed=config.seed,
-        max_n_samples=config.data.get("max_n_samples", -1),
-    )
-    loader = BatchLoader(dataset, config.train.batch_size_per_device, seed=config.seed)
+    dataset = UKBCineDataset(data_dir, pids, views=views, transform=get_pretrain_transforms(config),
+                             seed=config.seed)
+    # a frame seek and a scipy zoom per view hold the interpreter for most of an item: worker processes
+    # scale with the cores where threads do not
+    use_processes = config.train.get("use_process_workers")
+    if use_processes is None:
+        use_processes = (os.cpu_count() or 1) > 4
+    loader = BatchLoader(dataset, config.train.batch_size_per_device, seed=config.seed, shuffle=True, drop_last=True,
+                         n_workers=config.train.get("n_workers_per_device", 8), processes=bool(use_processes))
     if len(loader) == 0:
         raise ValueError(f"{len(dataset)} studies do not fill one batch of {config.train.batch_size_per_device}.")
     steps_per_epoch = max(len(loader) // n_accum, 1)
@@ -120,38 +144,32 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
         start_epoch = state.step // len(loader)
         print(f"Resumed from {config.train.ckpt_path} at epoch {start_epoch}.", flush=True)
 
-    for epoch in range(start_epoch, config.train.n_epochs):
-        t0 = time.perf_counter()
-        losses, skipped = [], []
-        for batch in loader.epoch(epoch):
-            device_batch = {v: torch.from_numpy(x).to(device, non_blocking=True) for v, x in batch.items()}
-            state, metrics = step_fn(state, device_batch)
-            losses.append(metrics["loss"])
-            skipped.append(metrics["skipped_nan"])
-        # the epoch's one read from the device
-        epoch_loss = float(torch.nanmean(torch.stack(losses)))
-        n_skipped = int(torch.stack(skipped).sum())
-        dt = time.perf_counter() - t0
-        clips_per_sec = len(loader) * loader.batch_size / dt
-        metrics_logger.log({
-            "epoch": epoch, "loss": epoch_loss, "clips_per_sec_per_chip": clips_per_sec,
-            "n_samples": state.n_samples, "skipped_nan": n_skipped,
-        })
-        print(f"epoch {epoch}: loss={epoch_loss:.4f} {clips_per_sec:.1f} clips/s", flush=True)
-        path = save_checkpoint(out_dir, state, epoch)
-        save_params_safetensors(state.params, out_dir / "cinema.safetensors")
-        retention.add(path, epoch)
+    with loader:
+        for epoch in range(start_epoch, config.train.n_epochs):
+            t0 = time.perf_counter()
+            losses, skipped = [], []
+            for device_batch in device_prefetch(loader.epoch(epoch), device, depth=2):
+                state, metrics = step_fn(state, device_batch)
+                losses.append(metrics["loss"])
+                skipped.append(metrics["skipped_nan"])
+            # the epoch's one read from the device
+            epoch_loss = float(torch.nanmean(torch.stack(losses)))
+            n_skipped = int(torch.stack(skipped).sum())
+            dt = time.perf_counter() - t0
+            clips_per_sec = len(loader) * loader.batch_size / dt
+            metrics_logger.log({
+                "epoch": epoch, "loss": epoch_loss, "clips_per_sec_per_chip": clips_per_sec,
+                "n_samples": state.n_samples, "skipped_nan": n_skipped,
+            })
+            print(f"epoch {epoch}: loss={epoch_loss:.4f} {clips_per_sec:.1f} clips/s", flush=True)
+            path = save_checkpoint(out_dir, state, epoch)
+            save_params_safetensors(state.params, out_dir / "cinema.safetensors")
+            retention.add(path, epoch)
     return out_dir
 
 
 def main(argv: Union[List[str], None] = None) -> None:
-    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--config", type=Path, help="YAML config (default: the packaged CineMA-base config)")
-    parser.add_argument("--device", default="cuda")
-    parser.add_argument("overrides", nargs="*", help="dotted key=value overrides, e.g. data.dir=studies")
-    args = parser.parse_args(argv)
-    config = load_config(args.config) if args.config else from_dict(PACKAGED["mae"])
-    run(apply_overrides(config, args.overrides), device=args.device)
+    task_main("mae", run, __doc__, argv)
 
 
 if __name__ == "__main__":

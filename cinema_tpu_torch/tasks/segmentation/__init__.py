@@ -11,11 +11,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from cinema_tpu_torch.config import Config
+from cinema_tpu_torch.data import to_device
 from cinema_tpu_torch.inference import sliding_window_forward
 from cinema_tpu_torch.losses import segmentation_loss
 from cinema_tpu_torch.metrics import segmentation_metrics
 from cinema_tpu_torch.ops.window import crop_start
-from cinema_tpu_torch.train.loop import to_device
 
 MetricsFn = Callable[[torch.Tensor, torch.Tensor, Sequence[float]], Dict[str, np.ndarray]]
 

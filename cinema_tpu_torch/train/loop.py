@@ -11,14 +11,14 @@ from __future__ import annotations
 import json
 import time
 from pathlib import Path
-from typing import Any, Callable, Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from cinema_tpu_torch.config import Config, from_dict
-from cinema_tpu_torch.data import BatchLoader
+from cinema_tpu_torch.data import BatchLoader, device_prefetch
 from cinema_tpu_torch.factory import init_weights, resolve_device
 from cinema_tpu_torch.train.checkpoint import (
     CheckpointRetention,
@@ -144,11 +144,6 @@ def maybe_subset_dataset(
     return train, val
 
 
-def to_device(batch: Mapping[str, Any], device: torch.device) -> Dict[str, torch.Tensor]:
-    """The array entries of a loader batch as tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device, non_blocking=True) for k, v in batch.items() if hasattr(v, "dtype")}
-
-
 def run_train(
     config: Config,
     load_dataset: Callable[[Config], Tuple[Any, Any]],
@@ -247,8 +242,8 @@ def run_train(
     with train_loader, val_loader:
         for epoch in range(start_epoch, config.train.n_epochs):
             epoch_metrics: Dict[str, list] = {}
-            for batch in train_loader.epoch(epoch):
-                state, metrics = step_fn(state, to_device(batch, device))
+            for device_batch in device_prefetch(train_loader.epoch(epoch), device, depth=2):
+                state, metrics = step_fn(state, device_batch)
                 for k, v in metrics.items():
                     epoch_metrics.setdefault(k, []).append(v)
             # the epoch's one read from the device

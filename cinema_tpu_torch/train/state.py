@@ -4,7 +4,8 @@ One step: draw the masks, forward in the model's compute dtype, gradients,
 the fused AdamW update with its NaN guard. Nothing is read back to the
 host: the loss, the gradient norm and the skip flag are returned as tensors
 on the device, and a batch with a non-finite loss (reference train.py:138-140)
-leaves parameters, moments and update count as they were.
+leaves parameters, moments, update count and the running statistics of the
+model's BatchNorms as they were.
 """
 
 from __future__ import annotations
@@ -100,14 +101,27 @@ def make_supervised_train_step(
     mode; drop-path and dropout draw from a generator that is a function of
     (seed, state.step) alone. ``metrics`` are device tensors: the loss
     function's, ``grad_norm`` and ``skipped_nan``.
+
+    The model's buffers (the running statistics of the baselines' BatchNorms)
+    change in the forward pass, before the guard has seen the loss: they are
+    saved before it and put back where the batch is skipped, as the JAX
+    package's step keeps the old ``batch_stats`` under its guard.
     """
     params = _optimizer_params(model, tx)
+    buffers = list(model.buffers())
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         first = next(iter(batch.values()))
         model.train()
+        saved = [b.clone() for b in buffers]
         with sampling_from(mask_generator(seed, state.step, first.device)):
             loss, metrics = loss_fn(model, batch)
-        return _guarded_update(state, tx, params, loss, metrics, first.shape[0])
+        state, metrics = _guarded_update(state, tx, params, loss, metrics, first.shape[0])
+        if buffers:
+            skipped = metrics["skipped_nan"].bool()
+            with torch.no_grad():
+                for b, old in zip(buffers, saved):
+                    b.copy_(torch.where(skipped, old, b))
+        return state, metrics
 
     return step_fn

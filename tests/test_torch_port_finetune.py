@@ -29,6 +29,7 @@ from cinema_tpu_torch.config import PACKAGED, from_dict, load_config
 from cinema_tpu_torch.convert import load_safetensors, state_dict_from_jax
 from cinema_tpu_torch.data import save_nifti
 from cinema_tpu_torch.factory import from_finetuned, get_convvit_model
+from cinema_tpu_torch.models.resnet import ResNet
 from cinema_tpu_torch.tasks import classification, regression
 from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
 from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
@@ -388,8 +389,9 @@ def test_maybe_reduce_batch_size_and_task_model_dispatch():
     with pytest.raises(ValueError, match="too small"):
         loop.maybe_reduce_batch_size(config, 0)
     config.model.name = "resnet"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        classification.get_classification_model(config, device="cpu")
+    with torch.device("meta"):  # the full-width baseline, built without memory
+        resnet = classification.get_classification_model(config, device="meta")
+    assert isinstance(resnet, ResNet) and resnet.fc.out_features == 5 and resnet.conv1.in_channels == 2
     config.model.name = "vgg"
     with pytest.raises(ValueError, match="Invalid model name"):
         regression.get_regression_model(config, device="cpu")

@@ -313,3 +313,61 @@ def test_mnms2_classification_step_on_augmented_nifti_batches_agrees_with_the_cp
     batch = _augmented_batch("classification/mnms2", tmp_path, (32, 32, 4), ("sax_image", "label"))
     assert batch["sax_image"].shape == (2, 32, 32, 4, 2)
     assert _step_on_the_cpu_and_the_card(card, build, classification_loss_fn, batch) == (4, 2)
+
+
+@pytest.mark.gpu
+def test_device_prefetch_hands_out_the_loaders_batches_while_the_card_is_busy(card):
+    """Ten batches, the arrays' shape changing once, each handed out while the consumer's stream is kept
+    busy by a long kernel: every tensor on the card equals its batch bit for bit, although the three
+    pinned slots are refilled while earlier copies and steps are queued, and the strings are dropped."""
+    from cinema_tpu_torch.data import device_prefetch
+
+    rng = np.random.default_rng(13)
+    batches = [{"pid": [f"p{i}"], "sax": rng.random((4, 64, 64, 16, 1), np.float32) if i < 6 else
+                rng.random((2, 64, 64, 16, 1), np.float32), "label": np.arange(i, i + 4)} for i in range(10)]
+    got = []
+    for out in device_prefetch(iter(batches), card, depth=2):
+        assert set(out) == {"sax", "label"} and out["sax"].is_cuda
+        torch.cuda._sleep(2_000_000)  # a step of a few ms on the consumer's stream
+        got.append({k: (v * 1).cpu() for k, v in out.items()})  # read on the consumer's stream
+    torch.cuda.synchronize()
+    assert len(got) == len(batches)
+    for g, b in zip(got, batches):
+        assert torch.equal(g["sax"], torch.from_numpy(b["sax"])) and torch.equal(g["label"], torch.from_numpy(b["label"]))
+
+
+@pytest.mark.gpu
+def test_a_nan_batch_leaves_the_resnet_running_statistics_on_the_card(card):
+    """A small 3-D ResNet on the card: an f32 step agrees with the CPU's (loss, gradient norm, running
+    statistics), and a NaN batch then leaves parameters, moments and running statistics bit-identical."""
+    from cinema_tpu_torch.factory import init_weights
+    from cinema_tpu_torch.models.resnet import ResNet
+    from cinema_tpu_torch.tasks.classification import classification_loss_fn
+    from cinema_tpu_torch.train.optim import build_optimizer
+    from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
+
+    rng = np.random.default_rng(14)
+    batch = {"sax_image": torch.from_numpy(rng.random((4, 32, 32, 8, 2), np.float32)),
+             "label": torch.from_numpy(rng.integers(0, 5, size=4))}
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for device in (torch.device("cpu"), card):
+            model = init_weights(ResNet(3, 2, 5, layers=(1, 1), layer_inplanes=(8, 16)), seed=3).to(device)
+            tx = build_optimizer(dict(model.named_parameters()), lr=1e-3, warmup_steps=0)
+            step_fn = make_supervised_train_step(model, tx, classification_loss_fn)
+            state, metrics = step_fn(TrainState.create(model, tx), {k: v.to(device) for k, v in batch.items()})
+            runs.append((float(metrics["loss"]), float(metrics["grad_norm"]),
+                         {k: v.cpu() for k, v in model.state_dict().items() if "running" in k}))
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    np.testing.assert_allclose(runs[1][:2], runs[0][:2], rtol=1e-4)
+    for key, want in runs[0][2].items():
+        torch.testing.assert_close(runs[1][2][key], want, rtol=1e-5, atol=1e-6, msg=key)
+    snapshot = [t.clone() for t in (*model.state_dict().values(), *state.opt_state.mu, *state.opt_state.nu)]
+    bad = {"sax_image": torch.full_like(batch["sax_image"], float("nan")).to(card), "label": batch["label"].to(card)}
+    state, metrics = step_fn(state, bad)
+    assert float(metrics["skipped_nan"]) == 1.0
+    assert all(torch.equal(a, b) for a, b in zip(snapshot, (*model.state_dict().values(), *state.opt_state.mu,
+                                                            *state.opt_state.nu)))

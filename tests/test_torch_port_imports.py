@@ -63,6 +63,9 @@ CINE_MODULES = {"cinema_tpu_torch.tasks.evaluate",
                 *(f"cinema_tpu_torch.tasks.segmentation.{name}"
                   for name in ("emidec", "myops2020", "rescan", "kaggle", "rescan_ef_eval"))}
 
+# and every module of the baselines slice: the UNet and the ResNet
+BASELINE_MODULES = {"cinema_tpu_torch.models.unet", "cinema_tpu_torch.models.resnet"}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -70,9 +73,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 52, proc.stdout
+    assert int(n_modules) >= 54, proc.stdout
     assert bad.strip() == "[]", proc.stdout
-    wanted = PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES | CINE_MODULES
+    wanted = (PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
+              | CINE_MODULES | BASELINE_MODULES)
     assert wanted <= set(names.split()), proc.stdout
 
 
@@ -236,3 +240,16 @@ def test_chip_smoke_fails_without_a_card():
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+@pytest.mark.parametrize("task,name", [("segmentation/acdc", "unet"), ("classification/acdc", "resnet"),
+                                       ("regression/acdc", "resnet")])
+def test_baseline_factories_default_to_the_card(task, name):
+    _no_card()
+    from cinema_tpu_torch.tasks.classification import get_classification_model
+
+    config = from_dict(PACKAGED[task])
+    config.model.name = name
+    build = factory.get_segmentation_model if name == "unet" else get_classification_model
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build(config)

@@ -1,7 +1,7 @@
 """The pretraining slice as a whole: MAE train steps of the port against the
 JAX package from identical parameters, batches and masks; checkpoint resume;
 the safetensors export read back by the JAX bridge; the task entry point on
-synthetic studies.
+synthetic UKB studies as the UKB preprocessing writes them.
 
 The JAX side of a step is the body of ``cinema_tpu.train.state.make_mae_train_step``
 (loss and gradients of ``CineMA.apply``, then ``update_with_guard`` of the fused
@@ -36,6 +36,7 @@ from cinema_tpu_torch.train.loop import MetricsLogger
 from cinema_tpu_torch.train.optim import build_optimizer
 from cinema_tpu_torch.train.state import TrainState, make_mae_train_step, mask_generator
 from test_torch_port_masking import port_mask
+from test_torch_port_pretrain_nifti import FIT_LAX, FIT_SAX, write_ukb_tree
 
 FIXTURE = next((Path(__file__).parent / "fixtures" / "example_ckpts").glob("mae-*"))
 OPT = dict(lr=1e-3, min_lr=1e-6, warmup_steps=2, max_n_steps=10, weight_decay=0.05, clip_grad=5.0)
@@ -199,19 +200,14 @@ def test_exported_safetensors_load_through_the_jax_bridge_with_the_same_loss(jax
     np.testing.assert_allclose(float(got), float(want), rtol=2e-4)
 
 
-def _write_studies(data_dir, n):
-    rng = np.random.default_rng(0)
-    data_dir.mkdir()
-    for i in range(n):
-        np.savez(data_dir / f"study_{i}.npz", sax=rng.random((14, 18, 4, 3)).astype(np.float32) * 100,
-                 lax_2c=rng.random((32, 30, 3)).astype(np.float32) * 100)
-
-
-OVERRIDES = ["train.batch_size=4", "train.batch_size_per_device=2", "train.n_warmup_epochs=1", "train.max_n_ckpts=1"]
+OVERRIDES = ["train.batch_size=4", "train.batch_size_per_device=2", "train.n_warmup_epochs=1", "train.max_n_ckpts=1",
+             "train.n_workers_per_device=2", "train.use_process_workers=false"]
 
 
 def test_pretrain_run_takes_its_steps_writes_its_files_and_resumes(tmp_path):
-    _write_studies(tmp_path / "studies", 5)
+    # five studies as the UKB preprocessing writes them, one without lax_2c: four complete, two batches of two
+    pids = write_ukb_tree(tmp_path / "studies", 5, views=("sax", "lax_2c"), sax_sizes=FIT_SAX, lax_sizes=FIT_LAX)
+    (tmp_path / "studies" / pids[2] / f"{pids[2]}_lax_2c.nii.gz").unlink()
     argv = ["--config", str(FIXTURE / "mae.yaml"), "--device", "cpu", f"data.dir={tmp_path / 'studies'}",
             f"logging.dir={tmp_path / 'runs'}", *OVERRIDES]
     pretrain.main([*argv, "train.n_epochs=2"])
@@ -224,12 +220,16 @@ def test_pretrain_run_takes_its_steps_writes_its_files_and_resumes(tmp_path):
     exported = load_safetensors(run_dir / "cinema.safetensors")
     start = get_mae_model(load_config(FIXTURE / "mae.yaml"), device="cpu")
     assert set(exported) == set(start.state_dict())
+    cache = tmp_path / "studies" / "manifest_pids_lax_2c_sax.json"
+    assert json.loads(cache.read_text())["pids"] == [p for p in pids if p != pids[2]]
 
-    # resume: one more epoch from the checkpoint, into a second run directory
-    pretrain.main([*argv, "train.n_epochs=3", f"train.ckpt_path={run_dir / 'ckpt_1.pt'}", f"logging.dir={tmp_path / 'resumed'}"])
+    # resume: one more epoch from the checkpoint, into a second run directory, the studies listed by the cache
+    # and loaded by two worker processes
+    pretrain.main([*argv, "train.n_epochs=3", f"train.ckpt_path={run_dir / 'ckpt_1.pt'}",
+                   f"logging.dir={tmp_path / 'resumed'}", "train.use_process_workers=true"])
     (resumed,) = (tmp_path / "resumed").iterdir()
     record = [json.loads(line) for line in (resumed / "metrics.jsonl").read_text().splitlines()]
-    assert [r["epoch"] for r in record] == [2] and record[0]["n_samples"] == 12
+    assert [r["epoch"] for r in record] == [2] and record[0]["n_samples"] == 12 and np.isfinite(record[0]["loss"])
     assert any(not np.array_equal(exported[k], v) for k, v in load_safetensors(resumed / "cinema.safetensors").items())
 
 
@@ -239,34 +239,18 @@ def test_pretrain_run_needs_data(tmp_path):
         pretrain.run(config, device="cpu")
     (tmp_path / "empty").mkdir()
     config.data.dir = str(tmp_path / "empty")
-    with pytest.raises(ValueError, match="No .npz"):
+    with pytest.raises(ValueError, match="No studies with views"):
         pretrain.run(config, device="cpu")
-
-
-def test_dataset_frames_are_seeded_scaled_and_fitted(tmp_path):
-    _write_studies(tmp_path / "studies", 3)
-    sizes = {"sax": (16, 16, 4), "lax_2c": (32, 32)}
-    data = pretrain.NpzCineDataset(tmp_path / "studies", ["sax", "lax_2c"], sizes, seed=1)
-    item = data.load(1, epoch=0)
-    assert item["sax"].shape == (16, 16, 4, 1) and item["lax_2c"].shape == (32, 32, 1)
-    assert item["sax"].dtype == np.float32 and 0.0 <= item["sax"].min() and 0.9 < item["sax"].max() <= 1.0
-    assert not item["sax"][14:].any() and not item["lax_2c"][:, 30:].any()  # end-padded; 18 -> 16 is cropped
-    np.testing.assert_array_equal(item["sax"], data.load(1, epoch=0)["sax"])
-    frames = {data.load(1, epoch=e)["sax"].tobytes() for e in range(8)}
-    assert len(frames) > 1  # another epoch may take another frame
-    loader = pretrain.BatchLoader(data, 2, seed=1)
-    batches = list(loader.epoch(0))
-    assert len(loader) == len(batches) == 1 and batches[0]["sax"].shape == (2, 16, 16, 4, 1)
-    np.testing.assert_array_equal(batches[0]["sax"], next(iter(loader.epoch(0)))["sax"])
-
-
-@pytest.mark.parametrize("shape,size,want", [((5, 7), (4, 9), (4, 9)), ((5, 7, 3), (6, 6), (6, 6, 3))])
-def test_fit_to_size(shape, size, want):
-    x = np.arange(np.prod(shape), dtype=np.float32).reshape(shape)
-    out = pretrain.fit_to_size(x, size)
-    assert out.shape == want
-    common = tuple(slice(0, min(a, b)) for a, b in zip(shape, size))
-    np.testing.assert_array_equal(out[common], x[common])
+    # an .npz study of the port's former format is no study
+    np.savez(tmp_path / "empty" / "study_0.npz", sax=np.zeros((16, 16, 4, 2)), lax_2c=np.zeros((32, 32, 2)))
+    with pytest.raises(ValueError, match="No studies with views"):
+        pretrain.run(config, device="cpu")
+    # max_n_samples keeps a prefix of the manifest: one study does not fill a batch of two
+    write_ukb_tree(tmp_path / "few", 3, views=("sax", "lax_2c"))
+    config.data.update(dir=str(tmp_path / "few"), max_n_samples=1)
+    config.train.batch_size_per_device = 2
+    with pytest.raises(ValueError, match="1 studies do not fill one batch of 2"):
+        pretrain.run(config, device="cpu")
 
 
 def test_checkpoint_retention_and_latest(tmp_path):

@@ -33,6 +33,7 @@ from cinema_tpu_torch.convert import load_safetensors, state_dict_from_jax
 from cinema_tpu_torch.data import EDESSegmentationDataset, load_nifti, read_metadata, save_nifti
 from cinema_tpu_torch.data.transforms import get_segmentation_transforms
 from cinema_tpu_torch.models.convunetr import ConvUNetR as PortConvUNetR
+from cinema_tpu_torch.models.unet import UNet
 from cinema_tpu_torch.tasks import segmentation
 from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
 from cinema_tpu_torch.tasks.segmentation import acdc as seg_acdc
@@ -360,8 +361,7 @@ def test_convunetr_factory_honours_grad_ckpt_with_the_same_gradients():
     served = factory.from_finetuned("convunetr", seg_sax / "seg_sax.safetensors", seg_sax / "seg_sax.yaml", device="cpu")
     assert not served.encoder.remat  # the fixture's config sets grad_ckpt: serving recomputes nothing
     config.model.name = "unet"
-    with pytest.raises(NotImplementedError, match="item 11"):
-        factory.get_segmentation_model(config, device="cpu")
+    assert isinstance(factory.get_segmentation_model(config, device="cpu"), UNet)
     config.model.name = "vgg"
     with pytest.raises(ValueError, match="Invalid model name"):
         factory.get_segmentation_model(config, device="cpu")
