@@ -9,7 +9,10 @@ paths against its plain PyTorch version on the card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
-   (one process per source, all at once);
+   (one process per source, all at once), prints ptxas's registers and
+   spills, counts the TF32 tensor-core instructions of the f32 forward in
+   the built code, and prints what one TF32 product does with the low 13
+   mantissa bits of an f32 operand;
 3. kernels: the packed and the per-head attention forward and backward
    kernels against their plain versions at the paths' shapes (the landmark
    paths' 257 tokens, EMIDEC's 289 and MyoPS2020's 577 among them) and at
@@ -19,12 +22,20 @@ paths against its plain PyTorch version on the card:
    one's time per call, its device time alone (launches back to back,
    enqueued while the device sleeps, so the host's share is hidden), the
    plain version's, one PyTorch library call's (a yardstick only; per call
-   and device alone) and the card's lower bound;
+   and device alone) and the card's lower bound (f32 forward: three TF32
+   passes on the tensor cores, and ``bound_simt_ms``, one f32 pass on the
+   CUDA cores);
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
    serving run are checked, and one chunk's f32 logits through the kernel
-   are held against the plain attention path;
+   are held against the plain attention path; the JAX package's
+   ``configs/segmentation/acdc.yaml``, read by the port's YAML reader, must
+   equal the packaged config, and ``python -m cinema_tpu_torch.serve
+   --config`` with it serves 8 frames in a process of its own with the same
+   weights (its labels against this process's); ``load_run`` rebuilds a run
+   folder whose ``config.yaml`` the JAX package's writer left (a test
+   fixture);
 5. training: CineMA-base from the packaged MAE config with seeded random
    weights, bf16, four views, batch 16, on 32 seeded synthetic studies
    written as the UKB preprocessing writes them (``<pid>/<pid>_<view>.nii.gz``,
@@ -111,7 +122,11 @@ paths against its plain PyTorch version on the card:
    ``tasks.evaluate.main`` (float32, as in the JAX package, through the
    kernel: every call's dtype noted) on the EMIDEC, MyoPS2020 and Rescan
    run folders (the Rescan one on a labelled split and on test_retest_100)
-   and on an ED/ES run folder of the packaged ACDC model;
+   and on an ED/ES run folder of the packaged ACDC model with a JAX-style
+   ``config.yaml``. Each is called with torch's default TF32 flags (this
+   script turns TF32 off elsewhere): every attention call must run with
+   TF32 off for cuBLAS and cuDNN, set by the entry point, and the flags
+   must be torch's defaults again after it;
 11. baselines: the UNet (``PACKAGED["segmentation/acdc"]`` with
    ``model.name=unet``: chans 32-512, instance norm, 192x192x16) and the
    ResNet (``classification/acdc`` and ``regression/acdc`` with
@@ -156,9 +171,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit)
+# H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W power limit): bf16 and TF32 on the tensor cores,
+# f32 on the CUDA cores
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
+# the f32 forward runs its products as three TF32 passes on the tensor cores (split TF32), so its bound is three
+# passes at the TF32 peak; the f32 backward still runs on the CUDA cores and keeps the f32 peak
+F32_FWD_PASSES = 3
 
 # kernel vs plain version, largest abs error on the output:
 # - f32: both sum in f32, in another order; exp2 against exp (a few ulp)
@@ -261,10 +281,20 @@ def timings(row: dict, kernel, plain, library, bound: tuple[float, str]) -> None
     row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
 
 
-def attention_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype) -> tuple[float, str]:
+def fwd_flop_s(flop: float, dtype: torch.dtype, simt: bool = False) -> float:
+    """Seconds of the forward's ``flop`` at the card's peak: bf16 on the tensor cores; f32 as the kernel's three
+    TF32 passes on the tensor cores, or with ``simt`` as one f32 pass on the CUDA cores (the kernel's
+    earlier design, kept as ``bound_simt_ms``)."""
+    if dtype == torch.float32 and not simt:
+        return F32_FWD_PASSES * flop / PEAK_TF32
+    return flop / PEAK_FLOPS[dtype]
+
+
+def attention_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype,
+                       simt: bool = False) -> tuple[float, str]:
     """Least time on an H100 for packed attention: 4*B*Tq*Tk*E flop (q.k^T and
-    P.v) against q, k, v read once and the output written once."""
-    flop_s = 4 * batch * n_q * n_k * embed / PEAK_FLOPS[dtype]
+    P.v, see fwd_flop_s) against q, k, v read once and the output written once."""
+    flop_s = fwd_flop_s(4 * batch * n_q * n_k * embed, dtype, simt)
     byte_s = (2 * batch * n_q * embed + 2 * batch * n_k * embed) * torch.finfo(dtype).bits / 8 / PEAK_BYTES
     return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
 
@@ -301,6 +331,8 @@ def check_attention(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_scale=
                 lambda: fa.flash_attention_packed_plain(q, k, v, n_heads),
                 lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
                 attention_bound_ms(batch, n_q, n_k, embed, dtype))
+        if dtype == torch.float32:
+            row["bound_simt_ms"] = attention_bound_ms(batch, n_q, n_k, embed, dtype, simt=True)[0]
     print("attention", json.dumps(row), flush=True)
     check(err <= tol, f"kernel disagrees with the plain version at {row}")
     check(lse_err <= LSE_ATOL, f"saved log-sum-exp disagrees with the plain one at {row}")
@@ -451,11 +483,12 @@ def _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout):
     return q, k, v
 
 
-def heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products: int) -> tuple[float, str]:
+def heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products: int, simt: bool = False) -> tuple[float, str]:
     """Least time on an H100 for per-head attention: ``products`` matrix products of 2*B*Tq*Tk*H*D flop
-    (2 forward, 5 backward) against each operand read once and each result written once
-    (forward q, k, v, out; backward also g, dq, dk, dv)."""
-    flop_s = products * 2 * batch * n_q * n_k * heads * d / PEAK_FLOPS[dtype]
+    (2 forward, see fwd_flop_s; 5 backward, f32 on the CUDA cores) against each operand read once and each
+    result written once (forward q, k, v, out; backward also g, dq, dk, dv)."""
+    flop = products * 2 * batch * n_q * n_k * heads * d
+    flop_s = fwd_flop_s(flop, dtype, simt) if products == 2 else flop / PEAK_FLOPS[dtype]
     n_tensors = 2 if products == 2 else 4  # tensors of q's size, and as many of k's size
     byte_s = n_tensors * batch * (n_q + n_k) * heads * d * torch.finfo(dtype).bits / 8 / PEAK_BYTES
     return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
@@ -485,6 +518,8 @@ def check_heads(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layou
         timings(row, lambda: fa.flash_attention(q, k, v), lambda: fa.flash_attention_plain(q, k, v),
                 lambda: torch.nn.functional.scaled_dot_product_attention(qh, kh, vh),
                 heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=2))
+        if dtype == torch.float32:
+            row["bound_simt_ms"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=2, simt=True)[0]
     print("heads_attention", json.dumps(row), flush=True)
     check(err <= tol, f"per-head kernel disagrees with the plain version at {row}")
     check(lse_err <= LSE_ATOL, f"per-head saved log-sum-exp disagrees with the plain one at {row}")
@@ -581,6 +616,55 @@ def check_kv_gradient(gen) -> dict:
     return row
 
 
+ROOT = Path(__file__).resolve().parent
+# the JAX package's config of the serving model: a data file, read by the port's YAML reader
+ACDC_YAML = ROOT / "cinema_tpu" / "configs" / "segmentation" / "acdc.yaml"
+# a run folder's config.yaml as the JAX package's writer (yaml.safe_dump) leaves it, of a tiny ConvUNetR
+SEG_SAX_FIXTURE = ROOT / "tests" / "fixtures" / "example_ckpts" / "seg_sax-0be5929fde2c"
+
+
+def serve_from_yaml(model, rng: torch.Generator, smi: str) -> dict:
+    """``python -m cinema_tpu_torch.serve --config`` with the JAX package's acdc.yaml, in a process of its own on
+    the card, with ``model``'s weights: its labels of a few frames against this process's ``segment_cine``. And
+    ``load_run`` on a run folder of the tiny fixture as the JAX package's writer left it (config.yaml)."""
+    from cinema_tpu_torch.config import PACKAGED, load_config
+    from cinema_tpu_torch.convert import save_safetensors
+    from cinema_tpu_torch.serve import segment_cine
+    from cinema_tpu_torch.tasks import evaluate
+
+    check(load_config(ACDC_YAML) == PACKAGED["segmentation/acdc"], f"{ACDC_YAML} reads as another config")
+    x, y, z = model.image_size_dict["sax"]
+    video = (torch.rand((x, y, z, 8), generator=rng) * 1000).numpy()
+    with tempfile.TemporaryDirectory() as d:
+        d = Path(d)
+        save_safetensors(d / "model.safetensors", {k: v.float().cpu().numpy() for k, v in model.state_dict().items()})
+        np.save(d / "video.npy", video)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "cinema_tpu_torch.serve", "--config", str(ACDC_YAML), "--model",
+                               str(d / "model.safetensors"), "--video", str(d / "video.npy"), "--out",
+                               str(d / "labels.npy"), "--device", "cuda"], cwd=ROOT, capture_output=True, text=True,
+                              timeout=600)
+        seconds = time.perf_counter() - t0
+        check(proc.returncode == 0, f"serve --config exited {proc.returncode}: {proc.stderr[-3000:]}")
+        labels = np.load(d / "labels.npy")
+        check(labels.shape == video.shape and labels.dtype == np.uint8, f"served labels {labels.shape} {labels.dtype}")
+        agree = float((labels == segment_cine(model, video)).mean())
+        # the same bf16 weights and kernels in two processes; cuDNN may pick other convolution algorithms there
+        check(agree >= 0.999, f"serve --config labels agree with this process's on {agree:.6f} of the voxels")
+
+        run = d / "jax_run"
+        run.mkdir()
+        (run / "config.yaml").write_bytes(next(SEG_SAX_FIXTURE.glob("*.yaml")).read_bytes())
+        (run / "model_0.safetensors").write_bytes(next(SEG_SAX_FIXTURE.glob("*.safetensors")).read_bytes())
+        config, tiny = evaluate.load_run(run, device="cuda")
+        check(config.model.convunetr.size == "tiny" and next(tiny.parameters()).is_cuda,
+              "load_run of a JAX-written config.yaml")
+    out = {"frames": video.shape[-1], "seconds": seconds, "label_agreement": agree,
+           "load_run_jax_config": {"size": config.model.convunetr.size, "parameters": sum(p.numel() for p in tiny.parameters())}}
+    print("serve_yaml", json.dumps(out), f"on {smi}", flush=True)
+    return out
+
+
 def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> int:
     """ConvUNetR-base serving at full width; returns the forward launches of the serving run."""
     from cinema_tpu_torch.config import PACKAGED, from_dict
@@ -666,6 +750,7 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
             report["profile"] = profile_call(
                 "profile", lambda: model.predict_labels({"sax": frames.to(torch.bfloat16)}), smi
             )
+    report["serve_yaml"] = serve_from_yaml(model, rng, smi)
     return serve_launches
 
 
@@ -2140,18 +2225,45 @@ def write_kaggle_studies(root: Path, n: int, seed: int) -> None:
 
 
 @contextlib.contextmanager
-def attention_dtypes(dtypes: list):
-    """Inside the block the models' packed attention notes the dtype of each call's q in ``dtypes``."""
+def attention_dtypes(dtypes: list, flags: list | None = None):
+    """Inside the block the models' packed attention notes the dtype of each call's q in ``dtypes`` and, where
+    ``flags`` is given, the TF32 flags it ran under there (``precision_flags``)."""
     from cinema_tpu_torch.models import vit
 
     inner = vit.flash_attention_packed_kv
 
     def noting(q, kv, n_heads):
         dtypes.append(q.dtype)
+        if flags is not None:
+            flags.append(precision_flags())
         return inner(q, kv, n_heads)
 
     with swapped(vit, "flash_attention_packed_kv", noting):
         yield
+
+
+# (float32 matmul precision, cuDNN TF32): torch's defaults (cuBLAS in full f32, cuDNN convolutions in TF32) and
+# the float32 evaluation's (TF32 off for both, set by its entry point)
+TORCH_DEFAULT_FLAGS = ("highest", True)
+TF32_OFF = ("highest", False)
+
+
+def precision_flags() -> tuple:
+    return torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+
+
+@contextlib.contextmanager
+def torch_default_precision():
+    """torch's default TF32 flags inside the block, as a user's process has them (this script turns TF32 off
+    for its f32 comparisons); this script's flags are restored after it."""
+    saved = precision_flags()
+    torch.set_float32_matmul_precision(TORCH_DEFAULT_FLAGS[0])
+    torch.backends.cudnn.allow_tf32 = TORCH_DEFAULT_FLAGS[1]
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def cine_phase(report: dict, smi: str, profile: bool) -> dict:
@@ -2201,23 +2313,32 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
     def cinema_eval(label: str, folder: Path, split: str, expected: int, tables: tuple, key: str) -> dict:
         """``tasks.evaluate.main`` on a run folder: float32, as in the JAX package, through the kernel, ``expected``
         launches; it must write ``tables`` to ``<folder>/<data>_eval`` (data: the run's dataset, the label's first
-        word) and a finite ``key`` mean."""
+        word) and a finite ``key`` mean. It is called with torch's default TF32 flags, as a user's process has
+        them: every attention call must run with TF32 off, set by the entry point, and the flags must be torch's
+        defaults again after the call."""
         dtypes: list = []
+        flags: list = []
         reset()
         t0 = time.perf_counter()
-        with attention_dtypes(dtypes):
+        with torch_default_precision(), attention_dtypes(dtypes, flags):
+            before = precision_flags()
             evaluate.main(["--folder_path", str(folder), "--split", split, "--device", "cuda"])
+            after = precision_flags()
         seconds = time.perf_counter() - t0
         got = read()
         check(got == (expected, 0, 0, 0) and len(dtypes) == expected and set(dtypes) == {torch.float32},
               f"cinema_eval {label} launched {got} over {len(dtypes)} calls of {set(dtypes)}, expected {expected} "
               f"float32 packed forward launches")
+        check(before == after == TORCH_DEFAULT_FLAGS and set(flags) == {TF32_OFF},
+              f"cinema_eval {label}: flags {before} before the call, {set(flags)} inside, {after} after; expected "
+              f"{TORCH_DEFAULT_FLAGS}, {TF32_OFF}, {TORCH_DEFAULT_FLAGS}")
         out_dir = folder / f"{label.split('_')[0]}_eval"
         written = sorted(p.name for p in out_dir.iterdir())
         check(set(tables) <= set(written), f"cinema_eval {label} wrote {written}, expected {tables}")
         (means,) = list(csv.DictReader((out_dir / "mean_metrics.csv").read_text().splitlines()))
         check(np.isfinite(float(means[key])), f"cinema_eval {label}: {key} {means[key]}")
-        row = {"split": split, "seconds": seconds, "f32_launches": got[0], key: float(means[key])}
+        row = {"split": split, "seconds": seconds, "f32_launches": got[0], key: float(means[key]),
+               "flags": {"before": before, "inside": sorted(set(flags)), "after": after}}
         print(f"cine_eval {label}", json.dumps(row), f"on {smi}", flush=True)
         return row
 
@@ -2421,17 +2542,20 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
         kaggle_config.data.dir = str(root / "kaggle")
         n_videos = len(read_metadata(root / "kaggle" / "validate_metadata.csv"))
         chunks = -(-kaggle.MAX_N_FRAMES // kaggle.VIDEO_CHUNK)  # every video is padded to MAX_N_FRAMES
-        kaggle.evaluate_kaggle(model32, kaggle_config, "validate", 1)  # warm-up
-        torch.cuda.synchronize()
-        dtypes = []
-        reset()
-        t0 = time.perf_counter()
-        with attention_dtypes(dtypes):
-            metrics = kaggle.evaluate_kaggle(model32, kaggle_config, "validate")
-        kaggle_s = time.perf_counter() - t0
+        # a library call, not an entry point: it states its precision with the entry points' context
+        with torch_default_precision(), evaluate.float32_precision():
+            kaggle.evaluate_kaggle(model32, kaggle_config, "validate", 1)  # warm-up
+            torch.cuda.synchronize()
+            dtypes, flags = [], []
+            reset()
+            t0 = time.perf_counter()
+            with attention_dtypes(dtypes, flags):
+                metrics = kaggle.evaluate_kaggle(model32, kaggle_config, "validate")
+            kaggle_s = time.perf_counter() - t0
         got = read()
         check(got == (n_videos * chunks * depth, 0, 0, 0) and set(dtypes) == {torch.float32},
               f"evaluate_kaggle launched {got} ({set(dtypes)}), expected {chunks * depth} float32 launches a video")
+        check(set(flags) == {TF32_OFF}, f"evaluate_kaggle ran attention under the flags {set(flags)}")
         check(metrics["n_samples"] == n_videos and all(k in metrics for k in ("ef_mae", "ef_rmse", "ef_region_accuracy")),
               f"evaluate_kaggle {metrics}")
         out["kaggle"] = {"videos": n_videos, "ms_per_video": kaggle_s * 1e3 / n_videos, "f32_launches": got[0],
@@ -2450,8 +2574,9 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
             "rescan_test_retest_100", rescan_dir, "test_retest_100",
             n_retest * depth * -(-RESCAN_CINE[3] // kaggle.VIDEO_CHUNK), ("ef_metrics.csv", "mean_metrics.csv"),
             "n_pairs")
-        # an ED/ES run folder as run_train leaves it (run.json, model safetensors) of the packaged ACDC model, on
-        # two studies of one patch (SEG_SIZES[0]) in the processed ACDC layout
+        # an ED/ES run folder of the packaged ACDC model as the JAX package leaves one, on two studies of one patch
+        # (SEG_SIZES[0]) in the processed ACDC layout: its config.yaml is the JAX package's acdc.yaml (a data
+        # file, read by the port's YAML reader) with data.dir set, beside the model safetensors
         acdc_dir = root / "runs" / "acdc"
         acdc_config = from_dict(PACKAGED["segmentation/acdc"])
         acdc_config.data.dir = str(root / "acdc")
@@ -2461,7 +2586,10 @@ def cine_phase(report: dict, smi: str, profile: bool) -> dict:
         write_metadata(root / "acdc" / "test_metadata.csv",
                        [{"pid": f"patient{i:03d}", "n_slices": SEG_SIZES[0][2], "pathology": "NOR"} for i in range(2)])
         acdc_dir.mkdir(parents=True)
-        (acdc_dir / "run.json").write_text(json.dumps({"tags": ["segmentation", "acdc"], "config": acdc_config}))
+        default_dir = "  dir: ~/.cache/cinema_datasets/acdc/processed\n"
+        check(ACDC_YAML.read_text().count(default_dir) == 1, f"{ACDC_YAML} has no single data.dir line")
+        (acdc_dir / "config.yaml").write_text(ACDC_YAML.read_text().replace(default_dir, f"  dir: '{root / 'acdc'}'\n"))
+        check(evaluate.run_config(acdc_dir) == acdc_config, "the ACDC run folder's config.yaml reads as another config")
         save_params_safetensors(init_weights(get_segmentation_model(acdc_config, device=cuda), seed=0),
                                 acdc_dir / "model_0.safetensors")
         evals["acdc"] = cinema_eval("acdc", acdc_dir, "test", depth * 4, (*per_item, "ef_metrics.csv"),
@@ -2745,6 +2873,54 @@ def baseline_phase(report: dict, smi: str, profile: bool) -> dict:
     return launches.totals
 
 
+def tf32_sass() -> dict:
+    """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 forward function in the built library's
+    machine code, by cuobjdump (None where the toolkit has none)."""
+    from cinema_tpu_torch import build
+
+    tool = Path(build.nvcc()).with_name("cuobjdump")
+    if not tool.exists():
+        return None
+    sass = subprocess.run([str(tool), "--dump-sass", str(build.library_path("flash_attention_fwd"))],
+                          capture_output=True, text=True, timeout=300, check=True).stdout
+    counts: dict = {}
+    function = ""
+    for line in sass.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+            if "flash_fwd_tf32x3" in function:
+                counts[function] = 0
+        elif function in counts and "HMMA" in line and "TF32" in line:
+            counts[function] += 1
+    return counts
+
+
+def tf32_probe() -> dict:
+    """What one TF32 product on the tensor core (``tf32_probe`` of csrc/flash_attention_fwd.cu) does with the
+    low 13 mantissa bits of an f32 operand (values off the TF32 grid by less than one TF32 ulp, from a zero
+    sum) and how it rounds a sum (1 and -1 plus 0.75 of an f32 ulp of 1, exact in TF32)."""
+    import ctypes
+
+    from cinema_tpu_torch import build
+
+    entry = build.load("flash_attention_fwd").cinema_tf32_probe
+    entry.argtypes = [ctypes.c_void_p] * 4
+    x = [1 + 2**-11 + 2**-12, -(1 + 2**-11 + 2**-12), 1 + 2**-10 - 2**-23, 1 + 3 * 2**-11, 3 * 2**-25, -3 * 2**-25]
+    c = [0.0, 0.0, 0.0, 0.0, 1.0, -1.0]
+    xs, cs = (torch.tensor(v + [0.0] * (16 - len(v)), device="cuda") for v in (x, c))
+    y = torch.zeros(16, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    check(entry(xs.data_ptr(), cs.data_ptr(), y.data_ptr(), stream) == 0, "the TF32 probe failed")
+    got = y[:len(x)].tolist()
+    modes = {"operand": (got[:4], [1.0, -1.0, 1.0, 1 + 2**-10], [1 + 2**-10, -(1 + 2**-10), 1 + 2**-10]),
+             "sum": (got[4:], [1.0, -1.0], [1 + 2**-23, -(1 + 2**-23)])}
+    out = {}
+    for name, (read, toward_zero, nearest) in modes.items():
+        out[name] = ("toward zero" if read == toward_zero else "to nearest" if read[:len(nearest)] == nearest
+                     else "neither toward zero nor to nearest")
+    return {**out, "x": x, "c": c, "read_as": got}
+
+
 def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: dict, rows: list[dict]) -> dict:
     """A kernel's entry of the kernels line: the headline numbers are the first
     row's, every timed shape is listed under ``shapes``."""
@@ -2755,7 +2931,7 @@ def kernel_row(name: str, source: str, replaces: str, launches: int, by_path: di
         "name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": launches,
         **{k: timed[0][k] for k in keys}, "launches_by_path": by_path,
         "shapes": [{"shape": r["shape"], "dtype": r["dtype"], **{k: r[k] for k in keys},
-                    **{k: r[k] for k in ("dkdv_ms", "dq_ms", "delta_ms") if k in r}} for r in timed],
+                    **{k: r[k] for k in ("bound_simt_ms", "dkdv_ms", "dq_ms", "delta_ms") if k in r}} for r in timed],
     }
 
 
@@ -2774,10 +2950,12 @@ def main() -> None:
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}", flush=True)
+    # f32 comparisons in full f32; the evaluation's entry points are called with torch's defaults instead
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
     from cinema_tpu_torch import build
+    from cinema_tpu_torch.ops import flash_attention as fa
 
     report = {"device": smi}
 
@@ -2792,6 +2970,14 @@ def main() -> None:
                 function = line.split("'")[1]
             elif "registers" in line or "spill" in line or "wgmma" in line:  # wgmma: serialized products
                 print(f"ptxas {name} {function}: {line.replace('ptxas info    :', '').strip()}", flush=True)
+    report["tf32_sass"] = tf32_sass()
+    print("tf32_sass", json.dumps(report["tf32_sass"] if report["tf32_sass"] is not None else "cuobjdump not found"),
+          flush=True)
+    check(report["tf32_sass"] is None or (len(report["tf32_sass"]) == len(fa.HEAD_DIMS)
+                                         and all(report["tf32_sass"].values())),
+          "an f32 forward function (one per head_dim) has no TF32 tensor-core instruction")
+    report["tf32_probe"] = tf32_probe()
+    print("tf32_probe", json.dumps(report["tf32_probe"]), flush=True)
 
     # 3. kernels against their plain versions
     t0 = time.perf_counter()

@@ -1,17 +1,18 @@
 """Hierarchical config with attribute access (port of cinema_tpu/config.py).
 
 Same YAML schema as the JAX package, so the published config.yaml files
-rebuild the same models. PyYAML is imported only inside :func:`load_config`:
-the machine with the card has no PyYAML, and there the packaged configs
-(:data:`PACKAGED`) go through :func:`from_dict`.
+rebuild the same models. YAML is read by the port's own reader
+(:mod:`cinema_tpu_torch.yaml_reader`): the machine with the card has no
+PyYAML. :data:`PACKAGED` holds the configs the entry points default to.
 """
 
 from __future__ import annotations
 
-import ast
 import copy
 from pathlib import Path
 from typing import Any, Dict, List, Union
+
+from cinema_tpu_torch import yaml_reader
 
 
 class Config(dict):
@@ -42,28 +43,22 @@ def from_dict(d: Dict[str, Any]) -> Config:
 
 def load_config(path: Union[str, Path]) -> Config:
     """Load a YAML config file."""
-    import yaml
-
-    with open(path) as f:
-        data = yaml.safe_load(f)
-    return from_dict(data or {})
+    return from_dict(yaml_reader.load(path) or {})
 
 
 def apply_overrides(config: Config, overrides: List[str]) -> Config:
-    """Apply dotted ``key.sub=value`` overrides; values are Python literals where they parse as one."""
+    """Apply dotted ``key.sub=value`` overrides, each value read as a YAML document (as the JAX package's
+    ``yaml.safe_load``); a parent key that holds no mapping is replaced by one."""
     config = from_dict(config)
     for item in overrides:
         key, sep, raw = item.partition("=")
         if not sep:
             raise ValueError(f"Override {item!r} is not of the form key=value.")
-        try:
-            value = ast.literal_eval(raw)
-        except (ValueError, SyntaxError):
-            value = {"null": None, "true": True, "false": False}.get(raw, raw)
+        value = yaml_reader.loads(raw)
         *parents, leaf = key.split(".")
         node = config
         for part in parents:
-            if part not in node:
+            if not isinstance(node.get(part), dict):
                 node[part] = Config()
             node = node[part]
         node[leaf] = _wrap(value)

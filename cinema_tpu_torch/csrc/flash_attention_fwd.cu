@@ -49,10 +49,48 @@
 // block: 2305 = 18 * 128 + 1 and 769 = 6 * 128 + 1 rows leave one q block of
 // 19 (resp. 7) with a single row, streaming every key for it.
 //
-// f32 operands stay on the CUDA cores, one thread per q row over 32-key
-// tiles, as no tensor-core format keeps f32 exact; they run in the f32 check
-// steps and on a main path: the float32 evaluation of run folders
-// (tasks/evaluate.py) and of Kaggle cines.
+// f32 operands run on the tensor cores in split TF32 (flash_fwd_tf32x3). They
+// run in the f32 check steps and on a main path: the float32 evaluation of run
+// folders (tasks/evaluate.py) and of Kaggle cines, (8, 2305^2, 768) a cine
+// chunk. One TF32 product keeps 10 mantissa bits of each operand (about three
+// decimal digits), so each operand x is split into hi = x rounded to TF32 and
+// the remainder lo = x - hi, and each product is a_lo b_hi + a_hi b_lo +
+// a_hi b_hi: three TF32 passes, with a_lo b_lo (below 2^-22 of the product)
+// dropped. Bound at (8, 2305^2, 768): 3 * 4*B*Tq*Tk*E = 3.92e11 flop -> 0.79
+// ms at 495 TFLOP/s dense TF32, against 0.068 ms for the bytes: bounded by
+// tensor-core operations (the CUDA cores' 67 TFLOP/s would take 1.95 ms for
+// the single f32 pass).
+//
+// What the tensor core does with an f32 register read as TF32, and how it
+// rounds its sums, is measured by tf32_probe (chip_smoke.py prints it): on an
+// NVIDIA H100 80GB HBM3 it drops the low 13 mantissa bits (1 + 2^-11 + 2^-12
+// and 1 + 2^-10 - 2^-23 read as 1, -(1 + 2^-11 + 2^-12) as -1), and it rounds
+// sums toward zero (1 + 0.75 ulp sums to 1, -1 - 0.75 ulp to -1). x passed as
+// hi would therefore be read as trunc(x), and lo would have to be x - trunc(x),
+// always of x's sign; hi is instead rounded by hand (to nearest), so that lo
+// = x - hi is the residual of what the tensor core reads, and takes either
+// sign. lo is passed as it is: it has at most 13 significant bits, of which
+// the tensor core keeps 11, dropping less than 2^-22 |x|. Sums toward zero do
+// bias: the tensor core sums only kStepsPerSum k-steps' products at a time,
+// and the CUDA cores add those sums, rounding to nearest.
+//
+// Design. TF32 wgmma takes only K-major operands from shared memory (the
+// transpose bits exist for 16-bit types only), and P v would need v staged
+// transposed, with hi and lo copies of k and v in shared memory beside it. The
+// products run on mma.sync.m16n8k8 instead, whose operands all come from
+// registers: a block is eight warps of 16 q rows each (128 rows, 256 threads,
+// the bf16 kernel's ring and 64-key stages); q is read once into registers,
+// scaled into the log2 domain; each warp reads its B fragments of k and v
+// straight from the (keys, D) tiles as cp.async landed them (padded pitches
+// keep those reads free of bank conflicts) and splits every operand in
+// registers. The depth of each product is a sum, so its order is free: S's
+// k-steps take head_dim columns 2t and 2t + 1 as their columns t and t + 4
+// (one 8-byte read), and P v's take keys 2t and 2t + 1, so P's A fragments are
+// the thread's own entries of S. The online softmax is the bf16 kernel's
+// (ex2.approx.ftz: relative error ~2^-22, far inside the f32 gate). ~140 KB of
+// shared memory at head_dim 64 (four stages of a k and a v tile) and 255
+// registers, no spills (ptxas): one block an SM. The split and the sums take
+// more issue slots than the 384 mma.sync a warp issues per stage (cuobjdump).
 
 #include "hopper.cuh"
 
@@ -208,94 +246,297 @@ __global__ void __launch_bounds__(kBlockThreads, 2)
 }
 
 // ---------------------------------------------------------------------------
-// f32 operands, on the CUDA cores: one thread per q row, kThreads rows a block, over tiles of
-// kBlockKF32 keys staged in shared memory.
-constexpr int kBlockKF32 = 32;
+// f32 operands on the tensor cores in split TF32 (see the note at the top): eight warps of 16 q rows,
+// mma.sync m16n8k8 products with every operand split into hi + lo in registers.
 
+// One product D (16 x 8) += A (16 x 8) * B (8 x 8), TF32 operands, f32 sums. With g = lane / 4 and
+// t = lane % 4: a0 = A[g][t], a1 = A[g + 8][t], a2 = A[g][t + 4], a3 = A[g + 8][t + 4]; b0 = B[t][g],
+// b1 = B[t + 4][g]; d0, d1 = D[g][2t, 2t + 1], d2, d3 = D[g + 8][2t, 2t + 1].
+__device__ __forceinline__ void mma_tf32(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits; to nearest, ties away, as cvt.rna.tf32 rounds, by
+// adding half a TF32 ulp to the bits and masking: three instructions fewer than the cvt, which also sorts out
+// NaN, and a NaN or infinite x makes the output NaN either way), lo the exact f32 remainder. lo takes either
+// sign, so the tensor core's truncation of it to 11 significant bits (below 2^-22 |x|) is no bias.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// D = A * B, the same product from a zero accumulator
+__device__ __forceinline__ void mma_tf32_zero(float* d, const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]), "f"(0.f), "f"(0.f), "f"(0.f), "f"(0.f));
+}
+
+// d (+)= a b for split operands: a_lo b_hi + a_hi b_lo + a_hi b_hi (the small terms first; a_lo b_lo, below
+// 2^-22 of the product, is dropped), from zero where kFirst
+template <bool kFirst>
+__device__ __forceinline__ void mma_tf32x3(float* d, const uint32_t (&a_hi)[4], const uint32_t (&a_lo)[4],
+                                           const uint32_t (&b_hi)[2], const uint32_t (&b_lo)[2]) {
+  if constexpr (kFirst) {
+    mma_tf32_zero(d, a_lo, b_hi);
+  } else {
+    mma_tf32(d, a_lo, b_hi);
+  }
+  mma_tf32(d, a_hi, b_lo);
+  mma_tf32(d, a_hi, b_hi);
+}
+
+// k-steps (of 8) whose products the tensor core sums before the CUDA cores add that sum to the running one.
+// The tensor core rounds its sums toward zero (tf32_probe), so a long run of sums in its accumulator shrinks
+// them: over a whole key panel (3 products x 8 k-steps a stage) O came out up to ~2e-5 smaller, relative,
+// than f32 sums give it, and the f32 backward, which recomputes P from the saved log-sum-exp and takes O as
+// it is, turned that into gradients 5e-3 of a parameter's largest off. Fewer k-steps a sum mean less bias,
+// more additions and more registers: tools/torch_fwd_f32_sums.py measures each setting (PERF.md section 6).
+constexpr int kStepsPerSum = 4;
+
+// Shared memory of the f32 kernel, from a 1024-byte aligned base: kStages ring slots of a k and a v tile
+// (kStageRows rows of D floats at a padded pitch), and the ring's barriers. The pitches keep the fragment
+// reads free of bank conflicts: k's (D + 8 floats) for the 8-byte reads of S's B fragments, rows g at
+// columns 2t; v's (D + 4 floats) for the 4-byte reads of P v's B fragments, rows 2t at columns g.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                  float* __restrict__ o, int n_q, int n_k, Strides qs, Strides ks, Strides vs, Strides os,
-                  float scale_log2, float* __restrict__ lse) {
-  static_assert(D % 4 == 0, "head_dim must be a multiple of 4");
-  __shared__ __align__(16) float k_tile[kBlockKF32][D];
-  __shared__ __align__(16) float v_tile[kBlockKF32][D];
+struct FwdF32Smem {
+  static constexpr int kKPitch = D + 8;  // floats
+  static constexpr int kVPitch = D + 4;
+  static constexpr int kKTile = kStageRows * kKPitch * 4;  // bytes
+  static constexpr int kSlot = kKTile + kStageRows * kVPitch * 4;
+  static constexpr int kBars = kStages * kSlot;
+  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;  // + slack to align the base
+};
 
-  const int tid = threadIdx.x;
+// Copy rows [row0, row0 + kStageRows) of one (batch, head)'s D f32 columns into a tile of kPitch floats a
+// row; rows from n_rows on are zero. Every thread of the block takes its share.
+template <int D, int kPitch>
+__device__ __forceinline__ void load_tile_f32(uint32_t tile, const float* __restrict__ base, long long row_stride,
+                                              int row0, int n_rows) {
+  constexpr int kChunks = D / 4;
+  static_assert(kStageRows * kChunks % kBlockThreads == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < kStageRows * kChunks / kBlockThreads; ++i) {
+    const int idx = threadIdx.x + i * kBlockThreads;
+    const int r = idx / kChunks;
+    const int c = idx % kChunks;
+    const bool valid = row0 + r < n_rows;
+    const float* src = base + (valid ? (long long)(row0 + r) * row_stride + c * 4 : 0);
+    cp_async_16(tile + (r * kPitch + c * 4) * 4, src, valid);
+  }
+}
+
+// one block per (kBlockRows q rows, head, batch), warp w owning rows w * 16 .. + 15
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                     float* __restrict__ o, int n_q, int n_k, Strides qs, Strides ks, Strides vs, Strides os,
+                     float scale_log2, float* __restrict__ lse) {
+  using S = FwdF32Smem<D>;
+  static_assert((D / 8) % kStepsPerSum == 0 && 8 % kStepsPerSum == 0, "whole sums of k-steps");
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  uint8_t* base_ptr = smem_raw + (base - smem_addr(smem_raw));
+  const Ring ring(base_ptr + S::kBars);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gi = lane / 4;
+  const int t = lane % 4;
   const int head = blockIdx.y;
   const int batch = blockIdx.z;
-  const int row = blockIdx.x * kThreads + tid;
-  const bool ok = row < n_q;
-
+  const int row0 = (int)blockIdx.x * kBlockRows + warp * 16;  // this warp's first row
+  const int row = row0 + gi;  // this thread's rows: row and row + 8
   const float* kb = k + batch * ks.b + head * ks.h;
   const float* vb = v + batch * vs.b + head * vs.h;
-  float qr[D];
-  float acc[D];
+  const int n_iters = (n_k - 1) / kStageRows + 1;  // n_k >= 1
+
+  auto load_stage = [&](int it) {  // this thread's share of stage it
+    if (it >= n_iters) return;
+    ring.wait_free(it);
+    const uint32_t dst = base + (it % kStages) * S::kSlot;
+    load_tile_f32<D, S::kKPitch>(dst, kb, ks.t, it * kStageRows, n_k);
+    load_tile_f32<D, S::kVPitch>(dst + S::kKTile, vb, vs.t, it * kStageRows, n_k);
+    ring.copied(it);
+  };
+  for (int it = 0; it < kAhead; ++it) load_stage(it);
+
+  // q, scaled into the log2 domain, as the A fragments of S = q k^T (split at each use: registers are
+  // scarcer than the two operations). The depth (head_dim) is a sum, so its order is free: k-step kk takes
+  // columns 8kk + 2t and 8kk + 2t + 1 as its columns t and t + 4, one 8-byte read a row, and k's B
+  // fragments are read in the same order.
+  const bool active = row0 < n_q;  // a warp with no row only copies and releases
+  float qf[D / 8][4];
   {
-    const float* qrow = q + batch * qs.b + head * qs.h + (long long)(ok ? row : 0) * qs.t;
+    const float* qb = q + batch * qs.b + head * qs.h;
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      float4 x = ok ? *reinterpret_cast<const float4*>(qrow + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-      qr[d] = x.x * scale_log2;
-      qr[d + 1] = x.y * scale_log2;
-      qr[d + 2] = x.z * scale_log2;
-      qr[d + 3] = x.w * scale_log2;
-      acc[d] = acc[d + 1] = acc[d + 2] = acc[d + 3] = 0.f;
-    }
-  }
-  float m = -CUDART_INF_F, l = 0.f;
-
-  constexpr int kChunks = D / 4;
-  for (int k0 = 0; k0 < n_k; k0 += kBlockKF32) {
-    __syncthreads();
-    for (int idx = tid; idx < kBlockKF32 * kChunks; idx += kThreads) {
-      const int r = idx / kChunks;
-      const int c = (idx % kChunks) * 4;
-      float4 kx = make_float4(0.f, 0.f, 0.f, 0.f);
-      float4 vx = kx;
-      if (k0 + r < n_k) {
-        kx = *reinterpret_cast<const float4*>(kb + (long long)(k0 + r) * ks.t + c);
-        vx = *reinterpret_cast<const float4*>(vb + (long long)(k0 + r) * vs.t + c);
+    for (int h = 0; h < 2; ++h) {
+      const bool ok = row + 8 * h < n_q;
+      const float* qrow = qb + (long long)(ok ? row + 8 * h : 0) * qs.t + 2 * t;
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const float2 x = ok ? *reinterpret_cast<const float2*>(qrow + 8 * kk) : make_float2(0.f, 0.f);
+        qf[kk][h] = x.x * scale_log2;
+        qf[kk][2 + h] = x.y * scale_log2;
       }
-      *reinterpret_cast<float4*>(&k_tile[r][c]) = kx;
-      *reinterpret_cast<float4*>(&v_tile[r][c]) = vx;
-    }
-    __syncthreads();
-
-    const int n_valid = n_k - k0;
-    float s[kBlockKF32];
-    float mx = m;
-#pragma unroll
-    for (int j = 0; j < kBlockKF32; ++j) {
-      float dot = 0.f;
-#pragma unroll
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], k_tile[j][d], dot);
-      s[j] = j < n_valid ? dot : -CUDART_INF_F;
-      mx = fmaxf(mx, s[j]);
-    }
-    const float alpha = exp2f(m - mx);
-    m = mx;
-    l *= alpha;
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] *= alpha;
-#pragma unroll
-    for (int j = 0; j < kBlockKF32; ++j) {
-      const float p = exp2f(s[j] - m);
-      l += p;
-#pragma unroll
-      for (int d = 0; d < D; ++d) acc[d] = fmaf(p, v_tile[j][d], acc[d]);
     }
   }
-
-  if (ok) {
-    if (lse != nullptr) lse[((long long)batch * gridDim.y + head) * n_q + row] = m + log2f(l);
-    const float inv = 1.f / l;
-    float* orow = o + batch * os.b + head * os.h + (long long)row * os.t;
+  float o_acc[D / 2];
 #pragma unroll
-    for (int d = 0; d < D; d += 4) {
-      *reinterpret_cast<float4*>(orow + d) =
-          make_float4(acc[d] * inv, acc[d + 1] * inv, acc[d + 2] * inv, acc[d + 3] * inv);
+  for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+  // running max (log2 domain) and this thread's share of the sum of rows row and row + 8
+  float m[2] = {-CUDART_INF_F, -CUDART_INF_F};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_iters; ++it) {
+    load_stage(it + kAhead);
+    ring.wait_full(it);
+    if (active) {
+      const float* k_st = reinterpret_cast<const float*>(base_ptr + (it % kStages) * S::kSlot);
+      const float* v_st = reinterpret_cast<const float*>(base_ptr + (it % kStages) * S::kSlot + S::kKTile);
+
+      // S: 16 q rows x 64 keys of this warp; s[4j + 2h + e] is row row + 8h, key 8j + 2t + e of the stage
+      float s[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = 0.f;
+#pragma unroll
+      for (int k0 = 0; k0 < D / 8; k0 += kStepsPerSum) {
+        uint32_t q_hi[kStepsPerSum][4], q_lo[kStepsPerSum][4];
+#pragma unroll
+        for (int u = 0; u < kStepsPerSum; ++u) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split_tf32(qf[k0 + u][i], q_hi[u][i], q_lo[u][i]);
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          float part[4];
+#pragma unroll
+          for (int u = 0; u < kStepsPerSum; ++u) {
+            const float2 x =
+                *reinterpret_cast<const float2*>(k_st + (8 * j + gi) * S::kKPitch + 8 * (k0 + u) + 2 * t);
+            uint32_t b_hi[2], b_lo[2];
+            split_tf32(x.x, b_hi[0], b_lo[0]);
+            split_tf32(x.y, b_hi[1], b_lo[1]);
+            if (u == 0) {
+              mma_tf32x3<true>(part, q_hi[u], q_lo[u], b_hi, b_lo);
+            } else {
+              mma_tf32x3<false>(part, q_hi[u], q_lo[u], b_hi, b_lo);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) s[4 * j + i] += part[i];
+        }
+      }
+
+      // keys past n_k (zero rows of k and v) only on the last stage
+      const int k0 = it * kStageRows;
+      const bool ragged = k0 + kStageRows > n_k;
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+        if (ragged) s[i] = key < n_k ? s[i] : -CUDART_INF_F;
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+      }
+      // the four threads of a quad hold a row between them; key 0 is in the first stage, so the max is
+      // finite from the first stage on (and alpha = 2^-inf = 0 there)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float alpha = exp2_ftz(m[h] - mx[h]);
+        m[h] = mx[h];
+        l[h] *= alpha;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          o_acc[4 * j + 2 * h] *= alpha;
+          o_acc[4 * j + 2 * h + 1] *= alpha;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        s[i] = exp2_ftz(s[i] - m[(i >> 1) & 1]);
+        l[(i >> 1) & 1] += s[i];
+      }
+
+      // O += P v. The keys are the depth: k-step kk takes keys 8kk + 2t and 8kk + 2t + 1 as its columns t
+      // and t + 4, so P's A fragments are this thread's own entries of S (no shuffle), and v's B fragments
+      // are read from rows 8kk + 2t and + 1 of the (keys, D) tile as it landed: no tile is transposed.
+#pragma unroll
+      for (int k0 = 0; k0 < 8; k0 += kStepsPerSum) {
+        uint32_t p_hi[kStepsPerSum][4], p_lo[kStepsPerSum][4];
+#pragma unroll
+        for (int u = 0; u < kStepsPerSum; ++u) {
+          const int kk = k0 + u;
+          split_tf32(s[4 * kk], p_hi[u][0], p_lo[u][0]);
+          split_tf32(s[4 * kk + 2], p_hi[u][1], p_lo[u][1]);
+          split_tf32(s[4 * kk + 1], p_hi[u][2], p_lo[u][2]);
+          split_tf32(s[4 * kk + 3], p_hi[u][3], p_lo[u][3]);
+        }
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          float part[4];
+#pragma unroll
+          for (int u = 0; u < kStepsPerSum; ++u) {
+            const float* v_row = v_st + (8 * (k0 + u) + 2 * t) * S::kVPitch + gi;
+            uint32_t b_hi[2], b_lo[2];
+            split_tf32(v_row[8 * j], b_hi[0], b_lo[0]);
+            split_tf32(v_row[S::kVPitch + 8 * j], b_hi[1], b_lo[1]);
+            if (u == 0) {
+              mma_tf32x3<true>(part, p_hi[u], p_lo[u], b_hi, b_lo);
+            } else {
+              mma_tf32x3<false>(part, p_hi[u], p_lo[u], b_hi, b_lo);
+            }
+          }
+#pragma unroll
+          for (int i = 0; i < 4; ++i) o_acc[4 * j + i] += part[i];
+        }
+      }
     }
+    ring.release(it);
+  }
+  cp_async_wait_all();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) l[h] = quad_sum(l[h]);
+  if (lse != nullptr && t == 0) {
+    float* lse_row = lse + ((long long)batch * gridDim.y + head) * n_q;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (row + 8 * h < n_q) lse_row[row + 8 * h] = log2f(l[h]) + m[h];
+    }
+  }
+  float* ob = o + batch * os.b + head * os.h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= n_q) continue;
+    const float inv = 1.f / l[h];
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(ob + (long long)(row + 8 * h) * os.t + 8 * j + 2 * t) =
+          make_float2(o_acc[i] * inv, o_acc[i + 1] * inv);
+    }
+  }
+}
+
+// One TF32 product that shows what the tensor core does with the low 13 mantissa bits of an f32 operand and
+// how it rounds a sum: y[r] = c[r] + x[r] * 1 for 16 rows r, x passed as it is (A's column 0; B's row 0 is
+// 1, the rest 0) and c as the accumulator's column 0
+__global__ void tf32_probe(const float* __restrict__ x, const float* __restrict__ c, float* __restrict__ y) {
+  const int gi = threadIdx.x / 4;
+  const int t = threadIdx.x % 4;
+  const uint32_t a[4] = {t == 0 ? __float_as_uint(x[gi]) : 0u, t == 0 ? __float_as_uint(x[gi + 8]) : 0u, 0u, 0u};
+  const uint32_t b[2] = {t == 0 ? __float_as_uint(1.f) : 0u, 0u};
+  float d[4] = {t == 0 ? c[gi] : 0.f, 0.f, t == 0 ? c[gi + 8] : 0.f, 0.f};
+  mma_tf32(d, a, b);
+  if (t == 0) {
+    y[gi] = d[0];
+    y[gi + 8] = d[2];
   }
 }
 
@@ -319,8 +560,13 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, int batch, 
     const dim3 grid((n_q + kBlockRows - 1) / kBlockRows, n_heads, batch);
     flash_fwd_bf16<D><<<grid, kBlockThreads, kSmem, st>>>(qp, kp, vp, op, n_q, n_k, qs, ks, vs, os, scale_log2, lse);
   } else {
-    const dim3 grid((n_q + kThreads - 1) / kThreads, n_heads, batch);
-    flash_fwd_f32<D><<<grid, kThreads, 0, st>>>(qp, kp, vp, op, n_q, n_k, qs, ks, vs, os, scale_log2, lse);
+    constexpr int kSmem = FwdF32Smem<D>::kBytes;
+    const cudaError_t err =
+        cudaFuncSetAttribute(flash_fwd_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const dim3 grid((n_q + kBlockRows - 1) / kBlockRows, n_heads, batch);
+    flash_fwd_tf32x3<D><<<grid, kBlockThreads, kSmem, st>>>(qp, kp, vp, op, n_q, n_k, qs, ks, vs, os, scale_log2,
+                                                             lse);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -354,4 +600,11 @@ extern "C" int cinema_flash_attention_fwd(const void* q, const void* k, const vo
     return launch_fwd<float, 32>(q, k, v, o, batch, n_q, n_k, n_heads, strides, scale_log2, lp, st);
   }
   return -1;
+}
+
+// The TF32 probe: y[r] = c[r] + x[r] as one product on the tensor cores computes it, r < 16 (see
+// tf32_probe). Returns cudaGetLastError() after the launch.
+extern "C" int cinema_tf32_probe(const float* x, const float* c, float* y, void* stream) {
+  tf32_probe<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(x, c, y);
+  return static_cast<int>(cudaGetLastError());
 }

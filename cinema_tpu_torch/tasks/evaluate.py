@@ -7,7 +7,8 @@ Usage:
 :func:`load_run` rebuilds a run folder's model: the newest ``*.safetensors`` of the folder
 and its config, from ``config.yaml`` where the JAX package wrote the folder or from the
 port's ``run.json``. The model runs in float32 unless the caller asks for another dtype, as
-in the JAX package. ``--data`` (default: the config's ``data.name``) picks the route:
+in the JAX package, and :func:`main` evaluates with TF32 off (:func:`float32_precision`).
+``--data`` (default: the config's ``data.name``) picks the route:
 
 - segmentation: ``acdc``, ``mnms``, ``mnms2`` (ED/ES frames: ``metrics.csv``,
   ``mean_metrics.csv``, ``ef_metrics.csv``); ``emidec``, ``myops2020`` (one volume per study,
@@ -24,6 +25,7 @@ folder's task checked.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
@@ -66,6 +68,20 @@ from cinema_tpu_torch.tasks.segmentation.rescan_ef_eval import rescan_ef_eval
 
 Device = Union[str, torch.device]
 Row = Dict[str, Any]
+
+
+@contextlib.contextmanager
+def float32_precision():
+    """TF32 off for cuBLAS and cuDNN inside the block; the caller's settings are restored after it."""
+    # torch runs float32 convolutions in TF32 by default (~3 decimal digits); the evaluation is float32
+    matmul, cudnn = torch.get_float32_matmul_precision(), torch.backends.cudnn.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(matmul)
+        torch.backends.cudnn.allow_tf32 = cudnn
 
 
 def run_config(folder: Path) -> Config:
@@ -275,7 +291,11 @@ def main(argv: Optional[List[str]] = None) -> None:
     parser.add_argument("--data", type=str, default="")
     parser.add_argument("--device", default="cuda")
     args = parser.parse_args(argv)
+    with float32_precision():
+        _evaluate(args)
 
+
+def _evaluate(args: argparse.Namespace) -> None:
     config, model = load_run(args.folder_path, device=args.device)
     data = args.data or config.data.name
     out_dir = args.folder_path / f"{data}_eval"

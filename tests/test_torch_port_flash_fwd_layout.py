@@ -90,9 +90,15 @@ def test_a_packed_operand_is_described_as_its_per_head_view(n_q, n_k, embed, hea
 
 @pytest.mark.parametrize("n", [1, 129])
 def test_f32_operands_take_one_thread_a_row_in_blocks_of_128(n):
+    """f32 operands take the bf16 kernel's grid, a block per 128 q rows (eight warps of 16 rows on the tensor
+    cores, where the f32 kernel once gave one CUDA-core thread a row), with strides in their own bytes."""
     q = _empty((BATCH, n, 2, 32), (n * 64, 64, 32, 1), dtype=torch.float32)
+    q16 = _empty((BATCH, n, 2, 32), (n * 64, 64, 32, 1))
     launch = fa.fwd_launch_description(q, q, q, q)
-    assert launch.dtype == 0 and launch.grid == (-(-n // 128), 2, BATCH)
+    assert fa.FWD_BLOCK_ROWS == 8 * 16
+    assert launch.dtype == 0 and launch.grid == fa.fwd_launch_description(q16, q16, q16, q16).grid
+    assert launch.grid == (-(-n // fa.FWD_BLOCK_ROWS), 2, BATCH)
+    assert launch.strides == fa.fwd_launch_description(q16, q16, q16, q16).strides
     assert launch.byte_strides == tuple(tuple(4 * s for s in x) for x in launch.strides)
 
 

@@ -105,6 +105,41 @@ def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dty
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n_q,n_k,heads,d,layout", [
+    (1, 1, 12, 64, "kvhalf"), (127, 127, 12, 64, "kvhalf"), (129, 2305, 12, 64, "kvhalf"),
+    (2305, 65, 16, 32, "kvhalf"), (130, 77, 12, 64, "bhtd"), (257, 129, 16, 32, "bhtd"), (33, 200, 12, 64, "packed"),
+])
+def test_f32_forward_ragged_strided_and_transposed_agrees_with_its_plain_version(card, n_q, n_k, heads, d, layout):
+    """The split-TF32 forward with sharp scores (q scaled by 4) at ragged q tails (1, 127, 129, 257, 33 and 2305
+    rows) and key tails (65, 77, 129, 200 keys, and one), head_dim 64 and 32: v the strided v half of a fused kv
+    projection (kvhalf), every operand a (batch, heads, tokens, head_dim) transpose (bhtd), or packed q with k
+    and v the column halves of a fused kv projection (packed). Output within chip_smoke's f32 gate (1e-4) of the
+    plain version, the log-sum-exp within 1e-3."""
+    rng = np.random.default_rng(n_q + n_k + d)
+
+    def tensor(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(card)
+
+    if layout == "packed":
+        q, kv = tensor(2, n_q, heads * d) * 4, tensor(2, n_k, 2 * heads * d)
+        k, v = kv[..., :heads * d], kv[..., heads * d:]
+        out, lse = fa.flash_attention_packed_forward(q, k, v, heads, save_lse=True)
+        want = fa.flash_attention_packed_plain(q, k, v, heads)
+        want_lse = fa.flash_attention_packed_lse_plain(q, k, heads)
+    else:
+        if layout == "kvhalf":
+            q, k = tensor(2, n_q, heads, d) * 4, tensor(2, n_k, heads, d)
+            v = tensor(2, n_k, 2, heads, d)[:, :, 1]
+        else:
+            q, k, v = (tensor(2, heads, n, d) for n in (n_q, n_k, n_k))
+            q, k, v = (q * 4).transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        out, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
+        want, want_lse = fa.flash_attention_plain(q, k, v), fa.flash_attention_lse_plain(q, k)
+    torch.testing.assert_close(out, want.float(), atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("n_tokens", [289, 577], ids=["emidec-289", "myops-577"])
 def test_packed_kernels_at_the_emidec_and_myops_token_counts_agree_with_their_plain_versions(card, dtype, atol,

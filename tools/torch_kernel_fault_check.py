@@ -1,14 +1,16 @@
 """Planted-fault check of chip_smoke.py's attention-kernel gates (needs a CUDA card).
 
 For each fault below, copies ``cinema_tpu_torch/`` and ``chip_smoke.py`` into
-a temporary directory, edits the bf16 path of one kernel source there (the
-forward or the backward, each shared by the packed and the per-head layouts,
-under ``csrc/``), builds that copy into its own build directory and runs
-chip_smoke's bf16 checks of the kernels the fault is planted in: a forward
-fault against both the packed and the per-head forward checks (unless it
-can show in one layout only), unless ``--only`` names one of them. The unedited copy ("none") must pass every
-check of all four kernels (of the one ``--only`` names); each fault must fail
-at least one. The checkout itself is never edited.
+a temporary directory, edits one kernel source there (the forward or the
+backward, each shared by the packed and the per-head layouts, under
+``csrc/``): the bf16 path, or the f32 forward's split-TF32 path (faults
+named ``f32_*``). It builds that copy into its own build directory and runs
+chip_smoke's checks, in the fault's dtype, of the kernels the fault is
+planted in: a forward fault against both the packed and the per-head forward
+checks (unless it can show in one layout only), unless ``--only`` names one
+of them. The unedited copy ("none") must pass every check of all four
+kernels (of the one ``--only`` names) in bf16 and in f32; each fault must
+fail at least one. The checkout itself is never edited.
 
 Usage (from the repository root):
     python3 tools/torch_kernel_fault_check.py [--only forward|backward|heads_forward|heads_backward] [--out summary.json]
@@ -45,9 +47,16 @@ DK_DS = ("dp[i] = s[i] * (dp[i] - (i & 1 ? d2.y : d2.x));", "dp[i] = s[i] * dp[i
 DQ_DS = ("s[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);", "s[i] = s[i] * dp[i];", 1)
 Q_STAGES = "const int n_iters = (n_q + kStageRows - 1) / kStageRows;"  # stages of the dk/dv pass
 K_STAGES = "const int n_iters = (n_k + kStageRows - 1) / kStageRows;"  # stages of the dq pass
-# fault -> (source file, the kernels whose checks run, [(text, replacement, occurrences)] edits of the bf16 kernels)
+# the f32 forward: its products of split operands, its split, and the read of v's B fragments
+F32_PASSES = ("    mma_tf32_zero(d, a_lo, b_hi);\n  } else {\n    mma_tf32(d, a_lo, b_hi);\n  }\n"
+              "  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_hi, b_hi);\n")
+F32_ONE_PASS = "    mma_tf32_zero(d, a_hi, b_hi);\n  } else {\n    mma_tf32(d, a_hi, b_hi);\n  }\n"
+F32_LO = "lo = __float_as_uint(x - __uint_as_float(hi));"
+F32_V_ROW = "const float* v_row = v_st + (8 * (k0 + u) + 2 * t) * S::kVPitch + gi;"
+# fault -> (source file, the kernels whose checks run, [(text, replacement, occurrences)] edits of the kernels,
+# the dtypes of the checks: bf16 unless the fault is planted in the f32 path)
 FAULTS = {
-    "none": (FWD, KERNELS, []),
+    "none": (FWD, KERNELS, [], ("bfloat16", "float32")),
     "skip_last_key_stage": (FWD, BOTH_FWD, [(F_STAGES, F_STAGES.replace(";", " - 1;"), 1)]),
     "skip_middle_key_stage": (FWD, BOTH_FWD, [
         (F_MASK, F_MASK + "\n      if (it == n_iters / 2) x = -CUDART_INF_F;", 1)]),
@@ -78,13 +87,22 @@ FAULTS = {
     "heads_bwd_v_head_stride_of_q": (BWD, ("heads_backward",), [(V_BASE, V_BASE.replace("vs.h", "qs.h"), 2)]),
     "heads_bwd_delta_dropped": (BWD, ("heads_backward",), [DK_DS, DQ_DS]),
     "heads_bwd_scale_plus_3pct": (BWD, ("heads_backward",), [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
+    # one TF32 pass: both cross products dropped, a_hi b_hi alone
+    "f32_one_tf32_pass": (FWD, BOTH_FWD, [(F32_PASSES, F32_ONE_PASS, 1)], ("float32",)),
+    # lo as the residual of x truncated to TF32, where hi is x rounded
+    "f32_lo_wrong_residual": (FWD, BOTH_FWD, [
+        (F32_LO, "lo = __float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));", 1)], ("float32",)),
+    # v's B fragments read one column off in the (keys, D) tile
+    "f32_v_column_off_by_one": (FWD, BOTH_FWD, [(F32_V_ROW, F32_V_ROW.replace("+ gi;", "+ gi + 1;"), 1)],
+                                ("float32",)),
 }
-# runs in the copy: chip_smoke's bf16 checks, one per shape, counting failures
+# runs in the copy: chip_smoke's checks in the given dtypes, one per shape, counting failures
 CHECKS = r'''
 import json, sys, torch
 sys.path.insert(0, ".")
 import chip_smoke as cs
 which = set(sys.argv[1].split(","))
+dtypes = [getattr(torch, name) for name in sys.argv[2].split(",")]
 gen = torch.Generator(device="cuda").manual_seed(0)
 sharp = cs.SHARP_Q
 shapes = [(cs.TRAIN_ENCODER, 1.0), (cs.TRAIN_DECODER, 1.0), (cs.TRAIN_ENCODER, sharp), (cs.TRAIN_DECODER, sharp),
@@ -95,31 +113,34 @@ if "forward" in which:
     runs += [(cs.check_attention, x) for x in shapes]
 if "backward" in which:
     runs += [(cs.check_attention_bwd, x) for x in shapes]
+runs = [(dtype, run) for dtype in dtypes for run in runs]
 caught = []
-for fn, (shape, q_scale) in runs:
+for dtype, (fn, (shape, q_scale)) in runs:
     try:
-        fn(*shape, torch.bfloat16, gen, False, q_scale=q_scale)
+        fn(*shape, dtype, gen, False, q_scale=q_scale)
     except SystemExit:
-        caught.append([fn.__name__, *shape, q_scale])
+        caught.append([fn.__name__, *shape, q_scale, str(dtype)])
 heads_runs = [(cs.FINETUNE_HEADS, 1.0, "kvhalf"), (cs.EVAL_HEADS, 1.0, "kvhalf"), (cs.FINETUNE_HEADS, sharp, "kvhalf"),
               *((shape, 1.0, layout) for shape, layout in cs.HEADS_RAGGED if shape[1] > 1)]
 for name, fn in (("heads_forward", cs.check_heads), ("heads_backward", cs.check_heads_bwd)):
     if name not in which:
         continue
-    for shape, q_scale, layout in heads_runs:
-        runs.append(None)
-        try:
-            fn(*shape, torch.bfloat16, gen, False, q_scale=q_scale, layout=layout)
-        except SystemExit:
-            caught.append([fn.__name__, *shape, q_scale, layout])
+    for dtype in dtypes:
+        for shape, q_scale, layout in heads_runs:
+            runs.append(None)
+            try:
+                fn(*shape, dtype, gen, False, q_scale=q_scale, layout=layout)
+            except SystemExit:
+                caught.append([fn.__name__, *shape, q_scale, layout, str(dtype)])
 print(f"RAN {len(runs)} CAUGHT " + json.dumps(caught), flush=True)
 '''
 
 
 def run_fault(name: str, which: list[str]) -> tuple[int, list]:
     """(checks run, the checks that failed) on the copy with this fault's edits, running the checks of
-    the kernels in ``which``."""
-    source, _, edits = FAULTS[name]
+    the kernels in ``which`` in the fault's dtypes."""
+    source, _, edits, *dtypes = FAULTS[name]
+    dtypes = dtypes[0] if dtypes else ("bfloat16",)
     with tempfile.TemporaryDirectory() as d:
         shutil.copytree(ROOT / "cinema_tpu_torch", Path(d) / "cinema_tpu_torch")
         shutil.copy(ROOT / "chip_smoke.py", d)
@@ -131,8 +152,8 @@ def run_fault(name: str, which: list[str]) -> tuple[int, list]:
             text = text.replace(old, new)
         cu.write_text(text)
         env = dict(os.environ, CINEMA_TORCH_BUILD_DIR=str(Path(d) / "build"))
-        proc = subprocess.run([sys.executable, "-c", CHECKS, ",".join(which)], cwd=d, env=env, capture_output=True,
-                              text=True)
+        proc = subprocess.run([sys.executable, "-c", CHECKS, ",".join(which), ",".join(dtypes)], cwd=d, env=env,
+                              capture_output=True, text=True)
     print(proc.stdout, end="", flush=True)
     lines = [line for line in proc.stdout.splitlines() if line.startswith("RAN ")]
     if proc.returncode != 0 and "CUDA error" in proc.stderr:
@@ -155,7 +176,7 @@ def main() -> None:
     args = parser.parse_args()
     ok = True
     summary = {}
-    for name, (_, kernels, _) in FAULTS.items():
+    for name, (_, kernels, *_) in FAULTS.items():
         which = [k for k in kernels if args.only in (None, k)]
         if not which:
             continue
