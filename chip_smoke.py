@@ -1,11 +1,12 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's eight paths (``cinema_tpu_torch``), serving, MAE
+Drives the port's nine paths (``cinema_tpu_torch``), serving, MAE
 pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
 landmark localization, the M&Ms and M&Ms2 tasks, the EMIDEC, MyoPS2020,
-Rescan and Kaggle tasks with the evaluation of run folders, and the UNet and
-ResNet baselines, at full width and holds every hand-written kernel of those
-paths against its plain PyTorch version on the card:
+Rescan and Kaggle tasks with the evaluation of run folders, the UNet and
+ResNet baselines, and the example scripts, at full width and holds every
+hand-written kernel of those paths against its plain PyTorch version on the
+card:
 
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
@@ -137,7 +138,24 @@ paths against its plain PyTorch version on the card:
    weights (a 96x96x16 crop for the UNet), one 224x208x10 study evaluated by
    sliding window, one regression step, and one epoch of the segmentation
    and classification entry points' ``run`` with the checkpoint reloaded;
-   no attention kernel is launched.
+   no attention kernel is launched;
+12. examples: the example scripts (``cinema_tpu_torch.examples``) from seeded
+   full-width weights written as a user has them, a safetensors file with a
+   ``config.yaml`` beside it. ``segmentation_sax`` (ConvUNetR-base) on a
+   192x192x16x30 SAX NIfTI and ``serve`` with ``.nii.gz`` in and out, each
+   through ``python -m`` in a process of its own: their labels against
+   ``serve.segment_cine`` in this process (agreement >= 0.999), the input's
+   spacing kept, the GIF and PNG signatures. In this process through
+   ``main(argv)``: ``segmentation_lax_4c`` (256x256x1x30), ``classification_cvd``
+   and ``regression_ef`` (ConvViT-base, 192x192x16), the landmark pair on
+   256x256 PNGs written by ``viz.write_png`` (gray and RGB), ``mae`` and
+   ``mae_feature_extraction`` (CineMA-base, four views), each output against
+   the same model called here (rtol 1e-3; argmax coordinates equal but for
+   ties; the MAE's loss and reconstructions on the script's masks), each
+   script's model load, first forward and ``main`` timed; then the four
+   training tutorials for one epoch each on synthetic ACDC (12 studies of
+   three classes) and UKB studies (finite loss, the safetensors reloaded);
+   both packed kernels must be launched.
 
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
@@ -160,12 +178,10 @@ import csv
 import json
 import os
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1662,23 +1678,12 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
     return counters
 
 
-def write_png_gray(path: Path, image: np.ndarray) -> None:
-    """An 8-bit grayscale PNG of the uint8 (x, y) array ``image``, every row with filter 0 (None); the
-    standard library's encoder of the layout the landmark preprocessing writes (rows are y)."""
-    def chunk(kind: bytes, body: bytes) -> bytes:
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    rows = np.ascontiguousarray(image.T, dtype=np.uint8)
-    raw = b"".join(b"\x00" + row.tobytes() for row in rows)
-    header = struct.pack(">IIBBBBB", rows.shape[1], rows.shape[0], 8, 0, 0, 0, 0)
-    path.write_bytes(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + chunk(b"IDAT", zlib.compress(raw))
-                     + chunk(b"IEND", b""))
-
-
 def write_landmark_data(root: Path, sizes: dict, seed: int) -> None:
     """Seeded synthetic landmark data in the JAX preprocessing's layout: ``lax_2c/images/<uid>.png`` and
     ``{train,val}_metadata.csv`` (uid, view, path, x1..y3); ``sizes[name]`` lists each image's (x, y) size.
-    An image is uint8 noise with three bright discs at seeded landmark coordinates."""
+    An image is uint8 noise with three bright discs at seeded landmark coordinates, an 8-bit gray PNG."""
+    from cinema_tpu_torch import viz
+
     rng = np.random.default_rng(seed)
     (root / "lax_2c" / "images").mkdir(parents=True)
     for name, name_sizes in sizes.items():
@@ -1690,7 +1695,7 @@ def write_landmark_data(root: Path, sizes: dict, seed: int) -> None:
             for cx, cy in coords:
                 image[(xx - cx) ** 2 + (yy - cy) ** 2 <= 16] = 230
             uid = f"{name}{i:03d}"
-            write_png_gray(root / "lax_2c" / "images" / f"{uid}.png", image)
+            viz.write_png(root / "lax_2c" / "images" / f"{uid}.png", image.T.astype(np.uint8))  # rows are y
             lines.append(",".join([uid, "lax_2c", f"lax_2c/images/{uid}.png", *map(str, coords.reshape(-1))]))
         (root / f"{name}_metadata.csv").write_text("\n".join(lines) + "\n")
 
@@ -2873,6 +2878,332 @@ def baseline_phase(report: dict, smi: str, profile: bool) -> dict:
     return launches.totals
 
 
+def write_config_yaml(path: Path, config: dict) -> None:
+    """A config as block YAML (the port has no YAML writer; the card's machine has no PyYAML): mappings by
+    indentation, scalars and lists of scalars as JSON, which the YAML reader reads back as the same values;
+    checked by reading it back."""
+    from cinema_tpu_torch.config import load_config
+
+    def scalar(v):
+        if isinstance(v, float):  # YAML 1.1 reads 1e-05 as a string: a float needs its dot
+            s = repr(v)
+            return s.replace("e", ".0e") if "e" in s and "." not in s else s
+        if isinstance(v, list):
+            return "[" + ", ".join(scalar(x) for x in v) + "]"
+        return json.dumps(v)
+
+    def lines(mapping: dict, indent: int) -> list:
+        out = []
+        for key, v in mapping.items():
+            out += [f"{' ' * indent}{key}:", *lines(v, indent + 2)] if isinstance(v, dict) else \
+                [f"{' ' * indent}{key}: {scalar(v)}"]
+        return out
+
+    path.write_text("\n".join(lines(config, 0)) + "\n")
+    check(load_config(path) == config, f"{path} reads back as another config")
+
+
+def write_example_acdc(data_dir: Path, n: int, n_classes: int, seed: int) -> None:
+    """Seeded synthetic ACDC studies for the training tutorials: ED and ES SAX frames of 192x192x16 with
+    labels (``seg_frames``) and ``train_metadata.csv`` with ``pid``, ``n_slices``, ``pathology`` (the first
+    ``n_classes`` classes in turn: the tutorials hold two studies of each out) and ``ef``."""
+    from cinema_tpu_torch.config import PACKAGED
+
+    classes = PACKAGED["classification/acdc"]["data"]["pathology"][:n_classes]
+    rng = np.random.default_rng(seed)
+    rows = []
+    for i in range(n):
+        pid = f"patient{i:03d}"
+        write_seg_study(data_dir / "train", pid, *seg_frames(rng, (192, 192, 16)))
+        label = i % n_classes
+        rows.append({"pid": pid, "n_slices": 16, "pathology": classes[label], "ef": round(float(20 + 8 * label), 4)})
+    write_metadata(data_dir / "train_metadata.csv", rows)
+
+
+def examples_phase(report: dict, smi: str) -> dict:
+    """The example scripts at full width, from seeded weights written as a user has them (a safetensors file and
+    a config.yaml beside it): ``segmentation_sax`` and ``serve`` (NIfTI in and out) each in a process of its own,
+    the other inference examples and the four training tutorials in this one through ``main(argv)``, each
+    output held to the same model called in this process. Returns the packed kernels' launches of the path."""
+    import io
+
+    from cinema_tpu_torch import viz
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.convert import load_safetensors, save_safetensors
+    from cinema_tpu_torch.data import load_nifti, save_nifti
+    from cinema_tpu_torch.examples.inference import (
+        classification_cvd,
+        edes,
+        landmark_coordinate,
+        landmark_heatmap,
+        mae,
+        mae_feature_extraction,
+        regression_ef,
+        segmentation_lax_4c,
+    )
+    from cinema_tpu_torch.examples.train import classification, pretrain, regression, segmentation
+    from cinema_tpu_torch.factory import (
+        from_finetuned,
+        get_convunetr_model,
+        get_convvit_model,
+        get_mae_model,
+        get_segmentation_model,
+        init_weights,
+        mae_from_pretrained,
+    )
+    from cinema_tpu_torch.metrics import heatmap_argmax
+    from cinema_tpu_torch.serve import segment_cine
+    from cinema_tpu_torch.tasks.classification import get_classification_model
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    cuda = torch.device("cuda")
+    rng = np.random.default_rng(12)
+    scripts, out = {}, {}
+
+    def save_model(folder: Path, model, config: dict) -> list:
+        """The model's weights and its config.yaml in ``folder``; returns the scripts' --model/--config."""
+        folder.mkdir(parents=True)
+        save_safetensors(folder / "model.safetensors", {k: v.float().cpu().numpy() for k, v in model.state_dict().items()})
+        write_config_yaml(folder / "config.yaml", config)
+        return ["--model", str(folder / "model.safetensors"), "--config", str(folder / "config.yaml")]
+
+    def run_main(name: str, main, argv: list):
+        """``main(argv)`` on the card with its launches counted and its printout kept; returns its result."""
+        stdout = io.StringIO()
+        torch.cuda.synchronize()
+        launches.reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(stdout):
+            result = main(argv)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        got = launches.read()
+        scripts.setdefault(name, {}).update(main_s=seconds, launches=list(got))
+        print(f"example {name}: {seconds:.2f} s, launches {got}: " + " | ".join(stdout.getvalue().splitlines()[-3:]),
+              flush=True)
+        return result, stdout.getvalue()
+
+    def load_and_first_forward(name: str, load, forward):
+        """The in-process model (its load timed) and its first forward (timed), as the script loads and runs it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = load()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            result = forward(model)
+        torch.cuda.synchronize()
+        scripts.setdefault(name, {}).update(load_s=t1 - t0, first_forward_s=time.perf_counter() - t1)
+        return model, result
+
+    def close(got, want, what: str, rtol: float = 1e-3):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        err = float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+        check(got.shape == want.shape and err <= rtol, f"{what}: {got.shape} against {want.shape}, rel err {err}")
+        return err
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a. segmentation_sax and serve, each in a process of its own, on a 192x192x16x30 SAX cine
+        sax_config = PACKAGED["segmentation/acdc"]
+        sax_args = save_model(tmp / "seg_sax", init_weights(get_convunetr_model(from_dict(sax_config),
+                                                                                dtype=torch.bfloat16, device=cuda),
+                                                            seed=12), sax_config)
+        image, _ = seg_frames(rng, (192, 192, 16), scales=tuple(1.0 - 0.15 * np.sin(np.pi * t / 30) for t in range(30)))
+        spacing = (1.25, 1.25, 8.0, 1.0)
+        save_nifti(tmp / "sax_t.nii.gz", image, spacing=spacing)
+        model, labels = load_and_first_forward("segmentation_sax", lambda: from_finetuned(
+            "convunetr", sax_args[1], sax_args[3], dtype=torch.bfloat16, device=cuda), lambda m: segment_cine(m, image))
+        del model
+        # the two processes run at once, as two users' would: each is mostly host work (its start, the model's
+        # build, the files, the GIF) beside ~1 s on the card
+        commands = {
+            # --t_step 2: the GIF of every other frame, its LZW (in Python) half as long
+            "segmentation_sax": (["-m", "cinema_tpu_torch.examples.inference.segmentation_sax", *sax_args,
+                                  "--image", str(tmp / "sax_t.nii.gz"), "--out", str(tmp / "sax_out"),
+                                  "--t_step", "2"],
+                                 tmp / "sax_out" / "segmentation_sax_t.nii.gz"),
+            "serve_nifti": (["-m", "cinema_tpu_torch.serve", "--config", sax_args[3], "--model", sax_args[1],
+                             "--video", str(tmp / "sax_t.nii.gz"), "--out", str(tmp / "served.nii.gz")],
+                            tmp / "served.nii.gz"),
+        }
+        procs = {}
+        try:
+            for name, (argv, _) in commands.items():
+                with open(tmp / f"{name}.out", "w") as out, open(tmp / f"{name}.err", "w") as err:
+                    procs[name] = (subprocess.Popen([sys.executable, *argv], cwd=ROOT, stdout=out, stderr=err),
+                                   time.perf_counter())
+            seconds, deadline = {}, time.perf_counter() + 600
+            while len(seconds) < len(procs) and time.perf_counter() < deadline:
+                for name, (proc, t0) in procs.items():
+                    if name not in seconds and proc.poll() is not None:
+                        seconds[name] = time.perf_counter() - t0
+                time.sleep(0.05)
+        finally:
+            for proc, _ in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        for name, (proc, _) in procs.items():
+            check(proc.returncode == 0, f"{name} exited {proc.returncode}: {(tmp / f'{name}.err').read_text()[-3000:]}")
+            got, header = load_nifti(commands[name][1])
+            check(got.shape == image.shape and got.dtype == np.uint8, f"{name} labels {got.shape} {got.dtype}")
+            check(header.spacing == spacing, f"{name} wrote spacing {header.spacing}, the input has {spacing}")
+            agree = float((got == labels).mean())
+            # the same bf16 weights and kernels in two processes; cuDNN may pick other convolution algorithms there
+            check(agree >= 0.999, f"{name} labels agree with this process's segment_cine on {agree:.6f} of the voxels")
+            scripts.setdefault(name, {}).update(process_s=seconds[name], label_agreement=agree,
+                                                stdout=(tmp / f"{name}.out").read_text().strip().splitlines()[-2:])
+        gif = (tmp / "sax_out" / "segmentation_sax.gif").read_bytes()
+        png = (tmp / "sax_out" / "ventricle_volumes.png").read_bytes()
+        check(gif.startswith(b"GIF89a") and png.startswith(b"\x89PNG\r\n\x1a\n"), "segmentation_sax's GIF or PNG")
+        check(any(line.startswith("LVEF = ") for line in scripts["segmentation_sax"]["stdout"]), "no LVEF printed")
+        scripts["segmentation_sax"].update(gif_bytes=len(gif), png_bytes=len(png))
+
+        parts_s = {"processes": time.perf_counter() - t_phase}
+        # b. segmentation_lax_4c: ConvUNetR-base on lax_4c 256x256, 30 frames in one forward
+        lax_config = from_dict(sax_config)
+        lax_config.model.views = "lax_4c"
+        lax_config.data.lax = {"spacing": [1.0, 1.0], "patch_size": [256, 256], "in_chans": 1}
+        lax_args = save_model(tmp / "seg_lax", init_weights(get_segmentation_model(lax_config, dtype=torch.bfloat16,
+                                                                                  device=cuda), seed=13), lax_config)
+        video = rng.integers(0, 200, size=(256, 256, 1, 30)).astype(np.uint8)
+        video[96:160, 100:170] += 50
+        save_nifti(tmp / "lax_t.nii.gz", video, spacing=(1.4, 1.4, 8.0, 1.0))
+        model, (_, lax_labels) = load_and_first_forward("segmentation_lax_4c", lambda: from_finetuned(
+            "convunetr", lax_args[1], lax_args[3], dtype=torch.bfloat16, device=cuda),
+            lambda m: segmentation_lax_4c.segment_lax(m, video))
+        del model
+        run_main("segmentation_lax_4c", segmentation_lax_4c.main, [*lax_args, "--image", str(tmp / "lax_t.nii.gz"),
+                                                                   "--out", str(tmp / "lax_out")])
+        got, header = load_nifti(tmp / "lax_out" / "segmentation_lax_4c_t.nii.gz")
+        agree = float((got == lax_labels).mean())
+        check(got.shape == (256, 256, 1, 30) and agree >= 0.999, f"segmentation_lax_4c {got.shape}, agreement {agree}")
+        check(header.spacing == (1.4, 1.4, 8.0, 1.0) or np.allclose(header.spacing, (1.4, 1.4, 8.0, 1.0)),
+              f"segmentation_lax_4c spacing {header.spacing}")
+        scripts["segmentation_lax_4c"]["label_agreement"] = agree
+
+        # c. classification_cvd and regression_ef: ConvViT-base, ED and ES of 192x192x16 as channels
+        for frame in ("ed", "es"):
+            save_nifti(tmp / f"{frame}.nii.gz", seg_frames(rng, (192, 192, 16))[0][..., 0], spacing=(1.25, 1.25, 10.0))
+        for name, main, task in (("classification_cvd", classification_cvd.main, "classification"),
+                                 ("regression_ef", regression_ef.main, "regression")):
+            config = PACKAGED[f"{task}/acdc"]
+            args = save_model(tmp / name, init_weights(get_convvit_model(from_dict(config), dtype=torch.bfloat16,
+                                                                         device=cuda), seed=14), config)
+            study = edes.edes_image(tmp / "ed.nii.gz", tmp / "es.nii.gz", (192, 192, 16))
+            _, want = load_and_first_forward(name, lambda a=args: from_finetuned(
+                "convvit", a[1], a[3], dtype=torch.bfloat16, device=cuda), lambda m, t=task: edes.edes_forward(m, t, study))
+            got, _ = run_main(name, main, [*args, "--ed", str(tmp / "ed.nii.gz"), "--es", str(tmp / "es.nii.gz")])
+            got = np.asarray(got, np.float64).reshape(-1)
+            scripts[name].update(output=got.tolist(), rel_err=close(got, np.reshape(want, -1), name))
+
+        # d. the landmark pair on 256x256 PNGs written by viz.write_png (gray and RGB)
+        image = rng.integers(0, 80, size=(256, 256)).astype(np.uint8)
+        for cx, cy in ((60, 80), (128, 200), (190, 100)):
+            image[cx - 4 : cx + 4, cy - 4 : cy + 4] = 230
+        viz.write_png(tmp / "lax_2c.png", image.T)  # rows are y
+        viz.write_png(tmp / "lax_2c_rgb.png", np.repeat(image.T[..., None], 3, axis=-1))
+        heat_config = PACKAGED["segmentation/landmark"]
+        heat_args = save_model(tmp / "lmk_heat", init_weights(get_segmentation_model(from_dict(heat_config),
+                                                                                    dtype=torch.bfloat16, device=cuda),
+                                                             seed=15), heat_config)
+        png_image, size = landmark_heatmap.png_input(tmp / "lax_2c.png", (256, 256))
+        model, logits = load_and_first_forward("landmark_heatmap", lambda: from_finetuned(
+            "convunetr", heat_args[1], heat_args[3], dtype=torch.bfloat16, device=cuda),
+            lambda m: landmark_heatmap.heatmap_logits(m, png_image, size))
+        del model
+        host = logits.float().cpu()
+        want = heatmap_argmax(host)[0].reshape(3, 2).numpy()
+        ties = 0
+        for png in ("lax_2c.png", "lax_2c_rgb.png"):
+            got, _ = run_main("landmark_heatmap", landmark_heatmap.main, [*heat_args, "--image", str(tmp / png)])
+            for c in range(3):
+                if tuple(got[c]) != tuple(want[c]):  # a tie: the two maxima hold the same logit
+                    check(bool(host[0, got[c][0], got[c][1], c] == host[0, want[c][0], want[c][1], c]),
+                          f"landmark_heatmap {png} channel {c}: {got[c]} against this process's {want[c]}")
+                    ties += 1
+        scripts["landmark_heatmap"].update(coords=got.tolist(), ties=ties)
+
+        coord_config = PACKAGED["regression/landmark"]
+        coord_args = save_model(tmp / "lmk_coord", init_weights(get_classification_model(
+            from_dict(coord_config), dtype=torch.bfloat16, device=cuda), seed=16), coord_config)
+        model, out_coord = load_and_first_forward("landmark_coordinate", lambda: from_finetuned(
+            "convvit", coord_args[1], coord_args[3], dtype=torch.bfloat16, device=cuda),
+            lambda m: m({"lax_2c": torch.from_numpy(png_image).to(cuda)}).float().cpu().numpy())
+        del model
+        scaled = out_coord[0].reshape(3, 2) * np.array(size)
+        got, _ = run_main("landmark_coordinate", landmark_coordinate.main, [*coord_args, "--image", str(tmp / "lax_2c.png")])
+        # within one bf16 rounding of the scaled output (2^-8 relative, at least one pixel) and the truncation
+        diff = np.abs(got - scaled)
+        check(bool((diff <= np.maximum(np.abs(scaled) * 2.0**-8, 1.0) + 1.0).all()),
+              f"landmark_coordinate {got.tolist()} against this process's {scaled.tolist()}")
+        scripts["landmark_coordinate"].update(coords=got.tolist(), max_abs_diff=float(diff.max()))
+
+        # e. mae and mae_feature_extraction: CineMA-base, four views, a study of 3 frames
+        mae_config = PACKAGED["mae"]
+        mae_args = save_model(tmp / "mae", init_weights(get_mae_model(from_dict(mae_config), dtype=torch.bfloat16,
+                                                                      device=cuda), seed=17), mae_config)
+        study = tmp / "1000001_2"
+        study.mkdir()
+        sizes = {"sax": (192, 192, 16), "lax_2c": (256, 256), "lax_3c": (256, 256), "lax_4c": (256, 256)}
+        for view, view_size in sizes.items():
+            shape = (*view_size, 1) if len(view_size) == 2 else view_size
+            save_nifti(study / f"{study.name}_{view}_t.nii.gz", rng.integers(0, 255, size=(*shape, 3)).astype(np.uint8),
+                       spacing=(1.0, 1.0, 10.0, 1.0), frame_indexed=True)
+        mae_model, images = load_and_first_forward("mae", lambda: mae_from_pretrained(
+            mae_args[1], mae_args[3], dtype=torch.bfloat16, device=cuda), lambda m: mae.study_images(m, study))
+        result, _ = run_main("mae", mae.main, [*mae_args, "--study_dir", str(study), "--out", str(tmp / "mae_out")])
+        loss, _, masks, recons, _ = mae.reconstruct(mae_model, images, 0.75, result[2])
+        scripts["mae"].update(loss=float(result[0]), loss_rel_err=close(float(result[0]), float(loss), "mae loss"))
+        for view in sizes:
+            close(np.load(tmp / "mae_out" / f"recon_{view}.npy"), recons[view], f"mae recon_{view}.npy")
+        check((tmp / "mae_out" / "mae_reconstruction.png").read_bytes()[:4] == b"\x89PNG", "no MAE reconstruction PNG")
+        feats, _ = run_main("mae_feature_extraction", mae_feature_extraction.main,
+                            [*mae_args, "--study_dir", str(study), "--out", str(tmp / "features.npz")])
+        with torch.no_grad():
+            want = mae_model.feature_forward({v: torch.from_numpy(x).to(cuda) for v, x in images.items()})
+        check(sorted(np.load(tmp / "features.npz").files) == sorted(["cls", *sizes]), "the features' keys")
+        for key, value in want.items():
+            close(feats[key], value.float().cpu().numpy(), f"mae_feature_extraction {key}")
+        scripts["mae_feature_extraction"]["shapes"] = {k: list(v.shape) for k, v in feats.items()}
+        del mae_model
+
+        parts_s["in_process"] = time.perf_counter() - t_phase - parts_s["processes"]
+        # f. the four training tutorials, one short epoch each on synthetic data
+        acdc = tmp / "acdc"
+        write_example_acdc(acdc, 12, 3, seed=18)  # 6 held out, 6 to train on: one or two steps of 4
+        ukb = tmp / "ukb"
+        ukb.mkdir()
+        write_ukb_studies(ukb, 8, {"sax": (192, 192, 16), "lax_2c": (256, 256), "lax_3c": (256, 256),
+                                   "lax_4c": (256, 256)}, 4, seed=19)
+        for name, main, task, data_dir in (("train_classification", classification.main, "classification/acdc", acdc),
+                                           ("train_regression", regression.main, "regression/acdc", acdc),
+                                           ("train_segmentation", segmentation.main, "segmentation/acdc", acdc),
+                                           ("train_pretrain", pretrain.main, "mae", ukb)):
+            overrides = ["train.batch_size_per_device=4", "train.eval_interval=1", f"logging.dir={tmp / name}"]
+            _, printed = run_main(name, main, ["--data_dir", str(data_dir), "--n_epochs", "1", *overrides])
+            loss = float(printed.split("train loss ")[1].split()[0])
+            check(np.isfinite(loss), f"{name}: train loss {loss}")
+            path = tmp / name / ("last.safetensors" if task == "mae" else "best.safetensors")
+            config = from_dict(PACKAGED[task])
+            build = {"mae": get_mae_model, "segmentation/acdc": get_segmentation_model}.get(task, get_classification_model)
+            model = build(config, dtype=torch.bfloat16, device=cuda)
+            model.load_state_dict({k: torch.from_numpy(v) for k, v in load_safetensors(path).items()}, strict=True)
+            scripts[name].update(loss=loss, reloaded=str(path.name))
+            del model
+            check(scripts[name]["launches"][0] > 0 and scripts[name]["launches"][1] > 0,
+                  f"{name} launched no packed forward or backward kernel: {scripts[name]['launches']}")
+    check(launches.totals["packed_fwd"] > 0 and launches.totals["packed_bwd"] > 0,
+          f"the examples launched no packed kernel: {launches.totals}")
+    phase_s = time.perf_counter() - t_phase
+    parts_s["tutorials"] = phase_s - parts_s["processes"] - parts_s["in_process"]
+    report["examples"] = {"scripts": scripts, "launches": launches.totals, "parts_s": parts_s, "phase_s": phase_s}
+    print("examples", json.dumps(report["examples"]), f"on {smi}", flush=True)
+    return launches.totals
+
+
 def tf32_sass() -> dict:
     """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 forward function in the built library's
     machine code, by cuobjdump (None where the toolkit has none)."""
@@ -2991,7 +3322,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 11. the eight paths at full width, launch counts set to 0 before each and read after
+    # 4. to 12. the nine paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -3001,6 +3332,7 @@ def main() -> None:
     mnms = mnms_phase(report, smi, args.profile)
     cine = cine_phase(report, smi, args.profile)
     baseline_phase(report, smi, args.profile)
+    examples = examples_phase(report, smi)
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
@@ -3008,17 +3340,18 @@ def main() -> None:
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
                    serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
-                   + mnms["packed_fwd"] + cine["packed_fwd"],
+                   + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
                     "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"],
-                    "cine": cine["packed_fwd"]},
+                    "cine": cine["packed_fwd"], "examples": examples["packed_fwd"]},
                    fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
                    train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"] + mnms["packed_bwd"]
-                   + cine["packed_bwd"],
+                   + cine["packed_bwd"] + examples["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"],
-                    "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"], "cine": cine["packed_bwd"]}, bwd_rows),
+                    "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"], "cine": cine["packed_bwd"],
+                    "examples": examples["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
@@ -3030,6 +3363,7 @@ def main() -> None:
     check(all(k["launches_by_path"]["landmark"] > 0 for k in kernels[:2]), "the landmark path launched no packed kernel")
     check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
     check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
+    check(all(k["launches_by_path"]["examples"] > 0 for k in kernels[:2]), "the examples launched no packed kernel")
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

@@ -542,34 +542,40 @@ def gaussian_heatmap(shape: Sequence[int], centers: np.ndarray, sigma: float = 3
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
-def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray) -> np.ndarray:
-    """One scanline of one byte per pixel, its PNG filter undone (None, Sub, Up, Average, Paeth)."""
+# samples per pixel of the 8-bit colour types read here: gray, RGB, gray + alpha, RGBA
+_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
+
+
+def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
+    """One scanline of ``bpp`` bytes per pixel, its PNG filter undone (None, Sub, Up, Average, Paeth); the
+    left neighbour of a byte is the byte ``bpp`` before it."""
     if kind == 0:
         return line
-    if kind == 1:  # Sub: a running sum of the row, mod 256
-        return np.cumsum(line, dtype=np.uint8)
+    if kind == 1:  # Sub: a running sum of each channel along the row, mod 256
+        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
     if kind == 2:  # Up
         return line + prior
     f, b = line.tolist(), prior.tolist()
-    out, a, c = [0] * len(f), 0, 0
+    out = [0] * len(f)
     if kind == 3:  # Average of the left and the upper neighbour
         for i, (fi, bi) in enumerate(zip(f, b)):
-            a = (fi + ((a + bi) >> 1)) & 255
-            out[i] = a
+            out[i] = (fi + (((out[i - bpp] if i >= bpp else 0) + bi) >> 1)) & 255
     elif kind == 4:  # Paeth: of left, upper and upper-left, the one nearest to left + upper - upper-left
         for i, (fi, bi) in enumerate(zip(f, b)):
+            a, c = (out[i - bpp], b[i - bpp]) if i >= bpp else (0, 0)
             pa, pb, pc = abs(bi - c), abs(a - c), abs(a + bi - 2 * c)
-            a = (fi + (a if pa <= pb and pa <= pc else bi if pb <= pc else c)) & 255
-            out[i], c = a, bi
+            out[i] = (fi + (a if pa <= pb and pa <= pc else bi if pb <= pc else c)) & 255
     else:
         raise ValueError(f"Unknown PNG filter type {kind}.")
     return np.asarray(out, np.uint8)
 
 
 def read_png_gray(path: Union[str, Path]) -> np.ndarray:
-    """An 8-bit grayscale, non-interlaced PNG as a float32 (x, y) array, the JAX package's
-    ``np.asarray(Image.open(path).convert("L"), np.float32).T`` for the PNGs its landmark
-    preprocessing writes; ancillary chunks are skipped. Any other PNG raises ``ValueError``."""
+    """An 8-bit non-interlaced PNG, gray, gray + alpha, RGB or RGBA, as a float32 (x, y) array of its
+    luminance: the JAX package's ``np.asarray(Image.open(path).convert("L"), np.float32).T``. The luminance
+    is PIL's, in its integer arithmetic: gray as it is, ``(19595 R + 38470 G + 7471 B + 2^15) >> 16`` for
+    colour; alpha is dropped. Ancillary chunks are skipped. Palette, 16-bit and interlaced PNGs raise
+    ``ValueError``."""
     data = Path(path).read_bytes()
     if data[:8] != _PNG_SIGNATURE:
         raise ValueError(f"{path} is not a PNG file.")
@@ -590,20 +596,28 @@ def read_png_gray(path: Union[str, Path]) -> np.ndarray:
     if header is None or not idat:
         raise ValueError(f"{path}: no IHDR or IDAT chunk.")
     width, height, bit_depth, colour_type, _, _, interlace = header
-    if (bit_depth, colour_type, interlace) != (8, 0, 0):
+    if bit_depth != 8 or colour_type not in _PNG_CHANNELS or interlace != 0:
         raise ValueError(
             f"{path}: bit depth {bit_depth}, colour type {colour_type}, interlace {interlace}; only 8-bit "
-            "grayscale non-interlaced PNGs are read here. Other images wait for the port of the data engine "
-            "(ROADMAP.md, Queue 1, item 14).")
+            "non-interlaced gray, gray + alpha, RGB and RGBA PNGs are read here. Other images wait for the port "
+            "of the data engine (ROADMAP.md, Queue 1, item 14).")
+    bpp = _PNG_CHANNELS[colour_type]
+    stride = width * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (width + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {height * (width + 1)}.")
-    rows = raw.reshape(height, width + 1)
-    image = np.empty((height, width), np.uint8)
-    prior = np.zeros(width, np.uint8)
+    if raw.size != height * (stride + 1):
+        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {height * (stride + 1)}.")
+    rows = raw.reshape(height, stride + 1)
+    pixels = np.empty((height, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
     for r in range(height):
-        prior = image[r] = _unfilter_row(int(rows[r, 0]), rows[r, 1:], prior)
-    return image.T.astype(np.float32)
+        prior = pixels[r] = _unfilter_row(int(rows[r, 0]), rows[r, 1:], prior, bpp)
+    pixels = pixels.reshape(height, width, bpp)
+    if colour_type in (0, 4):
+        gray = pixels[..., 0]
+    else:
+        rgb = pixels[..., :3].astype(np.uint32)
+        gray = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
+    return gray.T.astype(np.float32)
 
 
 class LandmarkDetectionDataset:

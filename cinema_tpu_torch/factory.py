@@ -260,6 +260,25 @@ def expected_frozen_pos_embeds(model: nn.Module) -> Dict[str, np.ndarray]:
     }
 
 
+def _load_strict(model: nn.Module, model_path: Union[str, Path]) -> None:
+    """Load a safetensors checkpoint into ``model`` strictly, its frozen pos-embed tables checked and dropped."""
+    state = drop_frozen_pos_embeds(load_safetensors(model_path), expected_frozen_pos_embeds(model))
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+
+
+def mae_from_pretrained(
+    model_path: Union[str, Path],
+    config_path: Union[str, Path],
+    dtype: torch.dtype = torch.float32,
+    device: Union[str, torch.device] = "cuda",
+) -> CineMA:
+    """Rebuild a pretrained CineMA from local config.yaml + safetensors paths, in eval mode (the JAX package's
+    ``mae_from_pretrained``, cinema_tpu/factory.py:236-262, whose HuggingFace download is not ported)."""
+    model = get_mae_model(load_config(config_path), dtype=dtype, device=device, remat=False)
+    _load_strict(model, model_path)
+    return model.eval()
+
+
 def from_finetuned(
     kind: str,
     model_path: Union[str, Path],
@@ -276,6 +295,5 @@ def from_finetuned(
         model = get_convunetr_model(load_config(config_path), dtype=dtype, device=device, remat=False)
     else:
         model = get_convvit_model(load_config(config_path), dtype=dtype, device=device, remat=False)
-    state = drop_frozen_pos_embeds(load_safetensors(model_path), expected_frozen_pos_embeds(model))
-    model.load_state_dict({k: torch.from_numpy(v) for k, v in state.items()}, strict=True)
+    _load_strict(model, model_path)
     return model

@@ -22,11 +22,7 @@ import numpy as np
 import torch
 from scipy import ndimage
 
-# EF clinical thresholds in percent (cinema_tpu/constants.py; reference cinema/metric.py:14-16)
-REDUCED_EF = 40
-NORMAL_EF = 55
-# the label of the LV cavity in the segmentation tasks' maps (cinema_tpu/constants.py:21)
-LV_LABEL = 3
+from cinema_tpu_torch.constants import NORMAL_EF, REDUCED_EF
 
 ArrayLike = Union[torch.Tensor, np.ndarray, float]
 

@@ -164,6 +164,7 @@ class ConvUNetR(nn.Module):
                 for v in self.views
             }
         )
+        self.enc_depth = enc_depth  # the layer decay's block count (train/optim.py layer_decay_scales)
         self.encoder = ViTEncoder(enc_embed_dim, enc_depth, enc_n_heads, mlp_ratio, qkv_bias, norm_eps, drop_path,
                                   remat=remat, rotary=rotary, mlp_type=mlp_type)
 

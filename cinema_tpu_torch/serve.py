@@ -7,21 +7,23 @@ are cropped back to the input's shape.
 
 Usage:
     python -m cinema_tpu_torch.serve --config config.yaml --model model.safetensors \
-        --video cine.npy --out labels.npy [--device cuda]
+        --video cine.nii.gz --out labels.nii.gz [--device cuda]
 
-``--video`` is a (x, y, z, t) array in .npy; ``--out`` receives uint8
-labels of the same shape. NIfTI input and output are not ported yet.
+``--video`` is a (x, y, z, t) cine and ``--out`` receives uint8 labels of the
+same shape; each picks its format by its suffix: ``.nii`` or ``.nii.gz``
+(NIfTI-1, the output keeping the input's voxel spacing) or ``.npy``.
 """
 
 from __future__ import annotations
 
 import argparse
 from pathlib import Path
-from typing import Sequence
+from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
 
+from cinema_tpu_torch.data.nifti import load_nifti, save_nifti
 from cinema_tpu_torch.data.transforms import scale_intensity, spatial_pad
 from cinema_tpu_torch.factory import from_finetuned
 from cinema_tpu_torch.inference import video_forward
@@ -48,20 +50,32 @@ def segment_cine(model: ConvUNetR, video: np.ndarray, chunk: int = CHUNK) -> np.
     return np.moveaxis(labels, 0, -1)
 
 
-def main() -> None:
+def _is_nifti(path: Path) -> bool:
+    return path.name.endswith((".nii", ".nii.gz"))
+
+
+def main(argv: Optional[List[str]] = None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--config", required=True, type=Path, help="config.yaml of the finetuned model")
     parser.add_argument("--model", required=True, type=Path, help="safetensors weights")
-    parser.add_argument("--video", required=True, type=Path, help="(x, y, z, t) SAX cine as .npy")
-    parser.add_argument("--out", required=True, type=Path, help="output .npy of uint8 labels")
+    parser.add_argument("--video", required=True, type=Path, help="(x, y, z, t) SAX cine: .nii, .nii.gz or .npy")
+    parser.add_argument("--out", required=True, type=Path, help="uint8 labels: .nii, .nii.gz or .npy")
     parser.add_argument("--device", default="cuda")
-    args = parser.parse_args()
+    args = parser.parse_args(argv)
 
     dtype = torch.bfloat16 if torch.device(args.device).type == "cuda" else torch.float32
     model = from_finetuned("convunetr", args.model, args.config, dtype=dtype, device=args.device)
-    labels = segment_cine(model, np.load(args.video))
+    if _is_nifti(args.video):
+        video, header = load_nifti(args.video)
+        spacing = header.spacing
+    else:
+        video, spacing = np.load(args.video), None
+    labels = segment_cine(model, video)
     args.out.parent.mkdir(parents=True, exist_ok=True)
-    np.save(args.out, labels)
+    if _is_nifti(args.out):
+        save_nifti(args.out, labels, spacing=spacing)
+    else:
+        np.save(args.out, labels)
     print(f"Saved labels {labels.shape} to {args.out}.")
 
 

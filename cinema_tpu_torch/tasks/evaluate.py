@@ -38,6 +38,7 @@ import torch
 from torch import nn
 
 from cinema_tpu_torch.config import Config, from_dict, load_config
+from cinema_tpu_torch.constants import LV_LABEL
 from cinema_tpu_torch.convert import drop_frozen_pos_embeds, load_safetensors
 from cinema_tpu_torch.data import (
     BatchLoader,
@@ -55,7 +56,7 @@ from cinema_tpu_torch.data import (
 from cinema_tpu_torch.data.datasets import column_means, write_table
 from cinema_tpu_torch.data.transforms import get_segmentation_transforms
 from cinema_tpu_torch.factory import expected_frozen_pos_embeds, get_segmentation_model, resolve_device
-from cinema_tpu_torch.metrics import LV_LABEL, ejection_fraction, get_ef_region, segmentation_metrics
+from cinema_tpu_torch.metrics import ejection_fraction, get_ef_region, segmentation_metrics
 from cinema_tpu_torch.tasks.classification import classification_eval_dataloader, get_classification_model
 from cinema_tpu_torch.tasks.regression import regression_eval_dataloader
 from cinema_tpu_torch.tasks.regression.landmark import landmark_regression_eval_dataloader

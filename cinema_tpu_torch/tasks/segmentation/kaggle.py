@@ -21,9 +21,10 @@ import torch
 from torch import nn
 
 from cinema_tpu_torch.config import Config
+from cinema_tpu_torch.constants import LV_LABEL
 from cinema_tpu_torch.data import BatchLoader, KaggleVideoDataset, read_metadata
 from cinema_tpu_torch.data.transforms import Compose, ScaleIntensityd, SpatialPadd
-from cinema_tpu_torch.metrics import LV_LABEL, ejection_fraction, get_ef_region
+from cinema_tpu_torch.metrics import ejection_fraction, get_ef_region
 from cinema_tpu_torch.train.loop import pandas_sample
 
 MAX_N_FRAMES = 30  # reference kaggle/eval.py

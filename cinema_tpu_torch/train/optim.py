@@ -13,6 +13,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Dict, Mapping, Optional
 
+import numpy as np
 import torch
 
 from cinema_tpu_torch.models.convvit import get_layer_id_for_vit
@@ -130,3 +131,34 @@ class EarlyStopping:
         self.best_metric = float(state.get("best_metric", float("inf")))
         self.patience_count = int(state.get("patience_count", 0))
         self.should_stop = self.patience_count >= self.patience
+
+
+class CosineScheduler:
+    """Precomputed freeze -> warmup -> cosine value schedule (port of cinema_tpu/train/optim.py:215-248;
+    reference optim.py:71-119, DINOv2 style), in numpy as the JAX package keeps it."""
+
+    def __init__(
+        self,
+        base_value: float,
+        final_value: float,
+        total_iters: int,
+        warmup_iters: int = 0,
+        start_warmup_value: float = 0.0,
+        freeze_iters: int = 0,
+    ) -> None:
+        self.final_value = final_value
+        self.total_iters = total_iters
+        freeze_schedule = np.zeros((freeze_iters,))
+        warmup_schedule = np.linspace(start_warmup_value, base_value, warmup_iters)
+        iters = np.arange(total_iters - warmup_iters - freeze_iters)
+        schedule = final_value + 0.5 * (base_value - final_value) * (1 + np.cos(np.pi * iters / len(iters)))
+        self.schedule = np.concatenate((freeze_schedule, warmup_schedule, schedule))
+        if len(self.schedule) != self.total_iters:
+            raise ValueError(
+                f"Length of schedule {len(self.schedule)} should be equal to total_iters {self.total_iters}."
+            )
+
+    def __getitem__(self, it: int):
+        if it >= self.total_iters:
+            return self.final_value
+        return self.schedule[it]

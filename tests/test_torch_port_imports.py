@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of ``cinema_tpu_torch`` pulls
-in neither jax nor the JAX package, nor PIL, pandas or PyYAML, which the card's
-machine does not have; and its entry points run on the card unless the caller
-asks for the CPU."""
+in neither jax nor the JAX package, nor PIL, matplotlib, pandas or PyYAML, which
+the card's machine does not have; and its entry points, the example scripts
+among them, run on the card unless the caller asks for the CPU."""
 
 import subprocess
 import sys
@@ -23,7 +23,8 @@ names = [m.name for m in pkgutil.walk_packages(cinema_tpu_torch.__path__, "cinem
 for name in names:
     importlib.import_module(name)
 bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinema_tpu", "PIL", "pandas", "yaml"))
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax", "cinema_tpu", "PIL", "matplotlib", "pandas",
+                                    "yaml"))
 print(len(names), bad)
 print(" ".join(names))
 """
@@ -66,6 +67,19 @@ CINE_MODULES = {"cinema_tpu_torch.tasks.evaluate",
 # and every module of the baselines slice: the UNet and the ResNet
 BASELINE_MODULES = {"cinema_tpu_torch.models.unet", "cinema_tpu_torch.models.resnet"}
 
+# and every module of the examples slice: the example scripts, their shared helpers, viz and the constants
+INFERENCE_EXAMPLES = ["segmentation_sax", "segmentation_lax_4c", "classification_cvd", "classification_sex",
+                      "classification_vendor", "regression_age", "regression_bmi", "regression_ef",
+                      "landmark_heatmap", "landmark_coordinate", "mae", "mae_feature_extraction"]
+TRAIN_EXAMPLES = ["classification", "regression", "segmentation", "pretrain"]
+EXAMPLE_MODULES = {
+    "cinema_tpu_torch.viz", "cinema_tpu_torch.constants", "cinema_tpu_torch.examples",
+    "cinema_tpu_torch.examples.common", "cinema_tpu_torch.examples.inference", "cinema_tpu_torch.examples.train",
+    "cinema_tpu_torch.examples.inference.edes",
+    *(f"cinema_tpu_torch.examples.inference.{name}" for name in INFERENCE_EXAMPLES),
+    *(f"cinema_tpu_torch.examples.train.{name}" for name in TRAIN_EXAMPLES),
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -76,7 +90,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert int(n_modules) >= 54, proc.stdout
     assert bad.strip() == "[]", proc.stdout
     wanted = (PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
-              | CINE_MODULES | BASELINE_MODULES)
+              | CINE_MODULES | BASELINE_MODULES | EXAMPLE_MODULES)
     assert wanted <= set(names.split()), proc.stdout
 
 
@@ -253,3 +267,49 @@ def test_baseline_factories_default_to_the_card(task, name):
     build = factory.get_segmentation_model if name == "unet" else get_classification_model
     with pytest.raises(RuntimeError, match="CUDA"):
         build(config)
+
+
+def _fixture(name):
+    folder = next((REPO / "tests" / "fixtures" / "example_ckpts").glob(f"{name}-*"))
+    return ["--model", str(folder / f"{name}.safetensors"), "--config", str(folder / f"{name}.yaml")]
+
+
+_EXAMPLE_ARGS = {
+    "segmentation_sax": [*_fixture("seg_sax"), "--image", "cine.nii.gz"],
+    "segmentation_lax_4c": [*_fixture("seg_lax"), "--image", "cine.nii.gz"],
+    "landmark_heatmap": [*_fixture("lmk_heat"), "--image", "image.png"],
+    "landmark_coordinate": [*_fixture("lmk_coord"), "--image", "image.png"],
+    "mae": [*_fixture("mae"), "--study_dir", "study"],
+    "mae_feature_extraction": [*_fixture("mae"), "--study_dir", "study"],
+}
+
+
+@pytest.mark.parametrize("name", INFERENCE_EXAMPLES)
+def test_inference_examples_default_to_the_card(name):
+    """Without ``--device`` the script asks for the card before it loads a model or reads an input."""
+    _no_card()
+    import importlib
+
+    module = importlib.import_module(f"cinema_tpu_torch.examples.inference.{name}")
+    model = "clf" if name.startswith("classification") else "reg"
+    argv = _EXAMPLE_ARGS.get(name, [*_fixture(model), "--ed", "ed.nii.gz", "--es", "es.nii.gz"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(argv)
+
+
+@pytest.mark.parametrize("name", TRAIN_EXAMPLES)
+def test_train_examples_default_to_the_card(name, tmp_path):
+    """Without ``--device`` the tutorial asks for the card before it reads the data."""
+    _no_card()
+    import importlib
+
+    module = importlib.import_module(f"cinema_tpu_torch.examples.train.{name}")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        module.main(["--data_dir", str(tmp_path / "missing")])
+
+
+def test_mae_from_pretrained_defaults_to_the_card():
+    _no_card()
+    mae = _fixture("mae")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        factory.mae_from_pretrained(mae[1], mae[3])

@@ -362,8 +362,10 @@ def test_read_png_gray_refuses_other_pngs(tmp_path, mode):
 
     path = tmp_path / "other.png"
     image = _test_image(np.random.default_rng(10), 8, 8)
-    if mode in ("RGB", "P"):
+    if mode == "P":
         Image.fromarray(image).convert(mode).save(path)
+    elif mode == "RGB":  # 8-bit RGB is read (test_torch_port_viz.py); 16-bit RGB is not
+        path.write_bytes(_handmade_png(image, [0], bit_depth=16, colour_type=2))
     elif mode == "I;16":
         Image.fromarray(image.astype(np.uint16) * 257).save(path)
     elif mode == "interlaced":
