@@ -11,21 +11,23 @@ card:
 1. device: a CUDA card must be present; prints its name and power limit;
 2. build: compiles every kernel under ``cinema_tpu_torch/csrc`` with nvcc
    (one process per source, all at once), prints ptxas's registers and
-   spills, counts the TF32 tensor-core instructions of the f32 forward in
-   the built code, and prints what one TF32 product does with the low 13
+   spills, counts the TF32 tensor-core instructions of the f32 forward and
+   backward in the built code, and prints what one TF32 product does with the low 13
    mantissa bits of an f32 operand;
 3. kernels: the packed and the per-head attention forward and backward
    kernels against their plain versions at the paths' shapes (the landmark
    paths' 257 tokens, EMIDEC's 289 and MyoPS2020's 577 among them) and at
-   ragged and cross-attention shapes
+   ragged and cross-attention shapes, the f32 backward of each layout also
+   at a ragged shape whose every score is near -160 (log2 domain)
    (the per-head ones with v as the strided v
    half of a fused kv projection and through transposed views), with each
    one's time per call, its device time alone (launches back to back,
    enqueued while the device sleeps, so the host's share is hidden), the
    plain version's, one PyTorch library call's (a yardstick only; per call
-   and device alone) and the card's lower bound (f32 forward: three TF32
-   passes on the tensor cores, and ``bound_simt_ms``, one f32 pass on the
-   CUDA cores);
+   and device alone) and the card's lower bound (f32, forward and backward:
+   three TF32 passes on the tensor cores, and ``bound_simt_ms``, one f32 pass
+   on the CUDA cores); each backward also with its passes apart (dk/dv, dq,
+   delta);
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
@@ -157,6 +159,11 @@ card:
    three classes) and UKB studies (finite loss, the safetensors reloaded);
    both packed kernels must be launched.
 
+Every f32 check step (phases 5-8 and 10) is also timed through the kernels
+and through the plain attention, and its backward launches are counted apart
+from its path's (the ``f32_steps`` line; ``f32_step_launches`` in the
+kernels line): only those steps run the f32 backward.
+
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
 
@@ -192,9 +199,9 @@ import torch
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 PEAK_TF32 = 495e12
 PEAK_BYTES = 3.35e12
-# the f32 forward runs its products as three TF32 passes on the tensor cores (split TF32), so its bound is three
-# passes at the TF32 peak; the f32 backward still runs on the CUDA cores and keeps the f32 peak
-F32_FWD_PASSES = 3
+# the f32 kernels, forward and backward, run their products as three TF32 passes on the tensor cores (split TF32),
+# so their bound is three passes at the TF32 peak (one f32 pass on the CUDA cores is kept as ``bound_simt_ms``)
+F32_PASSES = 3
 
 # kernel vs plain version, largest abs error on the output:
 # - f32: both sum in f32, in another order; exp2 against exp (a few ulp)
@@ -297,22 +304,22 @@ def timings(row: dict, kernel, plain, library, bound: tuple[float, str]) -> None
     row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
 
 
-def fwd_flop_s(flop: float, dtype: torch.dtype, simt: bool = False) -> float:
-    """Seconds of the forward's ``flop`` at the card's peak: bf16 on the tensor cores; f32 as the kernel's three
-    TF32 passes on the tensor cores, or with ``simt`` as one f32 pass on the CUDA cores (the kernel's
+def flop_s(flop: float, dtype: torch.dtype, simt: bool = False) -> float:
+    """Seconds of a kernel's ``flop`` at the card's peak: bf16 on the tensor cores; f32 as the kernels' three
+    TF32 passes on the tensor cores, or with ``simt`` as one f32 pass on the CUDA cores (the kernels'
     earlier design, kept as ``bound_simt_ms``)."""
     if dtype == torch.float32 and not simt:
-        return F32_FWD_PASSES * flop / PEAK_TF32
+        return F32_PASSES * flop / PEAK_TF32
     return flop / PEAK_FLOPS[dtype]
 
 
 def attention_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype,
                        simt: bool = False) -> tuple[float, str]:
     """Least time on an H100 for packed attention: 4*B*Tq*Tk*E flop (q.k^T and
-    P.v, see fwd_flop_s) against q, k, v read once and the output written once."""
-    flop_s = fwd_flop_s(4 * batch * n_q * n_k * embed, dtype, simt)
+    P.v, see flop_s) against q, k, v read once and the output written once."""
+    op_s = flop_s(4 * batch * n_q * n_k * embed, dtype, simt)
     byte_s = (2 * batch * n_q * embed + 2 * batch * n_k * embed) * torch.finfo(dtype).bits / 8 / PEAK_BYTES
-    return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
 
 
 def _attention_inputs(batch, n_q, n_k, embed, dtype, gen, q_scale):
@@ -355,25 +362,31 @@ def check_attention(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_scale=
     return row
 
 
-def attention_bwd_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype) -> tuple[float, str]:
+def attention_bwd_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype,
+                           simt: bool = False) -> tuple[float, str]:
     """Least time on an H100 for the packed attention backward: five products,
-    10*B*Tq*Tk*E flop, against q, k, v, o, g read once and dq, dk, dv written once."""
-    flop_s = 10 * batch * n_q * n_k * embed / PEAK_FLOPS[dtype]
+    10*B*Tq*Tk*E flop (see flop_s), against q, k, v, o, g read once and dq, dk, dv written once."""
+    op_s = flop_s(10 * batch * n_q * n_k * embed, dtype, simt)
     byte_s = (4 * batch * n_q * embed + 4 * batch * n_k * embed) * torch.finfo(dtype).bits / 8 / PEAK_BYTES
-    return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
 
 
-def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_scale=1.0):
-    """Backward kernel against flash_attention_packed_bwd_plain on the same q, k, v, out, g."""
+def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_scale=1.0, low_scores=False):
+    """Backward kernel against flash_attention_packed_bwd_plain on the same q, k, v, out, g; with
+    ``low_scores`` every score near -LOW_SCORES (log2 domain)."""
     from cinema_tpu_torch.ops import flash_attention as fa
 
     q, k, v = _attention_inputs(batch, n_q, n_k, embed, dtype, gen, q_scale)
+    if low_scores:
+        _scores_near_minus_low(q.unflatten(-1, (n_heads, -1)), k.unflatten(-1, (n_heads, -1)))
     g = torch.randn(batch, n_q, embed, device="cuda", generator=gen).to(dtype)
     out, lse = fa.flash_attention_packed_forward(q, k, v, n_heads, save_lse=True)
+    check(not low_scores or lse.max().item() < -128, f"a row's log-sum-exp is {lse.max().item()}, not below -128")
     got = fa.flash_attention_packed_backward(q, k, v, out, lse, g, n_heads)
     torch.cuda.synchronize()
     want = fa.flash_attention_packed_bwd_plain(q, k, v, out, g, n_heads)
-    row = {"shape": [batch, n_q, n_k, embed, n_heads], "dtype": str(dtype).split(".")[-1], "q_scale": q_scale}
+    row = {"shape": [batch, n_q, n_k, embed, n_heads], "dtype": str(dtype).split(".")[-1], "q_scale": q_scale,
+           "low_scores": low_scores}
     worst = 0.0
     for name, x, w, ref in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
         check(x.dtype == dtype and x.shape == ref.shape, f"{name} is {x.dtype} {tuple(x.shape)}")
@@ -399,6 +412,8 @@ def check_attention_bwd(batch, n_q, n_k, embed, n_heads, dtype, gen, timed, q_sc
                 lambda: fa.flash_attention_packed_bwd_plain(q, k, v, out, g, n_heads),
                 lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True),
                 attention_bwd_bound_ms(batch, n_q, n_k, embed, dtype))
+        if dtype == torch.float32:
+            row["bound_simt_ms"] = attention_bwd_bound_ms(batch, n_q, n_k, embed, dtype, simt=True)[0]
         # the passes apart, through the same entry point: each call also runs the delta pre-pass
         dq, dk, dv = got
         row["dkdv_ms"] = median_ms(lambda: fa._launch_bwd(q, k, v, out, lse, g, n_heads, None, dk, dv))
@@ -418,6 +433,18 @@ TRAIN_DECODER = (16, 2305, 768, 512, 16)
 FINETUNE_PACKED = (4, 2305, 2305, 768, 12)
 EVAL_PACKED = (1, 2305, 2305, 768, 12)
 RAGGED = [(2, 1, 1, 768, 12), (2, 127, 127, 768, 12), (2, 129, 129, 768, 12), (2, 129, 200, 512, 16)]
+# A key past n_k has a zero row of k, so its score is 0 and, unmasked, its P = exp2(0 - lse) overflows once
+# every real score of the row is below -128 (log2 domain): the f32 dq pass masks such keys on its last stage.
+# One ragged f32 backward check of each layout runs with every score near -LOW_SCORES to show that mask.
+LOW_SCORES = 160.0
+
+
+def _scores_near_minus_low(q, k) -> None:
+    """In place, on (..., heads, head_dim) views: the last column of every head of q set to -LOW_SCORES /
+    (head_dim^-0.5 * log2 e) and that of k to 1, which puts every score, log2 domain, near -LOW_SCORES."""
+    d = q.shape[-1]
+    q[..., d - 1] = -LOW_SCORES / (d**-0.5 * 1.4426950408889634)
+    k[..., d - 1] = 1.0
 # the landmark paths' attention: a 256x256 lax_2c image, patch 4 and two x2 stem levels give a 16x16 grid,
 # 256 tokens + cls = 2 * 128 + 1 (two full q tiles and a one-row tail); a training micro-batch or a
 # four-patch evaluation, and a one-patch evaluation
@@ -457,7 +484,7 @@ def check_attention_shapes(gen, timed=True) -> list[dict]:
 def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
     """The backward kernel against its plain version at the two pretraining shapes (the first two
     rows), the fine-tuning, landmark, EMIDEC and MyoPS2020 shapes, with sharp scores, and at ragged and
-    cross shapes; bf16 then f32."""
+    cross shapes; bf16 then f32, and an f32 ragged shape with every score near -LOW_SCORES."""
     rows = []
     for dtype in (torch.bfloat16, torch.float32):
         rows.append(check_attention_bwd(*TRAIN_ENCODER, dtype, gen, timed))
@@ -472,6 +499,7 @@ def check_attention_bwd_shapes(gen, timed=True) -> list[dict]:
             rows.append(check_attention_bwd(*shape, dtype, gen, False, q_scale=SHARP_Q))
         for shape in RAGGED:
             rows.append(check_attention_bwd(*shape, dtype, gen, False))
+    rows.append(check_attention_bwd(*RAGGED[2], torch.float32, gen, False, low_scores=True))
     return rows
 
 
@@ -501,13 +529,12 @@ def _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout):
 
 def heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products: int, simt: bool = False) -> tuple[float, str]:
     """Least time on an H100 for per-head attention: ``products`` matrix products of 2*B*Tq*Tk*H*D flop
-    (2 forward, see fwd_flop_s; 5 backward, f32 on the CUDA cores) against each operand read once and each
-    result written once (forward q, k, v, out; backward also g, dq, dk, dv)."""
-    flop = products * 2 * batch * n_q * n_k * heads * d
-    flop_s = fwd_flop_s(flop, dtype, simt) if products == 2 else flop / PEAK_FLOPS[dtype]
+    (2 forward, 5 backward; see flop_s) against each operand read once and each result written once (forward
+    q, k, v, out; backward also g, dq, dk, dv)."""
+    op_s = flop_s(products * 2 * batch * n_q * n_k * heads * d, dtype, simt)
     n_tensors = 2 if products == 2 else 4  # tensors of q's size, and as many of k's size
     byte_s = n_tensors * batch * (n_q + n_k) * heads * d * torch.finfo(dtype).bits / 8 / PEAK_BYTES
-    return max(flop_s, byte_s) * 1e3, ("operations" if flop_s >= byte_s else "bytes")
+    return max(op_s, byte_s) * 1e3, ("operations" if op_s >= byte_s else "bytes")
 
 
 def check_heads(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layout="kvhalf"):
@@ -542,18 +569,22 @@ def check_heads(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layou
     return row
 
 
-def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layout="kvhalf"):
-    """Per-head backward kernel against flash_attention_bwd_plain on the same q, k, v, out, g."""
+def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, layout="kvhalf", low_scores=False):
+    """Per-head backward kernel against flash_attention_bwd_plain on the same q, k, v, out, g; with
+    ``low_scores`` every score near -LOW_SCORES (log2 domain)."""
     from cinema_tpu_torch.ops import flash_attention as fa
 
     q, k, v = _heads_inputs(batch, n_q, n_k, heads, d, dtype, gen, q_scale, layout)
+    if low_scores:
+        _scores_near_minus_low(q, k)
     g = torch.randn(batch, n_q, heads, d, device="cuda", generator=gen).to(dtype)
     out, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
+    check(not low_scores or lse.max().item() < -128, f"a row's log-sum-exp is {lse.max().item()}, not below -128")
     got = fa.flash_attention_backward(q, k, v, out, lse, g)
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_plain(q, k, v, out, g)
     row = {"shape": [batch, n_q, n_k, heads, d], "dtype": str(dtype).split(".")[-1], "q_scale": q_scale,
-           "layout": layout, "dv_strides": list(got[2].stride())}
+           "layout": layout, "low_scores": low_scores, "dv_strides": list(got[2].stride())}
     if layout == "kvhalf":  # dv lands in the v half of a buffer shaped like the fused kv projection
         check(got[2].stride() == v.stride(), f"dv strides {got[2].stride()} are not those of v {v.stride()}")
     worst = 0.0
@@ -577,6 +608,8 @@ def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, l
                 lambda: fa.flash_attention_bwd_plain(q, k, v, out, g),
                 lambda: torch.autograd.grad(sdpa, (qh, kh, vh), gh, retain_graph=True),
                 heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5))
+        if dtype == torch.float32:
+            row["bound_simt_ms"] = heads_bound_ms(batch, n_q, n_k, heads, d, dtype, products=5, simt=True)[0]
         # the passes apart, as check_attention_bwd
         dq, dk, dv = got
         row["dkdv_ms"] = median_ms(lambda: fa._launch_heads_bwd(q, k, v, out, lse, g, None, dk, dv))
@@ -591,7 +624,8 @@ def check_heads_bwd(batch, n_q, n_k, heads, d, dtype, gen, timed, q_scale=1.0, l
 
 def check_heads_shapes(gen, timed=True) -> tuple[list[dict], list[dict]]:
     """The per-head kernels against their plain versions at the fine-tuning and evaluation shapes
-    (the first rows), with sharp scores, and at ragged, cross and transposed shapes; bf16 then f32."""
+    (the first rows), with sharp scores, and at ragged, cross and transposed shapes; bf16 then f32, and the
+    backward at an f32 ragged shape with every score near -LOW_SCORES."""
     fwd, bwd = [], []
     for dtype in (torch.bfloat16, torch.float32):
         for rows, fn in ((fwd, check_heads), (bwd, check_heads_bwd)):
@@ -600,6 +634,8 @@ def check_heads_shapes(gen, timed=True) -> tuple[list[dict], list[dict]]:
             rows.append(fn(*FINETUNE_HEADS, dtype, gen, False, q_scale=SHARP_Q))
             for shape, layout in HEADS_RAGGED:
                 rows.append(fn(*shape, dtype, gen, False, layout=layout))
+    shape, layout = HEADS_RAGGED[1]
+    bwd.append(check_heads_bwd(*shape, torch.float32, gen, False, layout=layout, low_scores=True))
     return fwd, bwd
 
 
@@ -1058,17 +1094,23 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
         loss = model32(small, 0.75, masks)[0]
         return loss.detach(), torch.autograd.grad(loss, params)
 
+    before = flash_attention_packed.bwd_launches
     loss_k, grads_k = loss_and_grads()
+    f32_bwd = flash_attention_packed.bwd_launches - before
+    ms = f32_step_ms(loss_and_grads, lambda: None)
     vit.flash_attention_packed_kv = flash_attention_packed_kv_plain
     try:
         loss_p, grads_p = loss_and_grads()
+        plain_ms = f32_step_ms(loss_and_grads, lambda: None)
     finally:
         vit.flash_attention_packed_kv = flash_attention_packed_kv
+    F32_STEPS["train_f32"] = {"packed_bwd": f32_bwd, "heads_bwd": 0, "ms": ms, "plain_ms": plain_ms}
+    check(f32_bwd > 0, "the f32 MAE step launched no backward kernel")
     norm_k, norm_p = (torch.linalg.vector_norm(torch.stack([g.norm() for g in gs])).item() for gs in (grads_k, grads_p))
     worst = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item() for a, b in zip(grads_k, grads_p))
     report["train_f32"] = {"loss": loss_k.item(), "loss_plain": loss_p.item(), "grad_norm": norm_k,
-                           "grad_norm_plain": norm_p, "max_rel_grad_err": worst, "loss_rtol": TRAIN_LOSS_RTOL,
-                           "grad_rtol": TRAIN_GRAD_RTOL}
+                           "grad_norm_plain": norm_p, **F32_STEPS["train_f32"], "max_rel_grad_err": worst,
+                           "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
     print("train_f32", json.dumps(report["train_f32"]), flush=True)
     check(abs(loss_k.item() - loss_p.item()) <= TRAIN_LOSS_RTOL * abs(loss_p.item()), "f32 losses differ")
     check(abs(norm_k - norm_p) <= TRAIN_GRAD_RTOL * norm_p, "f32 gradient norms differ")
@@ -1215,6 +1257,23 @@ def timed_steps(launches: Launches, smi: str, label: str, model, state, step_fn,
     return row
 
 
+# every f32 check step: its backward launches (packed, per-head), counted apart from the paths' totals they
+# are part of, and its time through the kernels and through the plain attention
+F32_STEPS: dict = {}
+
+
+def f32_step_ms(loss_and_grads, reset) -> float:
+    """Host-clock ms of one more call of an f32 step's ``loss_and_grads`` (to ``torch.cuda.synchronize()``),
+    whose launches ``reset`` then drops: the checked call before it counted them."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_and_grads()
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    reset()
+    return ms
+
+
 def check_f32_step(label: str, launches: Launches, model, loss_fn, batch: dict, plain_attention,
                    expected: tuple) -> dict:
     """One f32 step's loss and gradients through the kernels (``expected`` launches) against the same
@@ -1229,17 +1288,20 @@ def check_f32_step(label: str, launches: Launches, model, loss_fn, batch: dict, 
     launches.reset()
     loss_k, grads_k = loss_and_grads()
     check(launches.read() == expected, f"the {label} step did not go through the kernels")
+    ms = f32_step_ms(loss_and_grads, launches.reset)
     with plain_attention:
         launches.reset()
         loss_p, grads_p = loss_and_grads()
         check(launches.read() == (0, 0, 0, 0), "the plain attention path launched a kernel")
+        plain_ms = f32_step_ms(loss_and_grads, launches.reset)
     norm_k, norm_p = (torch.linalg.vector_norm(torch.stack([g.norm() for g in gs])).item()
                       for gs in (grads_k, grads_p))
     errs = [((a - b).abs().max() / b.abs().max().clamp(min=1e-12)).item() for a, b in zip(grads_k, grads_p)]
     worst = max(errs)
     worst_name = [name for name, _ in model.named_parameters()][errs.index(worst)]
+    F32_STEPS[label] = {"packed_bwd": expected[1], "heads_bwd": expected[3], "ms": ms, "plain_ms": plain_ms}
     row = {"loss": loss_k.item(), "loss_plain": loss_p.item(), "grad_norm": norm_k, "grad_norm_plain": norm_p,
-           "max_rel_grad_err": worst, "worst_parameter": worst_name,
+           **F32_STEPS[label], "max_rel_grad_err": worst, "worst_parameter": worst_name,
            "worst_parameter_max_grad": grads_p[errs.index(worst)].abs().max().item(),
            "loss_rtol": TRAIN_LOSS_RTOL, "grad_rtol": TRAIN_GRAD_RTOL}
     print(label, json.dumps(row), flush=True)
@@ -3205,24 +3267,26 @@ def examples_phase(report: dict, smi: str) -> dict:
 
 
 def tf32_sass() -> dict:
-    """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 forward function in the built library's
-    machine code, by cuobjdump (None where the toolkit has none)."""
+    """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 function, forward (``flash_fwd_tf32x3``) and
+    backward (``flash_bwd_dkdv_tf32x3``, ``flash_bwd_dq_tf32x3``), in the built libraries' machine code, by
+    cuobjdump (None where the toolkit has none)."""
     from cinema_tpu_torch import build
 
     tool = Path(build.nvcc()).with_name("cuobjdump")
     if not tool.exists():
         return None
-    sass = subprocess.run([str(tool), "--dump-sass", str(build.library_path("flash_attention_fwd"))],
-                          capture_output=True, text=True, timeout=300, check=True).stdout
     counts: dict = {}
-    function = ""
-    for line in sass.splitlines():
-        if "Function :" in line:
-            function = line.split("Function :")[1].strip()
-            if "flash_fwd_tf32x3" in function:
-                counts[function] = 0
-        elif function in counts and "HMMA" in line and "TF32" in line:
-            counts[function] += 1
+    for name in ("flash_attention_fwd", "flash_attention_bwd"):
+        sass = subprocess.run([str(tool), "--dump-sass", str(build.library_path(name))],
+                              capture_output=True, text=True, timeout=300, check=True).stdout
+        function = ""
+        for line in sass.splitlines():
+            if "Function :" in line:
+                function = line.split("Function :")[1].strip()
+                if "tf32x3" in function:
+                    counts[function] = 0
+            elif function in counts and "HMMA" in line and "TF32" in line:
+                counts[function] += 1
     return counts
 
 
@@ -3304,9 +3368,9 @@ def main() -> None:
     report["tf32_sass"] = tf32_sass()
     print("tf32_sass", json.dumps(report["tf32_sass"] if report["tf32_sass"] is not None else "cuobjdump not found"),
           flush=True)
-    check(report["tf32_sass"] is None or (len(report["tf32_sass"]) == len(fa.HEAD_DIMS)
+    check(report["tf32_sass"] is None or (len(report["tf32_sass"]) == 3 * len(fa.HEAD_DIMS)
                                          and all(report["tf32_sass"].values())),
-          "an f32 forward function (one per head_dim) has no TF32 tensor-core instruction")
+          "an f32 function (forward, dk/dv and dq, one each per head_dim) has no TF32 tensor-core instruction")
     report["tf32_probe"] = tf32_probe()
     print("tf32_probe", json.dumps(report["tf32_probe"]), flush=True)
 
@@ -3364,6 +3428,12 @@ def main() -> None:
     check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
     check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
     check(all(k["launches_by_path"]["examples"] > 0 for k in kernels[:2]), "the examples launched no packed kernel")
+    # the f32 backward (split TF32) runs in the f32 check steps only: its launches there, apart
+    f32_bwd = {key: sum(step[key] for step in F32_STEPS.values()) for key in ("packed_bwd", "heads_bwd")}
+    report["f32_steps"] = {"steps": F32_STEPS, **f32_bwd}
+    print("f32_steps", json.dumps(report["f32_steps"]), f"on {smi}", flush=True)
+    kernels[1]["f32_step_launches"], kernels[3]["f32_step_launches"] = f32_bwd["packed_bwd"], f32_bwd["heads_bwd"]
+    check(f32_bwd["packed_bwd"] > 0 and f32_bwd["heads_bwd"] > 0, "an f32 check step launched no f32 backward")
     report["kernels"] = kernels
     if args.out:
         with open(args.out, "w") as f:

@@ -25,7 +25,7 @@ SOURCES = {
     "flash_attention_bwd": "flash_attention_bwd.cu",  # the backward of both layouts
 }
 # headers the sources include: hashed into every library's name
-HEADERS = ("flash_attention_common.cuh", "hopper.cuh")
+HEADERS = ("flash_attention_common.cuh", "hopper.cuh", "tf32.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -57,17 +57,42 @@
 // whatever its strides.
 //
 // bf16 products accumulate in f32; P and dS are rounded to bf16 before their
-// second product, as the forward rounds P. f32 inputs stay on the CUDA cores
-// (four threads per row), as no tensor-core format keeps f32 exact; they run
-// only in the f32 check steps (the float32 evaluation runs the f32 forward
-// alone).
+// second product, as the forward rounds P.
 //
 // Bound at the fine-tuning shape of ConvViT-base (B=4, Tq=Tk=2305, H=12, D=64,
 // bf16): five products, 10*B*Tq*Tk*H*D = 1.6e11 flop -> 0.165 ms at 989
 // TFLOP/s, against 0.034 ms for the bytes (q, k, v, o, g read and dq, dk, dv
 // written once at 3.35 TB/s): bounded by tensor-core operations.
+//
+// f32 operands run on the tensor cores in split TF32, as the f32 forward does
+// (tf32.cuh): each operand x is split into a TF32 hi (rounded by hand) and the
+// f32 remainder lo, each product is a_lo b_hi + a_hi b_lo + a_hi b_hi, and the
+// tensor core sums only kBwdStepsPerSum k-steps from zero before the CUDA cores
+// add that sum to the running one (it rounds its sums toward zero). Bound at
+// (4, 2305^2, 768): 3 * 10*B*Tq*Tk*E = 4.9e11 flop -> 0.99 ms at 495 TFLOP/s
+// dense TF32, against 0.068 ms for the bytes (the CUDA cores' 67 TFLOP/s would
+// take 2.44 ms for the single f32 pass). They run in the f32 check steps and in
+// any f32 fine-tune (the float32 evaluation runs the f32 forward alone).
+// TF32 wgmma reads only K-major operands from shared memory, and dv += P^T g,
+// dk += dS^T q and dq += dS k would need g, q and k transposed there, so the
+// products run on mma.sync.m16n8k8, whose operands all come from registers.
+// The passes keep the bf16 ones' shape: a block of 128 keys (dk/dv) or q rows
+// (dq) of one (batch, head) is eight warps of 16 rows (256 threads), one block
+// an SM. The resident operands (k and v, or q and g) are read once into
+// registers as A fragments, k or q scaled into the log2 domain, and split at
+// each use. The streamed ones arrive in 64-row cp.async stages through
+// hopper.cuh's mbarrier ring and are split where their B fragments are read,
+// as the f32 forward splits k and v. Per stage a warp forms S^T = k q^T and
+// dP^T = v g^T (or S = q k^T and dP = g v^T), P and dS in registers, and adds
+// P^T g and dS^T q (or dS k) from the same tiles, P and dS being A fragments
+// as they stand: a depth is a sum, so k-step kk takes rows 8kk + 2t and + 1 as
+// its columns t and t + 4, the thread's own entries. A pitch of D + 4 floats keeps
+// both ways of reading a tile free of bank conflicts (F32Tile). ~138 KB of
+// shared memory at head_dim 64 (four slots of two tiles, lse and delta) and
+// 255 registers: the dk/dv pass spills (ptxas, PERF.md section 6).
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
@@ -417,160 +442,350 @@ __global__ void __launch_bounds__(kBlockThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// f32 operands, on the CUDA cores: four threads per row, each owning a quarter of the head's columns.
-constexpr int kRowsF32 = kThreads / 4;  // rows per block (four threads a row) and per looped tile
+// f32 operands on the tensor cores in split TF32 (tf32.cuh): eight warps of 16 rows a block, mma.sync m16n8k8
+// products of hi and lo parts.
 
-// thread c of a row's four owns columns 16m + 4c .. 16m + 4c + 3 for every m < D / 16, so the four
-// read 64 contiguous bytes of a shared-memory row
-template <int D>
-__device__ __forceinline__ void load_cols(float (&x)[D / 4], const float* row, int c, bool valid) {
-#pragma unroll
-  for (int m = 0; m < D / 16; ++m) {
-    const float4 f = valid ? *reinterpret_cast<const float4*>(row + 16 * m + 4 * c) : make_float4(0.f, 0.f, 0.f, 0.f);
-    x[4 * m] = f.x;
-    x[4 * m + 1] = f.y;
-    x[4 * m + 2] = f.z;
-    x[4 * m + 3] = f.w;
-  }
-}
+// k-steps (of 8) whose products the tensor core sums from zero before the CUDA cores add that sum to the running
+// one, for the reason of the forward's kStepsPerSum (tf32.cuh): dk, dv and dq add a product over every q row or
+// key of the panel, and no running sum may sit in the tensor core's accumulator over it. 8 is one 64-row stage
+// (and all of head_dim for S and dP): it biased the gradients toward zero by 1.3e-6 of their size (4: 5.4e-7;
+// the f32 MAE step stayed at 1.1e-5 of a parameter's largest, against a gate of 1e-3) and took 12 % less time
+// than 4 at (4, 2305^2): tools/torch_f32_sums.py measures each setting (PERF.md section 6).
+constexpr int kBwdStepsPerSum = 8;
+static_assert(kBwdStepsPerSum <= 8 && 8 % kBwdStepsPerSum == 0, "whole sums of k-steps in a stage");
 
+// A streamed f32 tile: kStageRows rows of D floats, read in two patterns: the B fragments of S^T = k q^T,
+// dP^T = v g^T, S = q k^T and dP = g v^T at (row 8j + g, columns 8kk + t and 8kk + t + 4), and those of
+// dv += P^T g, dk += dS^T q and dq += dS k at (rows 8kk + 2t and + 1, column 8jd + g). A pitch of D + 4 floats puts
+// a warp's 32 reads of either pattern in 32 banks, and every address is a constant from one register.
 template <int D>
-__device__ __forceinline__ void store_cols(float* row, const float (&x)[D / 4], int c, float scale) {
-#pragma unroll
-  for (int m = 0; m < D / 16; ++m) {
-    *reinterpret_cast<float4*>(row + 16 * m + 4 * c) =
-        make_float4(x[4 * m] * scale, x[4 * m + 1] * scale, x[4 * m + 2] * scale, x[4 * m + 3] * scale);
-  }
-}
+struct F32Tile {
+  static constexpr int kPitch = D + 4;  // floats a row
+  static constexpr int kBytes = kStageRows * kPitch * 4;
+};
 
+// Shared memory of the two f32 passes, from a 1024-byte aligned base: kStages ring slots of two streamed
+// tiles (q and g, or k and v) and, for the dk/dv pass, the stage's 64 lse and 64 delta; then the ring's barriers.
 template <int D>
-__device__ __forceinline__ float dot_cols(const float (&x)[D / 4], const float (&y)[D / 4]) {
-  float acc = 0.f;
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc = fmaf(x[i], y[i], acc);
-  return acc;
-}
+struct BwdF32Smem {
+  static constexpr int kTile = F32Tile<D>::kBytes;
+  static constexpr int kStats = 2 * kTile;  // in a slot
+  static constexpr int kSlot = kStats + 2 * kStageRows * 4;
+  static constexpr int kBars = kStages * kSlot;
+  static constexpr int kBytes = kBars + 2 * kStages * 8 + 1024;  // + slack to align the base
+  static_assert(kBytes <= 232448, "more shared memory than a block can have");
+};
 
+// Copy rows [row0, row0 + kStageRows) of one (batch, head)'s D f32 columns into a tile; rows from n_rows on are
+// zero. Every thread of the block takes its share.
 template <int D>
-__device__ __forceinline__ void stage_tile_f32(const float* __restrict__ base, long long row_stride, int row0,
-                                               int n_rows, float (*tile)[D]) {
+__device__ __forceinline__ void load_f32_tile(uint32_t tile, const float* __restrict__ base, long long row_stride,
+                                              int row0, int n_rows) {
   constexpr int kChunks = D / 4;
-  for (int idx = threadIdx.x; idx < kRowsF32 * kChunks; idx += kThreads) {
+  static_assert(kStageRows * kChunks % kBlockThreads == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < kStageRows * kChunks / kBlockThreads; ++i) {
+    const int idx = threadIdx.x + i * kBlockThreads;
     const int r = idx / kChunks;
-    const int c = (idx % kChunks) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < n_rows) x = *reinterpret_cast<const float4*>(base + (long long)(row0 + r) * row_stride + c);
-    *reinterpret_cast<float4*>(&tile[r][c]) = x;
+    const int c = idx % kChunks;
+    const bool valid = row0 + r < n_rows;
+    const float* src = base + (valid ? (long long)(row0 + r) * row_stride + c * 4 : 0);
+    cp_async_16(tile + (r * F32Tile<D>::kPitch + c * 4) * 4, src, valid);
   }
 }
 
+// The hi and lo parts of element (r, c) of a stage tile, as the tensor core reads them
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                     const float* __restrict__ g, const float* __restrict__ lse_pad,
-                     const float* __restrict__ delta_pad, float* __restrict__ dq, int n_q, int n_k, int n_pad,
-                     Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs, float scale_log2, float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) float k_tile[kRowsF32][D];
-  __shared__ __align__(16) float v_tile[kRowsF32][D];
-
-  const int r = threadIdx.x >> 2;
-  const int c = threadIdx.x & 3;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int row = blockIdx.x * kRowsF32 + r;
-  const bool ok = row < n_q;
-  const long long safe_row = ok ? row : 0;
-
-  float qr[D / 4], gr[D / 4], acc[D / 4];
-  load_cols<D>(qr, q + batch * qs.b + head * qs.h + safe_row * qs.t, c, ok);
-  load_cols<D>(gr, g + batch * gs.b + head * gs.h + safe_row * gs.t, c, ok);
-#pragma unroll
-  for (int i = 0; i < D / 4; ++i) acc[i] = 0.f;
-  const long long stat = ((long long)batch * gridDim.y + head) * n_pad + row;  // padded: row < n_pad
-  const float lse_r = lse_pad[stat];
-  const float delta_r = delta_pad[stat];
-  const float* kb = k + batch * ks.b + head * ks.h;
-  const float* vb = v + batch * vs.b + head * vs.h;
-
-  for (int k0 = 0; k0 < n_k; k0 += kRowsF32) {
-    __syncthreads();
-    stage_tile_f32<D>(kb, ks.t, k0, n_k, k_tile);
-    stage_tile_f32<D>(vb, vs.t, k0, n_k, v_tile);
-    __syncthreads();
-    const int n_valid = n_k - k0;
-    for (int j = 0; j < kRowsF32; ++j) {
-      float kc[D / 4], vc[D / 4];
-      load_cols<D>(kc, &k_tile[j][0], c, true);
-      load_cols<D>(vc, &v_tile[j][0], c, true);
-      const float s = quad_sum(dot_cols<D>(qr, kc));
-      const float dp = quad_sum(dot_cols<D>(gr, vc));
-      const float p = j < n_valid ? exp2f(s * scale_log2 - lse_r) : 0.f;
-      const float ds = p * (dp - delta_r);
-#pragma unroll
-      for (int i = 0; i < D / 4; ++i) acc[i] = fmaf(ds, kc[i], acc[i]);
-    }
-  }
-  if (ok) store_cols<D>(dq + batch * dqs.b + head * dqs.h + (long long)row * dqs.t, acc, c, scale);
+__device__ __forceinline__ void tile_split(const float* tile, int r, int c, uint32_t& hi, uint32_t& lo) {
+  split_tf32(tile[r * F32Tile<D>::kPitch + c], hi, lo);
 }
 
+// This thread's A fragments of rows row and row + 8 (zero from n_rows on) of one (batch, head)'s D f32 columns,
+// times `scale`, read once from device memory. The depth (head_dim) is a sum, so its order is free: k-step kk
+// takes columns 8kk + t and 8kk + t + 4 as its columns t and t + 4, as the tiles' B fragments are read.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv_f32(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-                       const float* __restrict__ g, const float* __restrict__ lse_pad,
-                       const float* __restrict__ delta_pad, float* __restrict__ dk, float* __restrict__ dv, int n_q,
-                       int n_k, int n_pad, Strides qs, Strides ks, Strides vs, Strides gs, Strides dks, Strides dvs,
-                       float scale_log2, float scale) {
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
-  __shared__ __align__(16) float q_tile[kRowsF32][D];
-  __shared__ __align__(16) float g_tile[kRowsF32][D];
-  __shared__ float lse_s[kRowsF32];
-  __shared__ float delta_s[kRowsF32];
-
-  const int r = threadIdx.x >> 2;
-  const int c = threadIdx.x & 3;
-  const int head = blockIdx.y;
-  const int batch = blockIdx.z;
-  const int key = blockIdx.x * kRowsF32 + r;
-  const bool ok = key < n_k;
-  const long long safe_key = ok ? key : 0;
-
-  float kr[D / 4], vr[D / 4], dk_acc[D / 4], dv_acc[D / 4];
-  load_cols<D>(kr, k + batch * ks.b + head * ks.h + safe_key * ks.t, c, ok);
-  load_cols<D>(vr, v + batch * vs.b + head * vs.h + safe_key * vs.t, c, ok);
+__device__ __forceinline__ void a_frags_f32(float (&f)[D / 8][4], const float* __restrict__ base,
+                                            long long row_stride, int row, int n_rows, int t, float scale) {
 #pragma unroll
-  for (int i = 0; i < D / 4; ++i) dk_acc[i] = dv_acc[i] = 0.f;
-  const long long stat = ((long long)batch * gridDim.y + head) * n_pad;
-  const float* qb = q + batch * qs.b + head * qs.h;
-  const float* gb = g + batch * gs.b + head * gs.h;
-
-  for (int i0 = 0; i0 < n_q; i0 += kRowsF32) {
-    __syncthreads();
-    stage_tile_f32<D>(qb, qs.t, i0, n_q, q_tile);
-    stage_tile_f32<D>(gb, gs.t, i0, n_q, g_tile);
-    if (threadIdx.x < kRowsF32) {  // padded statistics: a row past n_q has lse +inf (P = 0) and delta 0
-      lse_s[threadIdx.x] = lse_pad[stat + i0 + threadIdx.x];
-      delta_s[threadIdx.x] = delta_pad[stat + i0 + threadIdx.x];
+  for (int h = 0; h < 2; ++h) {
+    const bool ok = row + 8 * h < n_rows;
+    const float* p = base + (long long)(ok ? row + 8 * h : 0) * row_stride + t;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      f[kk][h] = ok ? p[8 * kk] * scale : 0.f;
+      f[kk][2 + h] = ok ? p[8 * kk + 4] * scale : 0.f;
     }
-    __syncthreads();
-    for (int i = 0; i < kRowsF32; ++i) {
-      float qc[D / 4], gc[D / 4];
-      load_cols<D>(qc, &q_tile[i][0], c, true);
-      load_cols<D>(gc, &g_tile[i][0], c, true);
-      const float s = quad_sum(dot_cols<D>(kr, qc));
-      const float dp = quad_sum(dot_cols<D>(vr, gc));
-      const float p = exp2f(s * scale_log2 - lse_s[i]);
-      const float ds = p * (dp - delta_s[i]);
+  }
+}
+
+// The two products below step through their depth k-step by k-step and, inside a k-step, through the output's
+// 8-column blocks: consecutive mma.sync go to different accumulators, so a warp keeps several in flight, and
+// each k-step's A fragments are split once for all of them. The tensor core sums kSteps k-steps from zero in
+// `part`; the CUDA cores add `part` to the running sums.
+
+// s = a b^T over the D columns, for this warp's 16 rows and the 64 rows of a stage tile b: s[4j + 2h + e] is
+// the warp's row g + 8h against tile row 8j + 2t + e. a: this thread's A fragments (a_frags_f32), split here.
+template <int D>
+__device__ __forceinline__ void product_rows(float (&s)[32], const float (&a)[D / 8][4], const float* tile, int gi,
+                                             int t) {
+  constexpr int kSteps = kBwdStepsPerSum < D / 8 ? kBwdStepsPerSum : D / 8;
 #pragma unroll
-      for (int x = 0; x < D / 4; ++x) {
-        dv_acc[x] = fmaf(p, gc[x], dv_acc[x]);
-        dk_acc[x] = fmaf(ds, qc[x], dk_acc[x]);
+  for (int k0 = 0; k0 < D / 8; k0 += kSteps) {
+    float part[8][4];
+#pragma unroll
+    for (int u = 0; u < kSteps; ++u) {
+      const int kk = k0 + u;
+      uint32_t a_hi[4], a_lo[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(a[kk][i], a_hi[i], a_lo[i]);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        uint32_t b_hi[2], b_lo[2];
+        tile_split<D>(tile, 8 * j + gi, 8 * kk + t, b_hi[0], b_lo[0]);
+        tile_split<D>(tile, 8 * j + gi, 8 * kk + t + 4, b_hi[1], b_lo[1]);
+        float* d = k0 == 0 ? &s[4 * j] : part[j];  // the first sum is the running one
+        if (u == 0) {
+          mma_tf32x3<true>(d, a_hi, a_lo, b_hi, b_lo);
+        } else {
+          mma_tf32x3<false>(d, a_hi, a_lo, b_hi, b_lo);
+        }
+      }
+    }
+    if (k0 > 0) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) s[4 * j + i] += part[j][i];
       }
     }
   }
-  if (ok) {
-    store_cols<D>(dk + batch * dks.b + head * dks.h + (long long)key * dks.t, dk_acc, c, scale);
-    store_cols<D>(dv + batch * dvs.b + head * dvs.h + (long long)key * dvs.t, dv_acc, c, 1.f);
+}
+
+// acc += p b over the 64 rows of a stage tile b, for this warp's 16 rows and the D columns: acc[4jd + 2h + e] is
+// the warp's row g + 8h, column 8jd + 2t + e. p: this thread's entries of a product_rows result as A fragments
+// (the tile rows are the depth, and k-step kk takes rows 8kk + 2t and + 1 as its columns t and t + 4, so these
+// are the thread's own entries: no shuffle); b's B fragments are read at (rows 8kk + 2t and + 1, column 8jd + g)
+// of the (rows, D) tile as it landed: no tile is transposed.
+template <int D>
+__device__ __forceinline__ void product_cols(float (&acc)[D / 2], const float (&p)[32], const float* tile, int gi,
+                                             int t) {
+#pragma unroll
+  for (int k0 = 0; k0 < 8; k0 += kBwdStepsPerSum) {
+    float part[D / 8][4];
+#pragma unroll
+    for (int u = 0; u < kBwdStepsPerSum; ++u) {
+      const int kk = k0 + u;
+      uint32_t p_hi[4], p_lo[4];
+      split_tf32(p[4 * kk], p_hi[0], p_lo[0]);
+      split_tf32(p[4 * kk + 2], p_hi[1], p_lo[1]);
+      split_tf32(p[4 * kk + 1], p_hi[2], p_lo[2]);
+      split_tf32(p[4 * kk + 3], p_hi[3], p_lo[3]);
+#pragma unroll
+      for (int jd = 0; jd < D / 8; ++jd) {
+        uint32_t b_hi[2], b_lo[2];
+        tile_split<D>(tile, 8 * kk + 2 * t, 8 * jd + gi, b_hi[0], b_lo[0]);
+        tile_split<D>(tile, 8 * kk + 2 * t + 1, 8 * jd + gi, b_hi[1], b_lo[1]);
+        if (u == 0) {
+          mma_tf32x3<true>(part[jd], p_hi, p_lo, b_hi, b_lo);
+        } else {
+          mma_tf32x3<false>(part[jd], p_hi, p_lo, b_hi, b_lo);
+        }
+      }
+    }
+#pragma unroll
+    for (int jd = 0; jd < D / 8; ++jd) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * jd + i] += part[jd][i];
+    }
+  }
+}
+
+// 2. dk, dv: one block per (kBlockRows keys, head, batch), warp w owning keys w * 16 .. + 15. k (scaled into the
+//    log2 domain) and v stay in registers as A fragments; q, g, lse and delta stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dkdv_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                          const float* __restrict__ g, const float* __restrict__ lse_pad,
+                          const float* __restrict__ delta_pad, float* __restrict__ dk, float* __restrict__ dv,
+                          int n_q, int n_k, int n_pad, Strides qs, Strides ks, Strides vs, Strides gs, Strides dks,
+                          Strides dvs, float scale_log2, float scale) {
+  using S = BwdF32Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  uint8_t* base_ptr = smem_raw + (base - smem_addr(smem_raw));
+  const Ring ring(base_ptr + S::kBars);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gi = lane / 4;
+  const int t = lane % 4;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int key0 = (int)blockIdx.x * kBlockRows + warp * 16;  // this warp's first key
+  const int key = key0 + gi;                                   // this thread's keys: key and key + 8
+  const float* qb = q + batch * qs.b + head * qs.h;
+  const float* gb = g + batch * gs.b + head * gs.h;
+  const long long stat = ((long long)batch * gridDim.y + head) * n_pad;
+  const int n_iters = (n_q - 1) / kStageRows + 1;  // n_q >= 1
+
+  auto load_stage = [&](int it) {  // this thread's share of stage it
+    if (it >= n_iters) return;
+    ring.wait_free(it);
+    const uint32_t dst = base + (it % kStages) * S::kSlot;
+    load_f32_tile<D>(dst, qb, qs.t, it * kStageRows, n_q);
+    load_f32_tile<D>(dst + S::kTile, gb, gs.t, it * kStageRows, n_q);
+    if (threadIdx.x < 32) {  // 64 lse + 64 delta: 32 chunks of 16 bytes, rows padded so never past the end
+      const float* src = (threadIdx.x < 16 ? lse_pad : delta_pad) + stat + it * kStageRows + (threadIdx.x % 16) * 4;
+      cp_async_16(dst + S::kStats + threadIdx.x * 16, src, true);
+    }
+    ring.copied(it);
+  };
+  for (int it = 0; it < kAhead; ++it) load_stage(it);
+
+  const bool active = key0 < n_k;  // a warp with no key only copies and releases
+  float kf[D / 8][4], vf[D / 8][4];
+  a_frags_f32<D>(kf, k + batch * ks.b + head * ks.h, ks.t, key, n_k, t, scale_log2);
+  a_frags_f32<D>(vf, v + batch * vs.b + head * vs.h, vs.t, key, n_k, t, 1.f);
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < n_iters; ++it) {
+    load_stage(it + kAhead);
+    const uint8_t* slot = base_ptr + (it % kStages) * S::kSlot;
+    ring.wait_full(it);
+    if (active) {
+      const float* q_st = reinterpret_cast<const float*>(slot);
+      const float* g_st = reinterpret_cast<const float*>(slot + S::kTile);
+      const float* lse_s = reinterpret_cast<const float*>(slot + S::kStats);
+      const float* delta_s = lse_s + kStageRows;
+
+      // P^T = exp2(S^T - lse), the q row being the accumulator's column. Rows past n_q have lse +inf (P = 0) and
+      // delta 0, with q and g zero-filled, so they add nothing.
+      float s[32], dp[32];
+      product_rows<D>(s, kf, q_st, gi, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i) s[i] = exp2_ftz(s[i] - (i & 1 ? l2.y : l2.x));
+      }
+      // dS^T = P^T (dP^T - delta) into dp
+      product_rows<D>(dp, vf, g_st, gi, t);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_s + 8 * j + 2 * t);
+#pragma unroll
+        for (int i = 4 * j; i < 4 * j + 4; ++i) dp[i] = (dp[i] - (i & 1 ? d2.y : d2.x)) * s[i];
+      }
+      product_cols<D>(dv_acc, s, g_st, gi, t);
+      product_cols<D>(dk_acc, dp, q_st, gi, t);
+    }
+    ring.release(it);
+  }
+  cp_async_wait_all();
+
+  float* dkb = dk + batch * dks.b + head * dks.h;
+  float* dvb = dv + batch * dvs.b + head * dvs.h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (key + 8 * h >= n_k) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(dkb + (long long)(key + 8 * h) * dks.t + c) =
+          make_float2(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<float2*>(dvb + (long long)(key + 8 * h) * dvs.t + c) = make_float2(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+// 3. dq: one block per (kBlockRows q rows, head, batch), warp w owning rows w * 16 .. + 15, mirrored: q (scaled
+//    into the log2 domain) and g stay in registers as A fragments; k and v stream through the ring.
+template <int D>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+    flash_bwd_dq_tf32x3(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+                        const float* __restrict__ g, const float* __restrict__ lse_pad,
+                        const float* __restrict__ delta_pad, float* __restrict__ dq, int n_q, int n_k, int n_pad,
+                        Strides qs, Strides ks, Strides vs, Strides gs, Strides dqs, float scale_log2, float scale) {
+  using S = BwdF32Smem<D>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = aligned_smem_base(smem_raw);
+  uint8_t* base_ptr = smem_raw + (base - smem_addr(smem_raw));
+  const Ring ring(base_ptr + S::kBars);
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int gi = lane / 4;
+  const int t = lane % 4;
+  const int head = blockIdx.y;
+  const int batch = blockIdx.z;
+  const int row0 = (int)blockIdx.x * kBlockRows + warp * 16;  // this warp's first row
+  const int row = row0 + gi;                                   // this thread's rows: row and row + 8
+  const float* kb = k + batch * ks.b + head * ks.h;
+  const float* vb = v + batch * vs.b + head * vs.h;
+  const int n_iters = (n_k - 1) / kStageRows + 1;  // n_k >= 1
+
+  auto load_stage = [&](int it) {  // this thread's share of stage it
+    if (it >= n_iters) return;
+    ring.wait_free(it);
+    const uint32_t dst = base + (it % kStages) * S::kSlot;
+    load_f32_tile<D>(dst, kb, ks.t, it * kStageRows, n_k);
+    load_f32_tile<D>(dst + S::kTile, vb, vs.t, it * kStageRows, n_k);
+    ring.copied(it);
+  };
+  for (int it = 0; it < kAhead; ++it) load_stage(it);
+
+  const bool active = row0 < n_q;  // a warp with no row only copies and releases
+  float qf[D / 8][4], gf[D / 8][4];
+  a_frags_f32<D>(qf, q + batch * qs.b + head * qs.h, qs.t, row, n_q, t, scale_log2);
+  a_frags_f32<D>(gf, g + batch * gs.b + head * gs.h, gs.t, row, n_q, t, 1.f);
+  // rows row and row + 8 (padded statistics: never past the end; a row past n_q has lse +inf and delta 0)
+  const long long stat = ((long long)batch * gridDim.y + head) * n_pad + row;
+  const float lse_r[2] = {lse_pad[stat], lse_pad[stat + 8]};
+  const float delta_r[2] = {delta_pad[stat], delta_pad[stat + 8]};
+  float dq_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+
+  for (int it = 0; it < n_iters; ++it) {
+    load_stage(it + kAhead);
+    const uint8_t* slot = base_ptr + (it % kStages) * S::kSlot;
+    ring.wait_full(it);
+    if (active) {
+      const float* k_st = reinterpret_cast<const float*>(slot);
+      const float* v_st = reinterpret_cast<const float*>(slot + S::kTile);
+
+      // P = exp2(S - lse); keys past n_k (zero rows of k and v) only on the last stage
+      float s[32], dp[32];
+      product_rows<D>(s, qf, k_st, gi, t);
+      const bool ragged = (it + 1) * kStageRows > n_k;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = it * kStageRows + 8 * (i >> 2) + 2 * t + (i & 1);
+        s[i] = ragged && key >= n_k ? 0.f : exp2_ftz(s[i] - lse_r[(i >> 1) & 1]);
+      }
+      // dS = P (dP - delta) into s
+      product_rows<D>(dp, gf, v_st, gi, t);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = (dp[i] - delta_r[(i >> 1) & 1]) * s[i];
+      product_cols<D>(dq_acc, s, k_st, gi, t);
+    }
+    ring.release(it);
+  }
+  cp_async_wait_all();
+
+  float* ob = dq + batch * dqs.b + head * dqs.h;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (row + 8 * h >= n_q) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<float2*>(ob + (long long)(row + 8 * h) * dqs.t + 8 * j + 2 * t) =
+          make_float2(dq_acc[i] * scale, dq_acc[i + 1] * scale);
+    }
   }
 }
 
@@ -612,16 +827,24 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
                                                              x[2], x[4], x[5], scale_log2, scale);
     }
   } else {
+    constexpr int kSmem = BwdF32Smem<D>::kBytes;
+    cudaError_t err =
+        cudaFuncSetAttribute(flash_bwd_dkdv_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    if (err == cudaSuccess) {
+      err = cudaFuncSetAttribute(flash_bwd_dq_tf32x3<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+    }
+    if (err != cudaSuccess) return static_cast<int>(err);
     if (dk != nullptr) {
-      const dim3 grid((n_k + kRowsF32 - 1) / kRowsF32, n_heads, batch);
-      flash_bwd_dkdv_f32<D><<<grid, kThreads, 0, st>>>(qp, kp, vp, gp, lse_pad, delta_pad, static_cast<T*>(dk),
-                                                       static_cast<T*>(dv), n_q, n_k, n_pad, x[0], x[1], x[2],
-                                                       x[4], x[6], x[7], scale_log2, scale);
+      const dim3 grid((n_k + kBlockRows - 1) / kBlockRows, n_heads, batch);
+      flash_bwd_dkdv_tf32x3<D><<<grid, kBlockThreads, kSmem, st>>>(
+          qp, kp, vp, gp, lse_pad, delta_pad, static_cast<T*>(dk), static_cast<T*>(dv), n_q, n_k, n_pad, x[0],
+          x[1], x[2], x[4], x[6], x[7], scale_log2, scale);
     }
     if (dq != nullptr) {
-      const dim3 grid((n_q + kRowsF32 - 1) / kRowsF32, n_heads, batch);
-      flash_bwd_dq_f32<D><<<grid, kThreads, 0, st>>>(qp, kp, vp, gp, lse_pad, delta_pad, static_cast<T*>(dq), n_q,
-                                                     n_k, n_pad, x[0], x[1], x[2], x[4], x[5], scale_log2, scale);
+      const dim3 grid((n_q + kBlockRows - 1) / kBlockRows, n_heads, batch);
+      flash_bwd_dq_tf32x3<D><<<grid, kBlockThreads, kSmem, st>>>(qp, kp, vp, gp, lse_pad, delta_pad,
+                                                                  static_cast<T*>(dq), n_q, n_k, n_pad, x[0], x[1],
+                                                                  x[2], x[4], x[5], scale_log2, scale);
     }
   }
   return static_cast<int>(cudaGetLastError());

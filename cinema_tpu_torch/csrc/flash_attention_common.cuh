@@ -1,6 +1,6 @@
 // Shared pieces of the flash-attention kernels (forward and backward, both
-// layouts): operand strides, the thread count of the f32 backward and
-// pre-pass kernels, and the row helpers.
+// layouts): operand strides, the thread count of the backward's delta
+// pre-pass, and the row helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -10,7 +10,7 @@
 
 namespace {
 
-constexpr int kThreads = 128;  // threads of a block of the f32 backward kernels and of the delta pre-pass
+constexpr int kThreads = 128;  // threads of a block of the backward's delta pre-pass
 
 // element strides of one (batch, tokens, heads, head_dim) operand; head_dim is contiguous. A packed
 // (batch, tokens, embed) operand has head stride head_dim.

@@ -29,7 +29,9 @@ the forward (``_packed_forward`` / ``_packed_fwd_kernel``) and the backward
   three launches with no atomics (delta = rowsum(g * o); dk and dv per
   128-key tile; dq per 128-row q tile), so gradients do not change from run
   to run; bf16 products on ``wgmma`` with tiles streamed through the same
-  kind of ring (``csrc/hopper.cuh`` holds what the two share).
+  kind of ring (``csrc/hopper.cuh`` holds what the two share), f32 ones in
+  split TF32 on ``mma.sync`` as in the forward (``csrc/tf32.cuh``), eight
+  warps of 16 rows a block.
   :func:`bwd_launch_description` is what both layouts hand to it.
 
 Bounds on an H100, bf16 (989 TFLOP/s dense, 3.35 TB/s): the forward does
@@ -41,7 +43,9 @@ E=512), the backward's flop take 0.074 and 0.147 ms against 0.045 and 0.043
 ms for its bytes. Both kernels are bounded by tensor-core operations, so
 scores and probabilities stay in registers and feed the tensor cores from
 there. The f32 forward's three TF32 passes, 3*4*B*Tq*Tk*E flop at 495
-TFLOP/s, take 0.79 ms at the serving shape against 0.068 ms for its bytes.
+TFLOP/s, take 0.79 ms at the serving shape against 0.068 ms for its bytes;
+the f32 backward's, 3*10*B*Tq*Tk*E, 0.99 ms at the fine-tuning shape (B=4,
+Tq=Tk=2305, E=768) against 0.068 ms.
 
 The TPU kernel's block policy (``_auto_block_q*``, ``_pick_head_groups``,
 the ``CINEMA_TPU_PACKED_*_BUDGET`` knobs) and its closed-form pad-mass
@@ -564,8 +568,8 @@ def _run_fwd(q, k, v, out, save_lse: bool, n_heads: Optional[int] = None) -> Opt
     return lse
 
 
-BWD_BLOCK_ROWS = 128  # keys (dk/dv pass) or q rows (dq pass) per block of the bf16 kernels
-BWD_F32_ROWS = 32  # the same for the f32 kernels
+# keys (dk/dv pass) or q rows (dq pass) per block: two warpgroups of 64 (bf16), or eight warps of 16 (f32)
+BWD_BLOCK_ROWS = 128
 BWD_OPERANDS = ("q", "k", "v", "out", "g", "dq", "dk", "dv")
 _BwdStrides = ctypes.c_longlong * 24  # (batch, token, head) element strides of the eight operands
 
@@ -622,14 +626,13 @@ def bwd_launch_description(
         st, offset = ((0, 0, 0), None) if x is None else _operand(name, x, n_k if i in (1, 2, 6, 7) else n_q, d)
         strides.append(st)
         offsets.append(offset)
-    rows = BWD_BLOCK_ROWS if dtype == torch.bfloat16 else BWD_F32_ROWS
     n_q_pad = -(-n_q // BWD_BLOCK_ROWS) * BWD_BLOCK_ROWS
     return BwdLaunch(
         dtype=_DTYPE_CODES[dtype], batch=batch, n_q=n_q, n_k=n_k, n_heads=n_heads, head_dim=head_dim,
         strides=tuple(strides), byte_strides=tuple((a * size, b * size, c * size) for a, b, c in strides),
         base_offsets=tuple(offsets), n_q_pad=n_q_pad, scratch_floats=2 * batch * n_heads * n_q_pad,
-        grid_dkdv=None if dk is None else (-(-n_k // rows), n_heads, batch),
-        grid_dq=None if dq is None else (-(-n_q // rows), n_heads, batch),
+        grid_dkdv=None if dk is None else (-(-n_k // BWD_BLOCK_ROWS), n_heads, batch),
+        grid_dq=None if dq is None else (-(-n_q // BWD_BLOCK_ROWS), n_heads, batch),
     )
 
 

@@ -87,9 +87,10 @@ def test_absent_gradients_and_f32_tiles(n):
     q = _empty((BATCH, n, 2, 32), (n * 64, 64, 32, 1), dtype=torch.float32)
     launch = fa.bwd_launch_description(q, q, q, q, q, None, q, q)
     assert launch.grid_dq is None and launch.base_offsets[5] is None and launch.strides[5] == (0, 0, 0)
-    assert launch.grid_dkdv == (-(-n // 32), 2, BATCH) and launch.dtype == 0
+    assert fa.BWD_BLOCK_ROWS == 8 * 16  # eight warps of 16 keys or q rows, as the bf16 passes' two warpgroups
+    assert launch.grid_dkdv == (-(-n // fa.BWD_BLOCK_ROWS), 2, BATCH) and launch.dtype == 0
     launch = fa.bwd_launch_description(q, q, q, q, q, q, None, None)
-    assert launch.grid_dkdv is None and launch.grid_dq == (-(-n // 32), 2, BATCH)
+    assert launch.grid_dkdv is None and launch.grid_dq == (-(-n // fa.BWD_BLOCK_ROWS), 2, BATCH)
 
 
 @pytest.fixture

@@ -3,17 +3,18 @@
 For each fault below, copies ``cinema_tpu_torch/`` and ``chip_smoke.py`` into
 a temporary directory, edits one kernel source there (the forward or the
 backward, each shared by the packed and the per-head layouts, under
-``csrc/``): the bf16 path, or the f32 forward's split-TF32 path (faults
-named ``f32_*``). It builds that copy into its own build directory and runs
-chip_smoke's checks, in the fault's dtype, of the kernels the fault is
-planted in: a forward fault against both the packed and the per-head forward
-checks (unless it can show in one layout only), unless ``--only`` names one
-of them. The unedited copy ("none") must pass every check of all four
-kernels (of the one ``--only`` names) in bf16 and in f32; each fault must
-fail at least one. The checkout itself is never edited.
+``csrc/``): the bf16 path, or the f32 split-TF32 path (faults named
+``f32_*``, ``f32_bwd_*`` in the backward). It builds that copy into its own
+build directory and runs chip_smoke's checks, in the fault's dtype, of the
+kernels the fault is planted in: a forward fault, and an f32 backward fault,
+against the checks of both layouts (unless it can show in one layout only),
+unless ``--only`` names one of them. The unedited copy ("none") must pass
+every check of all four kernels (of the one ``--only`` names) in bf16 and in
+f32; each fault must fail at least one. The checkout itself is never edited.
 
 Usage (from the repository root):
-    python3 tools/torch_kernel_fault_check.py [--only forward|backward|heads_forward|heads_backward] [--out summary.json]
+    python3 tools/torch_kernel_fault_check.py [--only forward|backward|heads_forward|heads_backward]
+        [--prefix f32_bwd_] [--out summary.json]
 
 Prints one line per check and a summary line per fault (``--out`` also
 writes the summaries as JSON); exits non-zero if the unedited kernel fails
@@ -47,12 +48,38 @@ DK_DS = ("dp[i] = s[i] * (dp[i] - (i & 1 ? d2.y : d2.x));", "dp[i] = s[i] * dp[i
 DQ_DS = ("s[i] = s[i] * (dp[i] - delta_r[(i >> 1) & 1]);", "s[i] = s[i] * dp[i];", 1)
 Q_STAGES = "const int n_iters = (n_q + kStageRows - 1) / kStageRows;"  # stages of the dk/dv pass
 K_STAGES = "const int n_iters = (n_k + kStageRows - 1) / kStageRows;"  # stages of the dq pass
-# the f32 forward: its products of split operands, its split, and the read of v's B fragments
-F32_PASSES = ("    mma_tf32_zero(d, a_lo, b_hi);\n  } else {\n    mma_tf32(d, a_lo, b_hi);\n  }\n"
-              "  mma_tf32(d, a_hi, b_lo);\n  mma_tf32(d, a_hi, b_hi);\n")
-F32_ONE_PASS = "    mma_tf32_zero(d, a_hi, b_hi);\n  } else {\n    mma_tf32(d, a_hi, b_hi);\n  }\n"
-F32_LO = "lo = __float_as_uint(x - __uint_as_float(hi));"
+# the f32 forward's read of v's B fragments
 F32_V_ROW = "const float* v_row = v_st + (8 * (k0 + u) + 2 * t) * S::kVPitch + gi;"
+# after a kernel source's include of the TF32 products, a product or a split of its own can stand in for them in
+# that source alone (the f32 forward or the f32 backward)
+TF32_INCLUDE = '#include "tf32.cuh"\n'
+ONE_PASS = TF32_INCLUDE + '''namespace {
+template <bool kFirst>
+__device__ __forceinline__ void mma_one_pass(float* d, const uint32_t (&a_hi)[4], const uint32_t (&)[4],
+                                             const uint32_t (&b_hi)[2], const uint32_t (&)[2]) {
+  if constexpr (kFirst) {
+    mma_tf32_zero(d, a_hi, b_hi);
+  } else {
+    mma_tf32(d, a_hi, b_hi);
+  }
+}
+}  // namespace
+#define mma_tf32x3 mma_one_pass
+'''
+LO_TRUNCATED = TF32_INCLUDE + '''namespace {
+__device__ __forceinline__ void split_lo_truncated(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));
+}
+}  // namespace
+#define split_tf32 split_lo_truncated
+'''
+# the f32 backward's dS lines (dk/dv pass, then dq pass), its key mask and its dq product's read of k
+F32_DK_DS = ("dp[i] = (dp[i] - (i & 1 ? d2.y : d2.x)) * s[i];", "dp[i] = dp[i] * s[i];", 1)
+F32_DQ_DS = ("s[i] = (dp[i] - delta_r[(i >> 1) & 1]) * s[i];", "s[i] = dp[i] * s[i];", 1)
+F32_DQ_MASK = "s[i] = ragged && key >= n_k ? 0.f : exp2_ftz("
+F32_DQ_K = "product_cols<D>(dq_acc, s, k_st, gi, t);"
+BOTH_BWD = ("backward", "heads_backward")
 # fault -> (source file, the kernels whose checks run, [(text, replacement, occurrences)] edits of the kernels,
 # the dtypes of the checks: bf16 unless the fault is planted in the f32 path)
 FAULTS = {
@@ -88,13 +115,23 @@ FAULTS = {
     "heads_bwd_delta_dropped": (BWD, ("heads_backward",), [DK_DS, DQ_DS]),
     "heads_bwd_scale_plus_3pct": (BWD, ("heads_backward",), [(ENTRY, ENTRY + "\n  scale *= 1.03f;", 1)]),
     # one TF32 pass: both cross products dropped, a_hi b_hi alone
-    "f32_one_tf32_pass": (FWD, BOTH_FWD, [(F32_PASSES, F32_ONE_PASS, 1)], ("float32",)),
+    "f32_one_tf32_pass": (FWD, BOTH_FWD, [(TF32_INCLUDE, ONE_PASS, 1)], ("float32",)),
     # lo as the residual of x truncated to TF32, where hi is x rounded
-    "f32_lo_wrong_residual": (FWD, BOTH_FWD, [
-        (F32_LO, "lo = __float_as_uint(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u));", 1)], ("float32",)),
+    "f32_lo_wrong_residual": (FWD, BOTH_FWD, [(TF32_INCLUDE, LO_TRUNCATED, 1)], ("float32",)),
     # v's B fragments read one column off in the (keys, D) tile
     "f32_v_column_off_by_one": (FWD, BOTH_FWD, [(F32_V_ROW, F32_V_ROW.replace("+ gi;", "+ gi + 1;"), 1)],
                                 ("float32",)),
+    # the split-TF32 backward: one TF32 pass (a_hi b_hi alone) in every product of both passes
+    "f32_bwd_one_tf32_pass": (BWD, BOTH_BWD, [(TF32_INCLUDE, ONE_PASS, 1)], ("float32",)),
+    # lo as the residual of x truncated to TF32, where hi is x rounded, in every split of both passes
+    "f32_bwd_lo_wrong_residual": (BWD, BOTH_BWD, [(TF32_INCLUDE, LO_TRUNCATED, 1)], ("float32",)),
+    # dq += dS k reads k's B fragments one row (key) off: rows 8kk + 2t + 1 and + 2
+    "f32_bwd_dq_k_row_off_by_one": (BWD, BOTH_BWD, [(F32_DQ_K, F32_DQ_K.replace("k_st,", "k_st + F32Tile<D>::kPitch,"),
+                                                     1)], ("float32",)),
+    "f32_bwd_delta_dropped": (BWD, BOTH_BWD, [F32_DK_DS, F32_DQ_DS], ("float32",)),
+    # the dq pass's key mask on the last stage dropped: a key past n_k has a zero row of k, so its P meets a zero in
+    # dq += dS k, and only the checks whose every score is below -128 (log2 domain) show the P that overflows to inf
+    "f32_bwd_dq_mask_dropped": (BWD, BOTH_BWD, [(F32_DQ_MASK, "s[i] = exp2_ftz(", 1)], ("float32",)),
 }
 # runs in the copy: chip_smoke's checks in the given dtypes, one per shape, counting failures
 CHECKS = r'''
@@ -113,25 +150,30 @@ if "forward" in which:
     runs += [(cs.check_attention, x) for x in shapes]
 if "backward" in which:
     runs += [(cs.check_attention_bwd, x) for x in shapes]
-runs = [(dtype, run) for dtype in dtypes for run in runs]
+runs = [(dtype, fn, shape, q_scale, False) for dtype in dtypes for fn, (shape, q_scale) in runs]
+if "backward" in which and torch.float32 in dtypes:  # every score near -LOW_SCORES: the f32 dq pass's key mask
+    runs.append((torch.float32, cs.check_attention_bwd, cs.RAGGED[2], 1.0, True))
 caught = []
-for dtype, (fn, (shape, q_scale)) in runs:
+for dtype, fn, shape, q_scale, low in runs:
     try:
-        fn(*shape, dtype, gen, False, q_scale=q_scale)
+        fn(*shape, dtype, gen, False, q_scale=q_scale, **({"low_scores": True} if low else {}))
     except SystemExit:
-        caught.append([fn.__name__, *shape, q_scale, str(dtype)])
+        caught.append([fn.__name__, *shape, q_scale, str(dtype), low])
 heads_runs = [(cs.FINETUNE_HEADS, 1.0, "kvhalf"), (cs.EVAL_HEADS, 1.0, "kvhalf"), (cs.FINETUNE_HEADS, sharp, "kvhalf"),
               *((shape, 1.0, layout) for shape, layout in cs.HEADS_RAGGED if shape[1] > 1)]
 for name, fn in (("heads_forward", cs.check_heads), ("heads_backward", cs.check_heads_bwd)):
     if name not in which:
         continue
     for dtype in dtypes:
-        for shape, q_scale, layout in heads_runs:
+        cases = [(*run, False) for run in heads_runs]
+        if name == "heads_backward" and dtype == torch.float32:  # every score near -LOW_SCORES
+            cases.append((cs.HEADS_RAGGED[1][0], 1.0, cs.HEADS_RAGGED[1][1], True))
+        for shape, q_scale, layout, low in cases:
             runs.append(None)
             try:
-                fn(*shape, dtype, gen, False, q_scale=q_scale, layout=layout)
+                fn(*shape, dtype, gen, False, q_scale=q_scale, layout=layout, low_scores=low)
             except SystemExit:
-                caught.append([fn.__name__, *shape, q_scale, layout, str(dtype)])
+                caught.append([fn.__name__, *shape, q_scale, layout, str(dtype), low])
 print(f"RAN {len(runs)} CAUGHT " + json.dumps(caught), flush=True)
 '''
 
@@ -173,12 +215,13 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--only", choices=KERNELS, help="plant the faults of one kernel only and run its checks only")
     parser.add_argument("--out", help="also write the per-fault summaries as JSON to this path")
+    parser.add_argument("--prefix", default="", help="plant only the faults whose names start with this (and none)")
     args = parser.parse_args()
     ok = True
     summary = {}
     for name, (_, kernels, *_) in FAULTS.items():
         which = [k for k in kernels if args.only in (None, k)]
-        if not which:
+        if not which or not (name == "none" or name.startswith(args.prefix)):
             continue
         n_run, caught = run_fault(name, which)
         verdict = "pass" if (not caught) == (name == "none") else "WRONG"
