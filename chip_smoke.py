@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's nine paths (``cinema_tpu_torch``), serving, MAE
+Drives the port's ten paths (``cinema_tpu_torch``), serving, MAE
 pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
 landmark localization, the M&Ms and M&Ms2 tasks, the EMIDEC, MyoPS2020,
 Rescan and Kaggle tasks with the evaluation of run folders, the UNet and
-ResNet baselines, and the example scripts, at full width and holds every
+ResNet baselines, the example scripts and the offline preprocessing CLIs, at
+full width and holds every
 hand-written kernel of those paths against its plain PyTorch version on the
 card:
 
@@ -157,7 +158,25 @@ card:
    script's model load, first forward and ``main`` timed; then the four
    training tutorials for one epoch each on synthetic ACDC (12 studies of
    three classes) and UKB studies (finite loss, the safetensors reloaded);
-   both packed kernels must be launched.
+   both packed kernels must be launched;
+13. preprocess: the ten preprocessing CLIs of ``cinema_tpu_torch.data.preprocess``
+   (``python -m`` entry points; ACDC, M&Ms, M&Ms2, EMIDEC, MyoPS2020, landmark,
+   Kaggle, rescan, UKB ``dicom_to_nifti`` and ``cinema_reindex_nifti``) run in
+   this process, Kaggle's with two worker processes, on small raw trees from
+   this script's seeded writers, each output tree held to the JAX CLI's from
+   the same tree (``tests/fixtures/preprocess_jax``): the same files, NIfTI and
+   CSV bytes equal, PNG pixels equal (where a NIfTI differs: its voxels that
+   differ and the largest difference, with numpy's and scipy's versions). Then
+   at real size: one ACDC study (216x256x10x30 float at 1.5625x1.5625x10 mm)
+   through ``acdc`` and the port's segmentation evaluation with
+   ConvUNetR-base on the card (bf16, 12 packed forward launches a frame), and
+   one UKB eid of DICOM (SAX 10 slices x 50 frames of 208x210, LAX 2C, 3C
+   and 4C, the manifest with its comma dates) through ``dicom_to_nifti``
+   (``python -m``, in a process of its own started before phase 11: zlib at
+   level 9 on the uncropped float32 volumes takes ~150 s of one core),
+   ``scan_manifest`` and ``UKBCineDataset`` into one CineMA-base MAE forward
+   on the card (12 + 8 launches); the seconds of each CLI a study and the
+   phase's ``phase_s``.
 
 Every f32 check step (phases 5-8 and 10) is also timed through the kernels
 and through the plain attention, and its backward launches are counted apart
@@ -185,6 +204,7 @@ import csv
 import json
 import os
 import statistics
+import struct
 import subprocess
 import sys
 import tempfile
@@ -3266,6 +3286,613 @@ def examples_phase(report: dict, smi: str) -> dict:
     return launches.totals
 
 
+# --- 13. preprocess: the offline preprocessing CLIs on seeded raw trees ---------------------------------------
+#
+# Each raw tree is written by a seeded writer below, in the layout of the download or export that the CLI reads.
+# The writers draw from np.random.RandomState (a stream that numpy keeps across versions) and use only + - * /
+# and comparisons on floats, so the same seed writes the same bytes on every machine. tests/fixtures/
+# preprocess_jax/<cli>/ holds what the JAX package's CLI writes from each small tree (the CPU tests regenerate
+# it and hold the port's CLIs to it); this phase holds the port's CLIs, run on the card's machine, to it.
+
+PREPROCESS_FIXTURES = ROOT / "tests" / "fixtures" / "preprocess_jax"
+# the classes of the shells of raw_heart (1 LV cavity, 2 myocardium, 3 RV, as M&Ms numbers them) as ACDC
+# numbers them (3 LV, 2 myocardium, 1 RV)
+ACDC_RAW_CLASSES = np.array([0, 3, 2, 1], np.uint8)
+# the real-size cells of the phase: one ACDC study as ACDC ships it, one UKB eid of DICOM
+ACDC_REAL = {"size": (216, 256, 10), "n_frames": 30, "spacing": (1.5625, 1.5625, 10.0)}
+UKB_REAL = {"rows": 208, "cols": 210, "n_sax": 10, "n_frames": 50, "pixel_spacing": 1.8, "noise": 20}
+
+
+def raw_heart(rs: np.random.RandomState, size: tuple, scales: tuple, noise: int = 1) -> tuple:
+    """(image float32 (x, y, z, t), label uint8 (x, y, z, t)) of a seeded synthetic heart: per frame three nested
+    ellipsoids at a seeded centre, their radii times the frame's scale, the LV cavity (1) inside the myocardium
+    (2) and the RV (3) beside it; the image is a level per class plus integer noise in [-noise, noise]."""
+    axes = np.meshgrid(*(np.arange(s, dtype=np.float64) for s in size), indexing="ij")
+    centre = np.array(size, np.float64) * (0.45 + rs.uniform(-0.04, 0.04, 3) * (1, 1, 0.2))
+    radii = np.array(size, np.float64) * (rs.uniform(0.15, 0.2), rs.uniform(0.15, 0.2), 0.45)
+    rv_radii = radii * (0.8, 1.2, 1.0)
+    labels = []
+    for scale in scales:
+        lv = sum(((a - c) / (r * scale)) ** 2 for a, c, r in zip(axes, centre, radii))
+        rv_centre = centre + (1.3 * radii[0] * scale, 0, 0)
+        rv = sum(((a - c) / (r * scale)) ** 2 for a, c, r in zip(axes, rv_centre, rv_radii))
+        label = np.zeros(size, np.uint8)
+        label[rv < 1] = 3
+        label[lv < 1] = 2
+        label[lv < 0.36] = 1
+        labels.append(label)
+    label = np.stack(labels, axis=-1)
+    image = np.array([30, 220, 110, 165], np.float32)[label] + rs.randint(-noise, noise + 1, label.shape)
+    return image.astype(np.float32), label
+
+
+def cycle(n_frames: int) -> tuple:
+    """The scale of each frame of a cardiac cycle: 1 at frame 0 (ED), 0.85 at frame n/2 (ES), linear between."""
+    return tuple(1.0 - 0.15 * min(t, n_frames - t) / (n_frames / 2) for t in range(n_frames))
+
+
+def write_raw_nifti(path: Path, array: np.ndarray, spacing: tuple, **kwargs) -> None:
+    """``save_nifti`` of a raw input, gzipped at level 1 where the path ends in ``.gz``: a reader takes any
+    level, and the writers' time stays small at the real sizes (level 9, the preprocessing's own, writes the
+    float32 volumes of this phase at about 1 MB/s)."""
+    import gzip
+
+    from cinema_tpu_torch.data import save_nifti
+
+    if not str(path).endswith(".gz"):
+        save_nifti(path, array, spacing=spacing, **kwargs)
+        return
+    plain = path.with_suffix("")  # .nii
+    save_nifti(plain, array, spacing=spacing, **kwargs)
+    path.write_bytes(gzip.compress(plain.read_bytes(), compresslevel=1, mtime=0))
+    plain.unlink()
+
+
+def write_raw_acdc(root: Path, seed: int, size: tuple = (40, 36, 6), n_frames: int = 4,
+                   spacing: tuple = (1.5, 1.25, 5.0), n_train: int = 2, n_test: int = 1) -> None:
+    """ACDC as it ships: ``{training,testing}/patientNNN/`` with ``Info.cfg`` (ED and ES 1-based, Group, Height
+    as an integer for one study and a float for another, Weight, NbFrame), the float cine ``_4d.nii.gz`` and the
+    ED and ES frames ``_frameNN.nii.gz`` with their ``_gt`` labels (3 LV, 2 myocardium, 1 RV)."""
+    rs = np.random.RandomState(seed)
+    for split, n in (("training", n_train), ("testing", n_test)):
+        for i in range(n):
+            pid = f"patient{1 + i + 100 * (split == 'testing'):03d}"
+            d = root / split / pid
+            d.mkdir(parents=True)
+            image, label = raw_heart(rs, size, cycle(n_frames))
+            ed, es = 1, n_frames // 2 + 1
+            write_raw_nifti(d / f"{pid}_4d.nii.gz", image, spacing=(*spacing, 1.0))
+            for idx in (ed, es):
+                write_raw_nifti(d / f"{pid}_frame{idx:02d}.nii.gz", image[..., idx - 1], spacing=spacing)
+                write_raw_nifti(d / f"{pid}_frame{idx:02d}_gt.nii.gz", ACDC_RAW_CLASSES[label[..., idx - 1]],
+                                spacing=spacing)
+            (d / "Info.cfg").write_text(f"ED: {ed}\nES: {es}\nGroup: {('DCM', 'NOR', 'MINF')[i % 3]}\n"
+                                        f"Height: {'184.0' if i % 2 == 0 else 171}\nNbFrame: {n_frames}\n"
+                                        f"Weight: {70 + 5 * i}.0\n")
+
+
+def write_raw_mnms(root: Path, seed: int, size: tuple = (40, 36, 5), n_frames: int = 4) -> None:
+    """M&Ms as it ships: the information table (an unnamed index column first; Age empty for one study, so that
+    pandas reads the column as floats; one study without a folder) and ``Training/Labeled``, ``Validation`` and
+    ``Testing`` folders of ``<pid>/<pid>_sa.nii.gz`` float cines with ``_sa_gt`` labels at ED and ES only."""
+    rs = np.random.RandomState(seed)
+    splits = {"Training/Labeled": ["A0S9V9", "A1D0Q7"], "Validation": ["B3D0N1"], "Testing": ["C8J7L5"]}
+    lines = [",External code,VendorName,Vendor,Centre,ED,ES,Age,Pathology,Sex,Height,Weight"]
+    ed, es = 0, n_frames // 2
+    for i, pid in enumerate([*(p for pids in splits.values() for p in pids), "D9X9X9"]):
+        age = "" if i == 1 else str(50 + 3 * i)
+        lines.append(f"{i},{pid},Siemens,A,{1 + i % 3},{ed},{es},{age},{('HCM', 'NOR', 'DCM')[i % 3]},"
+                     f"{'MF'[i % 2]},{170.5 + i},{80 + i}")
+    (root / "211230_M&Ms_Dataset_information_diagnosis_opendataset.csv").parent.mkdir(parents=True, exist_ok=True)
+    (root / "211230_M&Ms_Dataset_information_diagnosis_opendataset.csv").write_text("\n".join(lines) + "\n")
+    for sub, pids in splits.items():
+        for pid in pids:
+            image, label = raw_heart(rs, size, cycle(n_frames))
+            label[..., [t for t in range(n_frames) if t not in (ed, es)]] = 0
+            (root / sub / pid).mkdir(parents=True)
+            write_raw_nifti(root / sub / pid / f"{pid}_sa.nii.gz", image, spacing=(1.25, 1.25, 10.0, 1.0))
+            write_raw_nifti(root / sub / pid / f"{pid}_sa_gt.nii.gz", label, spacing=(1.25, 1.25, 10.0, 1.0))
+
+
+def write_raw_mnms2(root: Path, seed: int, size: tuple = (40, 36, 5), lax_size: tuple = (48, 44, 1)) -> None:
+    """M&Ms-2 as it ships: ``dataset_information.csv`` (one row with an empty field, which the CLI drops, in an
+    integer column that pandas then reads as floats) and ``dataset/<pid>/<pid>_{SA,LA}_{ED,ES}.nii.gz`` with
+    ``_gt`` labels (1 LV, 2 myocardium, 3 RV), a study in each of the train, val and test pid ranges."""
+    rs = np.random.RandomState(seed)
+    lines = ["SUBJECT_CODE,DISEASE,VENDOR,SCANNER,FIELD,AGE"]
+    for pid, age in ((1, "54"), (2, ""), (161, "61"), (201, "70")):
+        lines.append(f"{pid},{'NOR' if pid % 2 else 'LV'},{'SIEMENS' if pid < 200 else 'GE'},Avanto,1.5,{age}")
+        if age == "":
+            continue  # dropped by the CLI: no folder
+        d = root / "dataset" / str(pid)
+        d.mkdir(parents=True)
+        image, label = raw_heart(rs, size, (1.0, 0.85))
+        lax, lax_label = raw_heart(rs, lax_size, (1.0, 0.85))
+        for f, tag in enumerate(("ED", "ES")):
+            write_raw_nifti(d / f"{pid}_SA_{tag}.nii.gz", image[..., f], spacing=(1.25, 1.25, 10.0))
+            write_raw_nifti(d / f"{pid}_SA_{tag}_gt.nii.gz", label[..., f], spacing=(1.25, 1.25, 10.0))
+            write_raw_nifti(d / f"{pid}_LA_{tag}.nii.gz", lax[..., f], spacing=(1.5, 1.5, 8.0))
+            write_raw_nifti(d / f"{pid}_LA_{tag}_gt.nii.gz", lax_label[..., f], spacing=(1.5, 1.5, 8.0))
+    (root / "dataset_information.csv").write_text("\n".join(lines) + "\n")
+
+
+def write_raw_emidec(root: Path, seed: int, size: tuple = (36, 40, 5)) -> None:
+    """EMIDEC as it ships: ``Case <pid>.txt`` clinical fields and ``Case_<pid>/{Images,Contours}/Case_<pid>.nii.gz``
+    (labels 0-4: cavity, myocardium, infarct, no-reflow), a normal and a pathological case."""
+    rs = np.random.RandomState(seed)
+    root.mkdir(parents=True, exist_ok=True)
+    for i, pid in enumerate(("N001", "P002")):
+        image, shells = raw_heart(rs, size, (1.0,))
+        label = np.where(shells[..., 0] == 3, 0, shells[..., 0]).astype(np.uint8)
+        label[(label == 2) & (np.arange(size[0])[:, None, None] > size[0] * 0.45)] = 3
+        label[(label == 3) & (np.arange(size[1])[None, :, None] > size[1] * 0.45)] = 4
+        (root / f"Case {pid}.txt").write_text(f"GBS: {i}\nSex: {'FM'[i]}\nAge: {60 + i}\nTobacco: N\n"
+                                              f"FEVG: {55.5 - 10 * i}\n")
+        for sub, array in (("Images", image[..., 0]), ("Contours", label)):
+            (root / f"Case_{pid}" / sub).mkdir(parents=True)
+            write_raw_nifti(root / f"Case_{pid}" / sub / f"Case_{pid}.nii.gz", array, spacing=(1.6, 1.6, 10.0))
+
+
+def write_raw_myops2020(root: Path, seed: int, size: tuple = (196, 194, 2)) -> None:
+    """MyoPS2020 as it ships: ``train25/myops_training_<pid>_{C0,DE,T2}.nii.gz`` with
+    ``train25_myops_gd/myops_training_<pid>_gd.nii.gz`` (labels 0, 200, 500, 600, 1220, 2221) and
+    ``test20/myops_test_<pid>_*`` without labels; the slices are larger than the 192x192 crop."""
+    rs = np.random.RandomState(seed)
+    for split, image_dir, pid in (("training", "train25", "101"), ("test", "test20", "201")):
+        (root / image_dir).mkdir(parents=True)
+        image, shells = raw_heart(rs, size, (1.0,))
+        for k, tag in enumerate(("C0", "DE", "T2")):
+            write_raw_nifti(root / image_dir / f"myops_{split}_{pid}_{tag}.nii.gz", image[..., 0] * (1 + k) + 7 * k,
+                       spacing=(0.73, 0.73, 12.0))
+        if split == "training":
+            (root / "train25_myops_gd").mkdir()
+            gd = np.array([0, 500, 200, 600], np.int16)[shells[..., 0]]
+            gd[(gd == 200) & (np.arange(size[0])[:, None, None] > size[0] * 0.45)] = 1220
+            gd[(gd == 1220) & (np.arange(size[1])[None, :, None] > size[1] * 0.45)] = 2221
+            write_raw_nifti(root / "train25_myops_gd" / f"myops_{split}_{pid}_gd.nii.gz", gd,
+                            spacing=(0.73, 0.73, 12.0))
+
+
+def write_raw_landmark(root: Path, seed: int) -> None:
+    """The landmark PNGs and their headerless tables ``<view>.csv`` (cohort_name, uid, view, landmark_number, x,
+    y): ``lax_2c`` with integer uids, gray PNGs of two sizes, the landmarks out of order, one uid with two
+    landmarks and one without an image; ``lax_4c`` with string uids and RGB PNGs."""
+    from cinema_tpu_torch import viz
+
+    rs = np.random.RandomState(seed)
+    for view, uids, rgb in (("lax_2c", [str(1000 + 7 * i) for i in range(11)], False),
+                            ("lax_4c", [f"U{i:02d}" for i in range(6)], True)):
+        (root / view / "images").mkdir(parents=True)
+        lines = []
+        for i, uid in enumerate(uids):
+            w, h = (64, 52) if i % 2 else (60, 72)
+            numbers = [3, 1, 2] if i % 3 else [1, 2, 3]
+            for n in numbers[: 2 if (view == "lax_2c" and i == 4) else 3]:
+                lines.append(f"cohort{i % 2},{uid},{view},{n},{rs.uniform(0, w):.2f},{rs.uniform(0, h):.2f}")
+            if view == "lax_2c" and i == 7:
+                continue  # a table entry without its image
+            image = rs.randint(0, 256, (h, w, 3) if rgb else (h, w)).astype(np.uint8)
+            viz.write_png(root / view / "images" / f"{uid}.png", image)
+        (root / f"{view}.csv").write_text("\n".join(lines) + "\n")
+
+
+def _dicom_element(group: int, element: int, vr: bytes, value: bytes, implicit: bool) -> bytes:
+    if len(value) % 2:
+        value += b"\x00"
+    head = struct.pack("<HH", group, element)
+    if implicit:
+        return head + struct.pack("<I", len(value)) + value
+    if vr in (b"OB", b"OW", b"SQ", b"UN", b"UT"):
+        return head + vr + b"\x00\x00" + struct.pack("<I", len(value)) + value
+    return head + vr + struct.pack("<H", len(value)) + value
+
+
+def write_dicom(path: Path, pixels: np.ndarray, position: tuple, orientation: tuple, pixel_spacing: float,
+                series_uid: str, series_description: str, instance: int, trigger_time: float, n_frames: int,
+                spacing_between_slices: float = 0.0, implicit: bool = False) -> None:
+    """One single-frame uint16 MR DICOM part-10 file in explicit (or implicit) VR little endian with the tags
+    that the cine pipelines read: geometry, series, instance, trigger time and CardiacNumberOfImages."""
+    def ds(values) -> bytes:
+        return "\\".join(f"{v:g}" for v in np.atleast_1d(values)).encode()
+
+    def el(group, element, vr, value):
+        return _dicom_element(group, element, vr, value, implicit)
+
+    syntax = b"1.2.840.10008.1.2" if implicit else b"1.2.840.10008.1.2.1"
+    body = [el(0x0008, 0x103E, b"LO", series_description.encode()), el(0x0018, 0x0050, b"DS", ds(8.0))]
+    if spacing_between_slices:
+        body.append(el(0x0018, 0x0088, b"DS", ds(spacing_between_slices)))
+    body += [el(0x0018, 0x1060, b"DS", ds(trigger_time)), el(0x0018, 0x1090, b"IS", str(n_frames).encode()),
+             el(0x0020, 0x000E, b"UI", series_uid.encode()), el(0x0020, 0x0013, b"IS", str(instance).encode()),
+             el(0x0020, 0x0032, b"DS", ds(position)), el(0x0020, 0x0037, b"DS", ds(orientation)),
+             el(0x0028, 0x0010, b"US", struct.pack("<H", pixels.shape[0])),
+             el(0x0028, 0x0011, b"US", struct.pack("<H", pixels.shape[1])),
+             el(0x0028, 0x0030, b"DS", ds((pixel_spacing, pixel_spacing))),
+             el(0x0028, 0x0100, b"US", struct.pack("<H", 16)), el(0x0028, 0x0103, b"US", struct.pack("<H", 0)),
+             el(0x7FE0, 0x0010, b"OW", pixels.astype("<u2").tobytes())]
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"\x00" * 128 + b"DICM" + _dicom_element(0x0002, 0x0010, b"UI", syntax, False) + b"".join(body))
+
+
+def cine_geometry(rows: int, cols: int, spacing: float, n_sax: int, gap: float) -> dict:
+    """DICOM (LPS) positions and orientations of a study: SAX slices ``gap`` apart along z, a 2C plane of
+    constant x and a 4C plane of constant y through the middle of the SAX slices (a little off it), and a 3C plane
+    parallel to the 2C one; each LAX image spans the SAX stack."""
+    px, py = -cols * spacing / 2, -rows * spacing / 2
+    z0 = -rows * spacing / 2 + n_sax * gap / 2
+    return {
+        "sax": [((px, py, k * gap), (1, 0, 0, 0, 1, 0)) for k in range(n_sax)],
+        "lax_2c": ((px + cols * spacing / 2 + 1.0, py, z0), (0, 1, 0, 0, 0, 1)),
+        "lax_3c": ((px + cols * spacing / 2 - 9.0, py, z0), (0, 1, 0, 0, 0, 1)),
+        "lax_4c": ((px, py + rows * spacing / 2 - 2.0, z0), (1, 0, 0, 0, 0, 1)),
+    }
+
+
+def cine_pixels(rs: np.random.RandomState, rows: int, cols: int, n_frames: int, noise: int = 3) -> np.ndarray:
+    """(n_frames, rows, cols) uint16 cine pixels: a bright disc whose radius follows the cycle on a dim
+    background, with integer noise in [-noise, noise]."""
+    yy, xx = np.mgrid[:rows, :cols]
+    r2 = ((yy - rows / 2) / rows) ** 2 + ((xx - cols / 2) / cols) ** 2
+    frames = [np.where(r2 < (0.18 * s) ** 2, 600, 150) + rs.randint(-noise, noise + 1, (rows, cols))
+              for s in cycle(n_frames)]
+    return np.stack(frames).astype(np.uint16)
+
+
+def write_kaggle_study(study_dir: Path, rs: np.random.RandomState, rows: int, cols: int, n_frames: int,
+                       n_sax: int, implicit: bool, odd_slice: bool) -> None:
+    """One study of the Kaggle Data Science Bowl: ``2ch_*`` and ``4ch_*`` LAX folders and numbered ``sax_*``
+    folders of one cine slice each, frames shuffled on disk, no SeriesInstanceUID; ``odd_slice`` gives the last
+    SAX slice another pixel spacing, which the CLI's filter drops."""
+    geo = cine_geometry(rows, cols, 1.8, n_sax, 8.0)
+    folders = [("2ch_21", *geo["lax_2c"], 2.0), ("4ch_22", *geo["lax_4c"], 2.0)]
+    folders += [(f"sax_{k + 5}", pos, orient, 2.1 if odd_slice and k == n_sax - 1 else 1.8)
+                for k, (pos, orient) in enumerate(geo["sax"])]
+    for name, position, orientation, spacing in folders:
+        pixels = cine_pixels(rs, rows, cols, n_frames)
+        for file_index, t in enumerate(rs.permutation(n_frames)):
+            write_dicom(study_dir / name / f"IM-{file_index:04d}.dcm", pixels[t], position, orientation, spacing,
+                        "", name, int(t) + 1, 30.0 * float(t), n_frames,
+                        spacing_between_slices=8.0 if name.startswith("sax") else 0.0, implicit=implicit)
+
+
+def write_raw_kaggle(root: Path, seed: int, rows: int = 24, cols: int = 20, n_frames: int = 3, n_sax: int = 4) -> None:
+    """The Kaggle Data Science Bowl layout: ``{train,validate,test}/<split>/<pid>/study/`` (one study in implicit
+    VR, one with an inconsistent SAX slice) with ``train.csv`` and ``validate.csv`` (Id, Systole, Diastole; the
+    validate study's row missing) and ``solution.csv`` (``<Id>_{Diastole,Systole}``, Volume, Usage)."""
+    rs = np.random.RandomState(seed)
+    for split, pids in (("train", (1, 12)), ("validate", (3,)), ("test", (4,))):
+        for pid in pids:
+            write_kaggle_study(root / split / split / str(pid) / "study", rs, rows, cols, n_frames, n_sax,
+                               implicit=pid == 12, odd_slice=pid == 1)
+    (root / "train.csv").write_text("Id,Systole,Diastole\n1,60,150\n12,45.5,120.5\n")
+    (root / "validate.csv").write_text("Id,Systole,Diastole\n2,70,160\n")
+    (root / "solution.csv").write_text("Id,Volume,Usage\n4_Diastole,140.0,Public\n4_Systole,52.5,Public\n")
+
+
+def write_raw_rescan(root: Path, seed: int, n_slices: int = 3, n_frames: int = 4, ny: int = 24, nx: int = 20) -> None:
+    """The rescan study's pickles: ``train/<group>/<scan>/{2C,4C,SAX,SAX_segs}.pickle`` (SAX voxels (z, t, y,
+    x), apex first, with labels 1 LV) and ``test_retest_100/<id>/`` scans without labels paired by
+    ``labels.csv`` (A, B1, B2, EDV/ESV of each; one pair without B2)."""
+    import pickle
+
+    rs = np.random.RandomState(seed)
+
+    def scan(scan_dir: Path, with_label: bool) -> None:
+        scan_dir.mkdir(parents=True)
+        geo = cine_geometry(ny, nx, 1.8, n_slices, 8.0)
+        voxels = np.stack([cine_pixels(rs, ny, nx, n_frames) for _ in range(n_slices)])
+        sax = {"image_voxels": voxels.astype(np.float32),
+               "ImagePositionPatient": np.array([pos for pos, _ in geo["sax"]][::-1], np.float64),
+               "ImageOrientationPatient": np.array(geo["sax"][0][1], np.float64),
+               "PixelSpacing": np.array([1.8, 1.8]), "SliceSpacing": 8.0}
+        pickles = {"SAX": sax}
+        if with_label:
+            seg = np.zeros((n_slices, n_frames, ny, nx), np.uint8)
+            for t, s in enumerate(cycle(n_frames)):
+                y0, y1, x0, x1 = (int(n * (0.5 + sign * 0.2 * s)) for n in (ny, nx) for sign in (-1, 1))
+                seg[:, t, y0:y1, x0:x1] = 1
+            pickles["SAX_segs"] = {**{k: v for k, v in sax.items() if k != "image_voxels"}, "image_segmentation": seg}
+        for view, key in (("2C", "lax_2c"), ("4C", "lax_4c")):
+            position, orientation = geo[key]
+            pickles[view] = {"image_voxels": cine_pixels(rs, ny, nx, n_frames).astype(np.float32),
+                             "ImagePositionPatient": np.array(position, np.float64),
+                             "ImageOrientationPatient": np.array(orientation, np.float64),
+                             "PixelSpacing": np.array([2.0, 2.0])}
+        for name, data in pickles.items():
+            with open(scan_dir / f"{name}.pickle", "wb") as f:
+                pickle.dump(data, f)
+
+    scan(root / "train" / "G1" / "s_0001", True)
+    scan(root / "train" / "G2" / "s_0007", True)
+    for scan_id in (7, 8, 9, 10, 11):
+        scan(root / "test_retest_100" / str(scan_id), False)
+    (root / "test_retest_100" / "labels.csv").write_text(
+        "A,B1,B2,EDV_A,ESV_A,EDV_B1,ESV_B1,EDV_B2,ESV_B2\n7,8,9,100,40,110.5,50,90,30\n10,11,,80,30,82,31,,\n")
+
+
+def write_raw_ukb(root: Path, seed: int, rows: int = 24, cols: int = 20, n_sax: int = 3, n_frames: int = 3,
+                  noise: int = 3, eid: str = "1000001") -> tuple:
+    """One UK Biobank eid as its bulk export holds it: the flat DICOM folders ``<eid>_20209_2_0`` (LAX 2C, 3C, 4C)
+    and ``<eid>_20208_2_0`` (SAX slices ``CINE_segmented_SAX_b<k>``, 10 mm apart) with their ``manifest.csv``
+    (unquoted comma dates that the CLI fixes; a derived InlineVF series whose file is absent, with empty
+    numeric fields). Returns the two folders."""
+    rs = np.random.RandomState(seed)
+    geo = cine_geometry(rows, cols, UKB_REAL["pixel_spacing"], n_sax, 10.0)
+    series = {"lax": [(f"CINE_segmented_LAX_{c}Ch", *geo[f"lax_{c}c"]) for c in (2, 3, 4)],
+              "sax": [(f"CINE_segmented_SAX_b{k + 1}", *geo["sax"][k]) for k in range(n_sax)]}
+    folders = []
+    count = 0
+    for suffix, field in (("lax", "20209"), ("sax", "20208")):
+        folder = root / f"{eid}_{field}_2_0"
+        folder.mkdir(parents=True)
+        lines = ["filename,date,series discription,rows,columns,acquisition"]
+        for s, (name, position, orientation) in enumerate(series[suffix]):
+            pixels = cine_pixels(rs, rows, cols, n_frames, noise)
+            for t in range(n_frames):
+                count += 1
+                fname = f"IM-{count:05d}.dcm"
+                write_dicom(folder / fname, pixels[t], position, orientation, UKB_REAL["pixel_spacing"],
+                            f"1.2.826.{field}.{s}", name, t + 1, 25.0 * t, n_frames, spacing_between_slices=10.0)
+                lines.append(f"{fname},Aug 30, 2015,{name},{rows},{cols},{s + 1}")
+        if suffix == "lax":
+            lines.append("IM-99999.dcm,Sep 1, 2015,InlineVF_Results,,,")
+        (folder / "manifest.csv").write_text("\n".join(lines) + "\n")
+        folders.append(folder)
+    return tuple(folders)
+
+
+def write_raw_reindex(root: Path, seed: int) -> None:
+    """4-D NIfTI files as an earlier preprocessing left them, one gzip stream each: a uint8 cine, an int16 one
+    with scaling (slope 2, intercept -1) and its own description, one already frame-indexed, and a 3-D volume,
+    which the CLI skips."""
+    from cinema_tpu_torch.data import save_nifti
+
+    rs = np.random.RandomState(seed)
+    (root / "a").mkdir(parents=True)
+    save_nifti(root / "a" / "1_sax_t.nii.gz", rs.randint(0, 256, (12, 10, 3, 5)).astype(np.uint8),
+               spacing=(1.0, 1.0, 10.0, 1.0))
+    save_nifti(root / "a" / "2_sax_t.nii.gz", rs.randint(-300, 300, (10, 12, 2, 4)).astype(np.int16),
+               spacing=(1.4, 1.4, 8.0, 1.0), descrip=b"scanner export", scl=(2.0, -1.0))
+    save_nifti(root / "3_lax_t.nii.gz", rs.randint(0, 256, (16, 16, 1, 3)).astype(np.uint8), frame_indexed=True)
+    save_nifti(root / "4.nii.gz", rs.randint(0, 256, (8, 8, 4)).astype(np.uint8))
+
+
+def _ukb_args(raw: Path, out: Path) -> list:
+    return [["--lax_dicom_dir", str(raw / "1000001_20209_2_0"), "--sax_dicom_dir", str(raw / "1000001_20208_2_0"),
+             "--out_dir", str(out)]]
+
+
+def _dir_args(*extra: str):
+    """The argument lists of one call with ``--data_dir`` and ``--out_dir``, then ``extra``."""
+    return lambda raw, out: [["--data_dir", str(raw), "--out_dir", str(out), *extra]]
+
+
+# the ten preprocessing CLIs by their JAX console-script names (pyproject.toml): the module under
+# ``<package>.data.preprocess`` and its function, both the same in the JAX package and the port; the raw
+# tree's writer; and the argument lists of the calls, each CLI called once per list
+PREPROCESS_CLIS = {
+    "acdc_preprocess": ("acdc", "main", write_raw_acdc, _dir_args()),
+    "mnms_preprocess": ("mnms", "main", write_raw_mnms, _dir_args()),
+    "mnms2_preprocess": ("mnms2", "main", write_raw_mnms2, _dir_args()),
+    "emidec_preprocess": ("emidec", "main", write_raw_emidec, _dir_args()),
+    "myops2020_preprocess": ("myops2020", "main", write_raw_myops2020, _dir_args()),
+    "landmark_preprocess": ("landmark", "main", write_raw_landmark,
+                            lambda raw, out: [["--data_dir", str(raw), "--out_dir", str(out), "--view", view]
+                                              for view in ("lax_2c", "lax_4c")]),
+    "kaggle_preprocess": ("dicom_based", "main_kaggle", write_raw_kaggle, _dir_args("--max_n_cpus", "2")),
+    "rescan_preprocess": ("dicom_based", "main_rescan", write_raw_rescan,
+                          _dir_args("--splits", "train", "test_retest_100")),
+    "dicom_to_nifti": ("dicom_based", "main_dicom_to_nifti", write_raw_ukb, _ukb_args),
+    "cinema_reindex_nifti": ("reindex", "main", write_raw_reindex, _dir_args("--n_workers", "2")),
+}
+
+
+def run_port_cli(name: str, raw: Path, out: Path) -> float:
+    """Write CLI ``name``'s seeded raw tree under ``raw`` (seed 13) and run the port's CLI on it into ``out``, in
+    this process; returns the CLI's seconds."""
+    import importlib
+
+    module, function, writer, argv = PREPROCESS_CLIS[name]
+    writer(raw, seed=13)
+    entry = getattr(importlib.import_module(f"cinema_tpu_torch.data.preprocess.{module}"), function)
+    t0 = time.perf_counter()
+    for args in argv(raw, out):
+        entry(args)
+    return time.perf_counter() - t0
+
+
+def compare_trees(got: Path, want: Path) -> dict:
+    """What differs between two output trees, by relative path: a file in one tree only; a PNG whose decoded
+    pixels differ; any other file whose bytes differ, and for a NIfTI then the number of voxels that differ and
+    the largest difference, or the header fields that do. Empty where the trees are the same."""
+    from cinema_tpu_torch.data import load_nifti, read_png_gray
+
+    if not want.is_dir():
+        return {"": f"no reference tree at {want}"}
+    files = {p.relative_to(got).as_posix() for p in got.rglob("*") if p.is_file()}
+    wanted = {p.relative_to(want).as_posix() for p in want.rglob("*") if p.is_file()}
+    problems = {name: "only in the port's output" for name in sorted(files - wanted)}
+    problems.update({name: "missing from the port's output" for name in sorted(wanted - files)})
+    for name in sorted(files & wanted):
+        a, b = got / name, want / name
+        if name.endswith(".png"):
+            x, y = read_png_gray(a), read_png_gray(b)
+            if x.shape != y.shape or not np.array_equal(x, y):
+                problems[name] = {"pixels": "shape" if x.shape != y.shape else int(np.sum(x != y))}
+        elif a.read_bytes() != b.read_bytes():
+            problems[name] = "bytes differ"
+            if name.endswith((".nii", ".nii.gz")):
+                (x, hx), (y, hy) = load_nifti(a), load_nifti(b)
+                if x.shape == y.shape and x.dtype == y.dtype:
+                    diff = np.abs(x.astype(np.float64) - y.astype(np.float64))
+                    problems[name] = {"voxels_differ": int(np.sum(diff > 0)), "max_abs_diff": float(diff.max()),
+                                      "header_differs": [k for k in ("spacing", "descrip", "scl_slope", "scl_inter")
+                                                         if getattr(hx, k) != getattr(hy, k)]
+                                      + (["affine"] if not np.array_equal(hx.affine, hy.affine) else [])}
+                else:
+                    problems[name] = {"shape": [list(x.shape), list(y.shape)], "dtype": [str(x.dtype), str(y.dtype)]}
+    return problems
+
+
+@contextlib.contextmanager
+def ukb_ingest():
+    """Write the real-size UKB eid of phase 13 (``UKB_REAL``) and start its CLI, ``python -m
+    cinema_tpu_torch.data.preprocess.ukb_dicom``, in a process of its own; yields ``{"process", "out", "log",
+    "t0", "write_raw_s"}``, ``t0`` by ``time.time()``. The CLI spends most of its ~150 s on the host in zlib at level 9, the JAX
+    pipeline's writes of the uncropped float32 volumes, so ``main`` starts it before phases 11 and 12 and
+    phase 13 waits for it: one core of eight busy beside them. On exit the process is stopped if it still
+    runs, and its folder removed."""
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        t0 = time.perf_counter()
+        lax_dir, sax_dir = write_raw_ukb(work / "raw", seed=15, rows=UKB_REAL["rows"], cols=UKB_REAL["cols"],
+                                         n_sax=UKB_REAL["n_sax"], n_frames=UKB_REAL["n_frames"],
+                                         noise=UKB_REAL["noise"])
+        write_s = time.perf_counter() - t0
+        with open(work / "ukb_dicom.log", "w") as log:
+            t0 = time.time()  # the file system's clock, which dates the CLI's last file
+            process = subprocess.Popen(
+                [sys.executable, "-m", "cinema_tpu_torch.data.preprocess.ukb_dicom", "--lax_dicom_dir",
+                 str(lax_dir), "--sax_dicom_dir", str(sax_dir), "--out_dir", str(work / "out")],
+                cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+            try:
+                yield {"process": process, "out": work / "out", "log": work / "ukb_dicom.log", "t0": t0,
+                       "write_raw_s": write_s}
+            finally:
+                if process.poll() is None:
+                    process.kill()
+                process.wait()
+
+
+def preprocess_exactness(work: Path) -> dict:
+    """Phase 13 (a): the ten port CLIs on their seeded raw trees, in this process, each output tree against the
+    JAX CLI's (``PREPROCESS_FIXTURES``). Returns the seconds of each CLI and what differs."""
+    seconds, problems = {}, {}
+    for name in PREPROCESS_CLIS:
+        seconds[name] = run_port_cli(name, work / name / "raw", work / name / "out")
+        found = compare_trees(work / name / "out", PREPROCESS_FIXTURES / name)
+        if found:
+            problems[name] = found
+    return {"seconds": seconds, "problems": problems}
+
+
+def preprocess_phase(report: dict, smi: str, ukb: dict) -> dict:
+    """The preprocessing CLIs on the card's machine (no pandas, no PIL): (a) the ten CLIs on small seeded raw trees,
+    their outputs equal to the JAX CLIs'; (b) a real-size ACDC study through ``acdc`` and then the port's
+    segmentation evaluation with ConvUNetR-base on the card, and a real-size UKB eid of DICOM through
+    ``dicom_to_nifti`` (``ukb``, the process that ``ukb_ingest`` started), ``scan_manifest`` and
+    ``UKBCineDataset`` into one CineMA-base MAE forward on the card. Returns the packed kernels' launches of
+    the path."""
+    import importlib.util
+
+    import scipy
+
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import BatchLoader, EDESSegmentationDataset, UKBCineDataset, collate, load_nifti
+    from cinema_tpu_torch.data import read_metadata, to_device
+    from cinema_tpu_torch.data.preprocess import acdc
+    from cinema_tpu_torch.data.transforms import get_pretrain_transforms, get_segmentation_transforms
+    from cinema_tpu_torch.factory import get_mae_model, get_segmentation_model, init_weights
+    from cinema_tpu_torch.tasks.pretrain import scan_manifest
+    from cinema_tpu_torch.tasks.segmentation import segmentation_eval_dataloader
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    cuda = torch.device("cuda")
+    result = {"numpy": np.__version__, "scipy": scipy.__version__,
+              "pandas_installed": importlib.util.find_spec("pandas") is not None,
+              "pil_installed": importlib.util.find_spec("PIL") is not None}
+    with tempfile.TemporaryDirectory() as tmp:
+        work = Path(tmp)
+        # a. exactness: the ten CLIs against the JAX CLIs' outputs of the same raw trees
+        exact = preprocess_exactness(work / "small")
+        result["small_s"] = exact["seconds"]
+        print("preprocess_small", json.dumps({"seconds": exact["seconds"], "numpy": np.__version__,
+                                               "scipy": scipy.__version__}), flush=True)
+        if exact["problems"]:
+            print("preprocess_problems", json.dumps(exact["problems"]), f"numpy {np.__version__} scipy "
+                  f"{scipy.__version__}", flush=True)
+        check(not exact["problems"], f"a port CLI's output differs from the JAX CLI's: {sorted(exact['problems'])} "
+                                     f"(numpy {np.__version__}, scipy {scipy.__version__})")
+        # the CLIs ran without pandas and PIL, whether or not the machine has them
+        result["imported"] = sorted({m.split(".")[0] for m in sys.modules} & {"pandas", "PIL", "jax", "yaml"})
+        check(not result["imported"], f"the preprocessing CLIs imported {result['imported']}")
+
+        # b1. one ACDC study at the size ACDC ships, through the CLI, then evaluated on the card
+        raw, out = work / "acdc_real" / "raw", work / "acdc_real" / "out"
+        t0 = time.perf_counter()
+        write_raw_acdc(raw, seed=14, size=ACDC_REAL["size"], n_frames=ACDC_REAL["n_frames"],
+                       spacing=ACDC_REAL["spacing"], n_train=1, n_test=0)
+        write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        acdc.main(["--data_dir", str(raw), "--out_dir", str(out)])
+        acdc_s = time.perf_counter() - t0
+        rows = read_metadata(out / "train_metadata.csv")
+        pid = rows[0]["pid"]
+        ed, _ = load_nifti(out / "train" / pid / f"{pid}_sax_ed.nii.gz")
+        video, _ = load_nifti(out / "train" / pid / f"{pid}_sax_t.nii.gz")
+        check(len(rows) == 1 and ed.shape == (192, 192, 10) and video.shape == (192, 192, 10, 30)
+              and ed.dtype == np.uint8, f"processed ACDC study {rows} {ed.shape} {video.shape}")
+        config = from_dict(PACKAGED["segmentation/acdc"])
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=14).eval()
+        _, val_transform = get_segmentation_transforms(config)
+        loader = BatchLoader(EDESSegmentationDataset(out / "train", rows, "sax", val_transform), 1, shuffle=False,
+                             drop_last=False)
+        depth = 12
+        with loader, torch.no_grad():
+            reset()
+            t0 = time.perf_counter()
+            metrics = segmentation_eval_dataloader(model, loader, config)
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            got = read()
+        check(got == (2 * depth, 0, 0, 0), f"the processed ACDC study's evaluation launched {got}, expected "
+                                           f"{depth} packed forward launches for each of ED and ES")
+        check(0.0 <= metrics["mean_dice_score"] <= 1.0, f"ACDC evaluation of the processed study: {metrics}")
+        result["acdc_real"] = {"size": list(ACDC_REAL["size"]), "n_frames": ACDC_REAL["n_frames"],
+                               "write_raw_s": write_s, "cli_s_per_study": acdc_s, "eval_s": eval_s,
+                               "launches": got[0], "mean_dice_score": metrics["mean_dice_score"]}
+        del model
+
+        # b2. the real-size UKB eid, processed by its CLI's own process, into one MAE forward on the card
+        t0 = time.perf_counter()
+        ukb_rc = ukb["process"].wait(timeout=900)
+        waited_s = time.perf_counter() - t0
+        check(ukb_rc == 0, f"python -m cinema_tpu_torch.data.preprocess.ukb_dicom exited {ukb_rc}: "
+                           f"{ukb['log'].read_text()[-2000:]}")
+        out = ukb["out"]
+        # the CLI's seconds: from its start to its last file written (it may have ended before this phase)
+        ukb_s = max(f.stat().st_mtime for f in out.rglob("*") if f.is_file()) - ukb["t0"]
+        config = from_dict(PACKAGED["mae"])
+        views = list(config.model.views)
+        pids = scan_manifest(out, views)
+        check(pids == ["1000001_2"], f"scan_manifest of the processed eid: {pids}")
+        dataset = UKBCineDataset(out, pids, views=views, transform=get_pretrain_transforms(config), seed=0)
+        batch = to_device({k: v for k, v in collate([dataset.load(0)]).items() if k in views}, cuda)
+        model = init_weights(get_mae_model(config, dtype=torch.bfloat16, device=cuda), seed=15).eval()
+        with torch.no_grad():
+            reset()
+            t0 = time.perf_counter()
+            loss, _, _, _ = model(batch, config.train.enc_mask_ratio, generator=torch.Generator(cuda).manual_seed(0))
+            loss = float(loss)
+            mae_s = time.perf_counter() - t0
+            got = read()
+        check(got == (12 + 8, 0, 0, 0), f"the MAE forward of the processed eid launched {got}, expected 12 + 8")
+        check(np.isfinite(loss), f"the MAE loss of the processed eid is {loss}")
+        result["ukb_real"] = {"sax": [UKB_REAL["cols"], UKB_REAL["rows"], UKB_REAL["n_sax"], UKB_REAL["n_frames"]],
+                              "write_raw_s": ukb["write_raw_s"], "cli_s_per_study": ukb_s, "waited_s": waited_s,
+                              "mae_forward_s": mae_s,
+                              "launches": got[0], "loss": loss,
+                              "shapes": {v: list(batch[v].shape) for v in views}}
+        del model
+    result["phase_s"] = time.perf_counter() - t_phase
+    result["launches"] = dict(counters)
+    report["preprocess"] = result
+    print("preprocess", json.dumps(result), f"on {smi}", flush=True)
+    return counters
+
+
 def tf32_sass() -> dict:
     """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 function, forward (``flash_fwd_tf32x3``) and
     backward (``flash_bwd_dkdv_tf32x3``, ``flash_bwd_dq_tf32x3``), in the built libraries' machine code, by
@@ -3386,7 +4013,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 12. the nine paths at full width, launch counts set to 0 before each and read after
+    # 4. to 13. the ten paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -3395,8 +4022,10 @@ def main() -> None:
     lmk = landmark_phase(report, smi, args.profile)
     mnms = mnms_phase(report, smi, args.profile)
     cine = cine_phase(report, smi, args.profile)
-    baseline_phase(report, smi, args.profile)
-    examples = examples_phase(report, smi)
+    with ukb_ingest() as ukb:  # phase 13's real-size UKB CLI, in its own process beside phases 11 and 12
+        baseline_phase(report, smi, args.profile)
+        examples = examples_phase(report, smi)
+        prep = preprocess_phase(report, smi, ukb)
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
@@ -3404,10 +4033,10 @@ def main() -> None:
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
                    serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
-                   + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"],
+                   + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"] + prep["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
                     "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"],
-                    "cine": cine["packed_fwd"], "examples": examples["packed_fwd"]},
+                    "cine": cine["packed_fwd"], "examples": examples["packed_fwd"], "preprocess": prep["packed_fwd"]},
                    fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
@@ -3428,6 +4057,7 @@ def main() -> None:
     check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
     check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
     check(all(k["launches_by_path"]["examples"] > 0 for k in kernels[:2]), "the examples launched no packed kernel")
+    check(kernels[0]["launches_by_path"]["preprocess"] > 0, "the preprocessed studies launched no packed forward")
     # the f32 backward (split TF32) runs in the f32 check steps only: its launches there, apart
     f32_bwd = {key: sum(step[key] for step in F32_STEPS.values()) for key in ("packed_bwd", "heads_bwd")}
     report["f32_steps"] = {"steps": F32_STEPS, **f32_bwd}

@@ -1,7 +1,9 @@
 """The port's data engine (port of cinema_tpu/data): the NIfTI reader and writer with frame seeks
 (``nifti``), the augmentation transforms (``transforms``), and the datasets with their batch loader and
 device prefetch (``datasets``): the ED/ES datasets, the per-frame cine, EMIDEC, MyoPS2020 and Kaggle video
-datasets, the landmark datasets and the UKB pretraining dataset."""
+datasets, the landmark datasets and the UKB pretraining dataset; and, for the offline preprocessing CLIs
+(``preprocess``), the DICOM reader (``dicom``), the geometry and intensity helpers (``geometry``) and oriented
+volumes (``volume``)."""
 
 from cinema_tpu_torch.data.datasets import (
     BatchLoader,

@@ -1,8 +1,9 @@
 """The datasets, the batch loader and the device prefetch of the task entry points (port of
 cinema_tpu/data/datasets.py).
 
-- The NIfTI datasets read the processed studies that the JAX package's preprocessing writes
-  (cinema_tpu/data/preprocess/), one row of a metadata table per study (:func:`read_metadata`):
+- The NIfTI datasets read the processed studies that the preprocessing writes (the JAX package's
+  cinema_tpu/data/preprocess/ or the port's cinema_tpu_torch/data/preprocess/, byte for byte the same), one row
+  of a metadata table per study (:func:`read_metadata`):
   the EDES datasets ``data_dir/<pid>/<pid>_<view>_{ed,es}.nii.gz`` and the ``_gt.nii.gz``
   labels beside them (ACDC, M&Ms, M&Ms2); :class:`CineSegmentationDataset` the frames of
   4-D cines ``<pid>/<view>_t.nii.gz`` (Rescan); :class:`EMIDECDataset` ``<pid>/<pid>.nii.gz``;
@@ -24,6 +25,7 @@ from __future__ import annotations
 
 import csv
 import multiprocessing
+import re
 import struct
 import zlib
 from collections import deque
@@ -192,21 +194,89 @@ def read_metadata(path: Union[str, Path]) -> Rows:
         return [{k: v if v != "" else None for k, v in row.items()} for row in csv.DictReader(f)]
 
 
-def _csv_field(value: Any) -> Any:
-    """A value as pandas' ``to_csv`` writes it: an empty field for None and NaN."""
-    if value is None or (isinstance(value, (float, np.floating)) and np.isnan(value)):
-        return ""
-    return float(value) if isinstance(value, np.floating) else value
+# pandas' default missing-value markers of ``read_csv`` (pandas._libs.parsers.STR_NA_VALUES)
+_CSV_NA = frozenset({"", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan", "1.#IND", "1.#QNAN", "<NA>",
+                     "N/A", "NA", "NULL", "NaN", "None", "n/a", "nan", "null"})
+_CSV_INT = re.compile(r"[+-]?\d+\Z")
+_CSV_FLOAT = re.compile(r"[+-]?(\d+\.?\d*([eE][+-]?\d+)?|\.\d+([eE][+-]?\d+)?|inf|infinity)\Z", re.IGNORECASE)
+_CSV_BOOL = {"True": True, "TRUE": True, "true": True, "False": False, "FALSE": False, "false": False}
 
 
-def write_table(path: Union[str, Path], rows: Sequence[Dict[str, Any]]) -> None:
-    """Write dict rows as ``pd.DataFrame(rows).to_csv(path, index=False)`` writes them: the columns in the
-    order they first appear, an empty field where a row lacks one or holds None or NaN."""
-    columns = list(dict.fromkeys(key for row in rows for key in row))
+def _typed_column(fields: Sequence[str]) -> List[Any]:
+    """A column's fields typed as ``pd.read_csv`` types them: ints where every field is an integer; floats where
+    every field present is a number (NaN where one is missing); bools where every field is one; else strings,
+    NaN where a field is missing. A column with no field present is NaN throughout."""
+    present = [f for f in fields if f not in _CSV_NA]
+    if len(present) == len(fields) and all(_CSV_INT.match(f) for f in present):
+        return [int(f) for f in fields]
+    if all(_CSV_FLOAT.match(f) for f in present):
+        return [float(f) if f not in _CSV_NA else float("nan") for f in fields]
+    if len(present) == len(fields) and all(f in _CSV_BOOL for f in present):
+        return [_CSV_BOOL[f] for f in fields]
+    return [f if f not in _CSV_NA else float("nan") for f in fields]
+
+
+def read_table(path: Union[str, Path], names: Optional[Sequence[str]] = None) -> Tuple[List[str], List[Dict[str, Any]]]:
+    """(columns, rows) of a CSV table, each value typed as ``pd.read_csv(path)`` types it (see
+    :func:`_typed_column`); with ``names``, the file has no header line and these are its columns, as
+    ``pd.read_csv(path, header=None, names=names)`` reads it. Blank lines are skipped."""
+    with open(path, newline="") as f:
+        records = [r for r in csv.reader(f) if r]
+    if names is None:
+        names, records = (records[0], records[1:]) if records else ([], [])
+    columns = [_typed_column([r[i] if i < len(r) else "" for r in records]) for i in range(len(names))]
+    return list(names), [dict(zip(names, values)) for values in zip(*columns)]
+
+
+def _is_missing(value: Any) -> bool:
+    return value is None or (isinstance(value, (float, np.floating)) and np.isnan(value))
+
+
+def _is_number(value: Any) -> bool:
+    return isinstance(value, (int, float, np.integer, np.floating)) and not isinstance(value, (bool, np.bool_))
+
+
+def iterrows(rows: Sequence[Dict[str, Any]]) -> Iterator[Dict[str, Any]]:
+    """The rows of :func:`read_table` as ``DataFrame.iterrows`` hands them out: where every value is a number
+    (no bool, no string; NaN counts as a float) and one is a float, each value comes as an ``np.float64``."""
+    values = [v for row in rows for v in row.values()]
+    upcast = all(_is_number(v) for v in values) and any(isinstance(v, (float, np.floating)) for v in values)
+    for row in rows:
+        yield {k: np.float64(v) for k, v in row.items()} if upcast else dict(row)
+
+
+def _column_fields(values: Sequence[Any]) -> List[str]:
+    """A column's values as pandas' ``to_csv`` writes the column that ``pd.DataFrame(rows)`` makes of them. The
+    column's type decides: bools as ``True`` / ``False``; numbers as ints, or, where one is a float or one is
+    missing, as float64 by ``repr`` (``70.0``); float32 (or float16) values alone in their type's shortest
+    form; any other mix by ``str``. An empty field for None and NaN."""
+    present = [v for v in values if not _is_missing(v)]
+    if present and all(isinstance(v, (bool, np.bool_)) for v in present):
+        kind = str
+    elif present and all(_is_number(v) for v in present):
+        narrow = {type(v) for v in present}
+        if len(present) == len(values) and len(narrow) == 1 and narrow <= {np.float32, np.float16}:
+            kind = str
+        elif len(present) < len(values) or any(isinstance(v, (float, np.floating)) for v in present):
+            kind = lambda v: repr(float(v))  # noqa: E731
+        else:
+            kind = lambda v: str(int(v))  # noqa: E731
+    else:
+        kind = str
+    return ["" if _is_missing(v) else kind(v) for v in values]
+
+
+def write_table(path: Union[str, Path], rows: Sequence[Dict[str, Any]], columns: Sequence[str] = ()) -> None:
+    """Write dict rows as ``pd.DataFrame(rows).to_csv(path, index=False)`` writes them: the columns in the order
+    they first appear (after ``columns``, which lead, as those of an empty frame or of the first frame of a
+    ``pd.concat``), each column's values as :func:`_column_fields` formats them, an empty field where a row
+    lacks one or holds None or NaN."""
+    columns = list(dict.fromkeys([*columns, *(key for row in rows for key in row)]))
+    fields = [_column_fields([row.get(c) for row in rows]) for c in columns]
     with open(path, "w", newline="") as f:
         writer = csv.writer(f, lineterminator="\n")
         writer.writerow(columns)
-        writer.writerows([_csv_field(row.get(c)) for c in columns] for row in rows)
+        writer.writerows(zip(*fields))
 
 
 def column_means(rows: Sequence[Dict[str, Any]], drop: Sequence[str] = ()) -> Dict[str, float]:

@@ -59,7 +59,9 @@ class NiftiHeader:
 def _open(path: Union[str, Path], mode: str = "rb") -> BinaryIO:
     path = Path(path)
     if path.suffix == ".gz":
-        return gzip.open(path, mode)  # type: ignore[return-value]
+        # gzip.open's stream with the header's time stamp 0 (gzip.open writes the clock's): the same array
+        # written twice gives the same bytes
+        return gzip.GzipFile(path, mode, mtime=0)  # type: ignore[return-value]
     return open(path, mode)
 
 

@@ -1,7 +1,9 @@
 """The port stands alone: importing every module of ``cinema_tpu_torch`` pulls
 in neither jax nor the JAX package, nor PIL, matplotlib, pandas or PyYAML, which
 the card's machine does not have; and its entry points, the example scripts
-among them, run on the card unless the caller asks for the CPU."""
+among them, run on the card unless the caller asks for the CPU. (The
+preprocessing CLIs do no device work, as in the JAX package, and take no
+device.)"""
 
 import subprocess
 import sys
@@ -80,6 +82,15 @@ EXAMPLE_MODULES = {
     *(f"cinema_tpu_torch.examples.train.{name}" for name in TRAIN_EXAMPLES),
 }
 
+# and every module of the preprocessing slice: the logger, the DICOM reader, the geometry, Volume and the CLIs
+PREPROCESS_CLI_MODULES = ["acdc", "mnms", "mnms2", "emidec", "myops2020", "landmark", "reindex", "kaggle", "rescan",
+                          "ukb_dicom", "dicom_based"]
+PREPROCESS_MODULES = {
+    "cinema_tpu_torch.log", "cinema_tpu_torch.data.dicom", "cinema_tpu_torch.data.geometry",
+    "cinema_tpu_torch.data.volume", "cinema_tpu_torch.data.preprocess",
+    *(f"cinema_tpu_torch.data.preprocess.{name}" for name in PREPROCESS_CLI_MODULES),
+}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -87,10 +98,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 54, proc.stdout
+    assert int(n_modules) >= 54 + len(PREPROCESS_MODULES), proc.stdout
     assert bad.strip() == "[]", proc.stdout
+    assert len(PREPROCESS_MODULES) == 16
     wanted = (PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
-              | CINE_MODULES | BASELINE_MODULES | EXAMPLE_MODULES)
+              | CINE_MODULES | BASELINE_MODULES | EXAMPLE_MODULES | PREPROCESS_MODULES)
     assert wanted <= set(names.split()), proc.stdout
 
 
