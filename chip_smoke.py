@@ -1,10 +1,11 @@
 """Smoke run of the PyTorch + CUDA port on one NVIDIA GPU (H100).
 
-Drives the port's ten paths (``cinema_tpu_torch``), serving, MAE
+Drives the port's eleven paths (``cinema_tpu_torch``), serving, MAE
 pretraining, ConvViT fine-tuning, ConvUNetR segmentation fine-tuning,
 landmark localization, the M&Ms and M&Ms2 tasks, the EMIDEC, MyoPS2020,
 Rescan and Kaggle tasks with the evaluation of run folders, the UNet and
-ResNet baselines, the example scripts and the offline preprocessing CLIs, at
+ResNet baselines, the example scripts, the offline preprocessing CLIs, and
+the C++ frame reader with the distributed train steps, at
 full width and holds every
 hand-written kernel of those paths against its plain PyTorch version on the
 card:
@@ -176,7 +177,25 @@ card:
    level 9 on the uncropped float32 volumes takes ~150 s of one core),
    ``scan_manifest`` and ``UKBCineDataset`` into one CineMA-base MAE forward
    on the card (12 + 8 launches); the seconds of each CLI a study and the
-   phase's ``phase_s``.
+   phase's ``phase_s``;
+14. distribution: the C++ NIfTI frame reader (built in step 2 with g++; the
+   compiler and whether ``zlib.h`` was found printed; it must be the active
+   reader) reads every frame of phase 5's 32 UKB studies and phase 10's two
+   cines, each by a direct call of ``inflate_at`` or ``read_at``, byte-equal to
+   the Python reader's bytes, ms a frame of each cine under each reader in
+   turns, and the UKB loader alone (items/s) and five fed CineMA-base steps
+   (ms, the wait) with 16 threads and 16 processes under each reader, in turns
+   (A B B A); under the native reader ``CINEMA_TORCH_NATIVE=1``, so a read
+   that it refuses fails the phase instead of falling back to Python.
+   Then two gloo ranks on the card (NCCL puts no two ranks on one device;
+   gloo takes the CUDA tensors where they lie) take an f32
+   CineMA-base step at batch 2 under DDP (1 + 1 rows), tensor parallelism
+   (``n_model=2``, the packed kernels at 384 and 256 wide) and FSDP, each held
+   to this process's step on the whole batch (the f32 step gates), while
+   ``pretrain.run`` and the regression ``run_train`` run with
+   ``mesh.multiprocess=true`` in a one-rank NCCL group against the same runs
+   without it (cuDNN deterministic in both; bit equality reported, the loss
+   held to rtol 1e-5, launch counts equal).
 
 Every f32 check step (phases 5-8 and 10) is also timed through the kernels
 and through the plain attention, and its backward launches are counted apart
@@ -3893,6 +3912,395 @@ def preprocess_phase(report: dict, smi: str, ukb: dict) -> dict:
     return counters
 
 
+# phase 14: the native reader and distribution
+TWO_RANK_MODES = {"ddp": (2, 1, False), "tp": (1, 2, False), "fsdp": (2, 1, True)}  # (n_data, n_model, fsdp)
+TWO_RANK_BATCH = 2
+
+
+@contextlib.contextmanager
+def frame_reader(mode: str):
+    """The port's NIfTI frame reads through the C++ reader (``"native"``) or through Python, in this process
+    and in the loader processes started inside (``CINEMA_TORCH_NATIVE`` reaches a spawned worker). The native
+    reader is required (``CINEMA_TORCH_NATIVE=1``): a read that it refuses raises instead of falling back
+    to Python, so what is timed as native is native."""
+    from cinema_tpu_torch import native
+
+    saved = (native._lib, native._loaded, os.environ.get("CINEMA_TORCH_NATIVE"))
+    if mode == "python":
+        native._lib, native._loaded = None, True
+        os.environ["CINEMA_TORCH_NATIVE"] = "0"
+    else:
+        check(native.reader() == "native", "the native reader is not active")
+        os.environ["CINEMA_TORCH_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        native._lib, native._loaded = saved[0], saved[1]
+        if saved[2] is None:
+            os.environ.pop("CINEMA_TORCH_NATIVE", None)
+        else:
+            os.environ["CINEMA_TORCH_NATIVE"] = saved[2]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _two_rank_worker(rank: int, port: int, work: str) -> None:
+    """One of two ranks on the one card over gloo (NCCL puts no two ranks on one device; gloo takes the CUDA
+    tensors where they lie, FSDP2's collectives included): per mode of TWO_RANK_MODES, CineMA-base in f32 from
+    the seeded weights, this rank's rows of the batch and the masks, the loss and the gradients reduced over
+    the ranks; rank 0 saves the loss, the whole gradients (gathered), the launches and the local widths."""
+    import torch.distributed as dist
+
+    from cinema_tpu_torch.config import from_dict
+    from cinema_tpu_torch.factory import get_mae_model, init_weights
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed
+    from cinema_tpu_torch.ops.masking import PatchMask
+    from cinema_tpu_torch.parallel.mesh import make_mesh, parallelize
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE="2",
+                      LOCAL_RANK="0")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", rank=rank, world_size=2)
+    inputs = torch.load(Path(work) / "inputs.pt", weights_only=True)
+    config = from_dict(json.loads(inputs["config"]))
+    for mode, (n_data, n_model, fsdp) in TWO_RANK_MODES.items():
+        mesh = make_mesh(n_data, n_model, "cuda")
+        model = init_weights(get_mae_model(config, dtype=torch.float32, device="cuda"), seed=config.seed)
+        par = parallelize(model, mesh, fsdp=fsdp)
+        rows = TWO_RANK_BATCH // n_data
+        own = slice(par.data_rank * rows, (par.data_rank + 1) * rows)
+        batch = {v: x[own].cuda() for v, x in inputs["batch"].items()}
+        masks = {v: PatchMask(*(t[own].cuda() for t in m)) for v, m in inputs["masks"].items()}
+        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = model(batch, 0.75, masks)[0]
+        grads = par.gradients(loss, model)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        launches = (flash_attention_packed.launches, flash_attention_packed.bwd_launches)
+        loss = par.mean_metrics({"loss": loss.detach()})["loss"]
+        full = {name: par.full_tensor(name, g).cpu() for name, g in zip(par.names, grads)}
+        widths = sorted({tuple(m.weight.shape) for name, m in model.named_modules() if name.endswith("attn.q")})
+        if rank == 0:
+            torch.save({"loss": float(loss), "grads": full, "launches": launches, "q_widths": widths,
+                        "step_ms": step_ms, "backend": dist.get_backend()}, Path(work) / f"{mode}.pt")
+        del model, par, grads, full
+        torch.cuda.empty_cache()
+    dist.destroy_process_group()
+
+
+@contextlib.contextmanager
+def two_rank_steps(config, work: Path, smi: str):
+    """Two ranks on the one card over gloo with CUDA tensors (``_two_rank_worker``), started on entry and
+    waited for on exit (the caller's work runs beside them): an f32 CineMA-base step at batch 2 under DDP
+    (1 + 1 rows), TP (n_model=2: 384 wide with 6 heads in the encoder, 256 with 8 in the decoder) and FSDP,
+    each against this process's step on the whole batch: the loss within TRAIN_LOSS_RTOL, each parameter's
+    gradient within TRAIN_GRAD_RTOL of its largest entry. Yields the result's dict, filled on exit; the
+    ranks are stopped if the caller's work fails."""
+    import torch.multiprocessing as mp
+
+    from cinema_tpu_torch.factory import get_mae_model, init_weights
+    from cinema_tpu_torch.ops.masking import random_patch_mask
+
+    views = list(config.model.views)
+    sizes = {v: tuple(config.data.sax.patch_size if v == "sax" else config.data.lax.patch_size) for v in views}
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rng = np.random.default_rng(6)
+    batch = {v: torch.from_numpy(rng.random((TWO_RANK_BATCH, *sizes[v], 1), dtype=np.float32)) for v in views}
+    model32 = init_weights(get_mae_model(config, dtype=torch.float32, device="cuda"), seed=config.seed)
+    masks = {v: random_patch_mask(gen, TWO_RANK_BATCH, model32.enc_down_dict[v].n_patches, 0.75, "cuda")
+             for v in views}
+    work.mkdir()
+    torch.save({"config": json.dumps(config), "batch": batch,
+                "masks": {v: tuple(t.cpu() for t in m) for v, m in masks.items()}}, work / "inputs.pt")
+    params = list(model32.parameters())
+    names = [n for n, _ in model32.named_parameters()]
+    loss_ref = model32({v: x.cuda() for v, x in batch.items()}, 0.75, masks)[0]
+    grads_ref = {n: g for n, g in zip(names, torch.autograd.grad(loss_ref, params))}
+    loss_ref = loss_ref.item()
+    del model32, params
+    t0 = time.perf_counter()
+    ranks = mp.spawn(_two_rank_worker, args=(free_port(), str(work)), nprocs=2, join=False)
+    result: dict = {}
+    try:
+        yield result
+        while not ranks.join():
+            pass
+    finally:
+        for proc in ranks.processes:
+            if proc.is_alive():
+                proc.terminate()
+    spawn_s = time.perf_counter() - t0
+    two_rank = {}
+    for mode in TWO_RANK_MODES:
+        got = torch.load(work / f"{mode}.pt", weights_only=True)
+        worst = max(((got["grads"][n].cuda() - g).abs().max() / g.abs().max().clamp(min=1e-12)).item()
+                    for n, g in grads_ref.items())
+        two_rank[mode] = {"loss": got["loss"], "loss_one_process": loss_ref,
+                          "loss_rel_err": abs(got["loss"] - loss_ref) / abs(loss_ref), "max_rel_grad_err": worst,
+                          "launches_rank0": got["launches"], "q_widths_rank0": got["q_widths"],
+                          "step_ms_rank0": got["step_ms"], "backend": got["backend"]}
+        check(abs(got["loss"] - loss_ref) <= TRAIN_LOSS_RTOL * abs(loss_ref),
+              f"{mode}: loss {got['loss']} against {loss_ref}")
+        check(worst <= TRAIN_GRAD_RTOL, f"{mode}: gradients differ by {worst} of a parameter's largest")
+        check(got["launches"] == (20, 20), f"{mode}: rank 0 launched {got['launches']}")
+    check(two_rank["tp"]["q_widths_rank0"] == [(256, 512), (384, 768)],
+          f"TP rank 0's q layers are {two_rank['tp']['q_widths_rank0']}, not the heads' half")
+    result.update(modes=two_rank, spawn_s=spawn_s, loss_rtol=TRAIN_LOSS_RTOL, grad_rtol=TRAIN_GRAD_RTOL)
+    print("two_rank", json.dumps(result), f"on {smi}", flush=True)
+
+
+def distribution_phase(report: dict, smi: str) -> dict:
+    """Phase 14: the C++ frame reader on the card's host against Python, and the distributed steps on the one
+    card; returns the launches of this process's steps."""
+    import copy
+    import itertools
+
+    import torch.distributed as dist
+
+    from cinema_tpu_torch import native
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.convert import load_safetensors
+    from cinema_tpu_torch.data import BatchLoader, UKBCineDataset, device_prefetch, load_nifti_frame, save_nifti
+    from cinema_tpu_torch.data import nifti as nifti_reads
+    from cinema_tpu_torch.data.nifti import load_nifti_header, read_frame_index
+    from cinema_tpu_torch.data.transforms import get_pretrain_transforms
+    from cinema_tpu_torch.factory import get_mae_model, init_weights
+    from cinema_tpu_torch.tasks import pretrain
+    from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
+    from cinema_tpu_torch.train.optim import build_optimizer
+    from cinema_tpu_torch.train.state import TrainState, make_mae_train_step
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    out: dict = {}
+    parts_s: dict = {}
+
+    # a. the native reader: the compiler and zlib.h of this host, the build, every frame of phase 5's UKB studies
+    # and of phase 10's two cines byte-equal to the Python reads, ms per frame, the loader and fed steps
+    gxx = subprocess.run(["g++", "--version"], capture_output=True, text=True, timeout=60).stdout.splitlines()[0]
+    zlib_h = subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n", capture_output=True,
+                            text=True, timeout=60).returncode == 0
+    active = native.reader()  # built in step 2, before the loaders' processes first read a frame
+    out["native_build"] = {"gxx": gxx, "zlib_h": zlib_h, "reader": active, **native.build_info}
+    print("native_build", json.dumps(out["native_build"]), f"on {smi}", flush=True)
+    check(active == "native", f"the frame reader on this host is {active}, not native")
+
+    config = from_dict(PACKAGED["mae"])
+    config.grad_ckpt = False
+    config.train.batch_size = 16
+    views = list(config.model.views)
+    sizes = {v: tuple(config.data.sax.patch_size if v == "sax" else config.data.lax.patch_size) for v in views}
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        data_dir = root / "ukb"
+        data_dir.mkdir()
+        pids = write_ukb_studies(data_dir, 32, sizes, UKB_FRAMES, seed=2)  # phase 5's studies
+        image, _ = cine_frames(np.random.default_rng(34), RESCAN_CINE)  # phase 10's cine, both layouts
+        cines = {}
+        for kind, indexed in (("frame_indexed", True), ("single_member", False)):
+            cines[kind] = root / f"seek_{kind}.nii.gz"
+            save_nifti(cines[kind], image, spacing=(1.0, 1.0, 10.0, 1.0), frame_indexed=indexed)
+        paths = [data_dir / p / f"{p}_{v}.nii.gz" for p in pids for v in views] + list(cines.values())
+        # each frame's bytes from the native functions called directly (a refusal raises here) against the
+        # Python reads of the same byte range; load_nifti_frame under each reader is held to the same image in
+        # the timed reads below and, through the loader, to the same batches
+        n_frames, differ = {"inflate_at": 0, "read_at": 0}, []
+        for path in paths:
+            header = load_nifti_header(path)
+            nt = header.shape[3]
+            frame_bytes = int(np.prod(header.shape[:3])) * header.dtype.itemsize
+            index = read_frame_index(path)
+            check(index is not None or path == cines["single_member"], f"{path.name} is not frame-indexed")
+            for t in range(nt):
+                if index is not None:
+                    span = (int(index[t]), int(index[t + 1]))
+                    direct = native.inflate_at(path, span[0], span[1] - span[0], frame_bytes)
+                    with frame_reader("python"):
+                        python_bytes = bytes(nifti_reads._read_member(path, *span, frame_bytes))
+                    n_frames["inflate_at"] += 1
+                else:
+                    offset = header.vox_offset + t * frame_bytes
+                    direct = native.read_at(path, offset, frame_bytes)
+                    with frame_reader("python"):
+                        python_bytes = bytes(nifti_reads._seek_read(path, offset, frame_bytes))
+                    n_frames["read_at"] += 1
+                if direct.tobytes() != python_bytes:
+                    differ.append(f"{path.name}:{t}")
+        check(not differ, f"frames differ between the readers: {differ[:5]}")
+        check(n_frames["read_at"] == RESCAN_CINE[3], f"read_at ran on {n_frames['read_at']} frames")
+        reads = {}
+        for kind, path in cines.items():
+            for mode in ("native", "python", "python", "native"):  # in turns
+                with frame_reader(mode):
+                    t0 = time.perf_counter()
+                    for t in range(RESCAN_CINE[3]):
+                        check(np.array_equal(load_nifti_frame(path, t)[0], image[..., t]), f"{kind} frame {t}")
+                    ms = (time.perf_counter() - t0) * 1e3 / RESCAN_CINE[3]
+                reads.setdefault(kind, {}).setdefault(mode, []).append(ms)
+        out["native_frames"] = {"files": len(paths), "frames_byte_equal": sum(n_frames.values()),
+                                "frames_by_native_call": n_frames,
+                                "ms_per_frame": {k: {m: statistics.mean(v) for m, v in r.items()}
+                                                 for k, r in reads.items()},
+                                "ms_per_frame_runs": reads}
+        print("native_frames", json.dumps(out["native_frames"]), f"on {smi}", flush=True)
+
+        # the pretraining loader alone and steps fed from it, 16 threads and 16 processes, each with both readers
+        # in turns (A B B A); a fed step as phase 5 times it. Each loader's workers start once, under their
+        # reader (a worker process takes the reader of its start), and every loader's first batches are compared
+        n_workers = config.train.n_workers_per_device
+        dataset = UKBCineDataset(data_dir, pids * UKB_REPEAT, views, get_pretrain_transforms(config), seed=config.seed)
+        model = init_weights(get_mae_model(config, dtype=torch.bfloat16, device="cuda"), seed=config.seed)
+        tx = build_optimizer(dict(model.named_parameters()), lr=config.train.lr, min_lr=config.train.min_lr,
+                             warmup_steps=100, max_n_steps=1000, betas=tuple(config.train.betas),
+                             weight_decay=config.train.weight_decay, clip_grad=config.train.clip_grad)
+        state = TrainState.create(model, tx)
+        step_fn = make_mae_train_step(model, tx, config.train.enc_mask_ratio, seed=config.seed)
+        n_batches, n_fed = 6, 5
+        out["reader_loader"], out["reader_fed"] = {}, {}
+        orders = {"threads": ("native", "python", "python", "native"),
+                  "processes": ("python", "native", "native", "python")}
+        with contextlib.ExitStack() as pools:
+            loaders, reference = {}, None
+            for kind in orders:
+                for mode in ("native", "python"):
+                    with frame_reader(mode):
+                        loader = pools.enter_context(BatchLoader(dataset, 16, seed=config.seed, n_workers=n_workers,
+                                                                 processes=kind == "processes"))
+                        start = loader.epoch(0)
+                        first = [next(start), next(start)]
+                        start.close()
+                    reference = first if reference is None else reference
+                    check(all(np.array_equal(a[v], b[v]) for a, b in zip(reference, first) for v in views),
+                          f"the {kind} loader with the {mode} reader gave other batches")
+                    loaders[kind, mode] = loader
+            epoch = 0
+            for kind, order in orders.items():
+                for mode in order:
+                    loader = loaders[kind, mode]
+                    with frame_reader(mode):
+                        batches = loader.epoch(0)
+                        ahead = [next(batches), next(batches)]  # the look-ahead filled
+                        t0 = time.perf_counter()
+                        timed = list(itertools.islice(batches, n_batches))
+                        load_s = time.perf_counter() - t0
+                        batches.close()
+                        check(len(timed) == n_batches and all(np.array_equal(a[v], b[v]) for a, b in
+                                                              zip(reference, ahead) for v in views),
+                              f"the {kind} loader with the {mode} reader gave other batches")
+                        loaded = {"workers": n_workers, "batches_timed": n_batches,
+                                  "items_per_s": n_batches * 16 / load_s, "ms_per_batch": load_s * 1e3 / n_batches}
+                        epoch += 1
+                        fed = device_prefetch(loader.epoch(epoch), "cuda", depth=2)
+                        state, _ = step_fn(state, next(fed))  # warm-up
+                        torch.cuda.synchronize()
+                        launches.reset()
+                        waits = []
+                        t0 = time.perf_counter()
+                        for _ in range(n_fed):
+                            w0 = time.perf_counter()
+                            device_batch = next(fed)
+                            waits.append(time.perf_counter() - w0)
+                            state, metrics = step_fn(state, device_batch)
+                        torch.cuda.synchronize()
+                        fed_s = time.perf_counter() - t0
+                        fed.close()
+                        got = launches.read()
+                        check(got[:2] == (20 * n_fed, 20 * n_fed), f"fed steps launched {got}")
+                        check(float(metrics["loss"]) == float(metrics["loss"]), "a fed step's loss is not finite")
+                    fed_run = {"steps": n_fed, "ms_per_step": fed_s * 1e3 / n_fed,
+                               "loader_wait_ms_per_step": sum(waits) * 1e3 / n_fed}
+                    out["reader_loader"].setdefault(f"{kind}_{mode}", []).append(loaded)
+                    out["reader_fed"].setdefault(f"{kind}_{mode}", []).append(fed_run)
+                    print("reader_loader", kind, mode, json.dumps(loaded), "reader_fed", json.dumps(fed_run),
+                          f"on {smi}", flush=True)
+        out["reader_summary"] = {key: {
+            "items_per_s": statistics.mean(r["items_per_s"] for r in out["reader_loader"][key]),
+            "fed_ms_per_step": statistics.mean(r["ms_per_step"] for r in out["reader_fed"][key]),
+            "fed_wait_ms_per_step": statistics.mean(r["loader_wait_ms_per_step"] for r in out["reader_fed"][key]),
+        } for key in out["reader_loader"]}
+        print("reader_summary", json.dumps(out["reader_summary"]), f"on {smi}", flush=True)
+        del model, state, tx, reference, first
+
+        # b. distribution on the one card. A one-rank NCCL group: pretrain.run and run_train (the regression
+        # task) with mesh.multiprocess=true against the same runs without a group; cuDNN held to deterministic
+        # algorithms in both, so that run-to-run noise does not hide a difference
+        edes_dir = root / "acdc"
+        edes_dir.mkdir()
+        write_edes_studies(edes_dir, 16, tuple(from_dict(PACKAGED["regression/acdc"]).data.sax.patch_size), seed=4)
+        pre = copy.deepcopy(config)
+        pre.data.dir = str(data_dir)
+        pre.data.max_n_samples = 16
+        pre.train.update(n_epochs=1, n_warmup_epochs=0, use_process_workers=False)
+        reg = from_dict(PACKAGED["regression/acdc"])
+        reg.grad_ckpt = False
+        reg.data.dir = str(edes_dir)
+        reg.data.max_n_samples = 4
+        reg.train.update(n_epochs=1, n_warmup_epochs=0, eval_interval=1, batch_size=4)
+        one_rank = {}
+        parts_s["reader"] = time.perf_counter() - t_phase
+        t0 = time.perf_counter()
+        # the two ranks' steps run beside the one-rank runs; leaving the block waits for them and checks them
+        with two_rank_steps(config, root / "two_rank", smi) as two_rank:
+            deterministic = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+            torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+            os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), RANK="0", WORLD_SIZE="1",
+                              LOCAL_RANK="0")
+            try:
+                for name, cfg, entry, export in (("pretrain", pre, pretrain.run, "cinema.safetensors"),
+                                                 ("run_train", reg, reg_acdc.run, "model_0.safetensors")):
+                    runs = {}
+                    for multiprocess in (False, True):
+                        c = copy.deepcopy(cfg)
+                        c.mesh = {**dict(c.get("mesh") or {}), "multiprocess": multiprocess}
+                        c.logging.dir = str(root / f"runs_{name}_{multiprocess}")
+                        launches.reset()
+                        out_dir = entry(c, device="cuda")
+                        got = launches.read()
+                        records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
+                        runs[multiprocess] = (records, load_safetensors(out_dir / export), got)
+                    check(dist.is_initialized() and dist.get_backend() == "nccl" and dist.get_world_size() == 1,
+                          "the runs with mesh.multiprocess joined no one-rank NCCL group")
+                    (rec_a, w_a, l_a), (rec_b, w_b, l_b) = runs[False], runs[True]
+                    loss_key = "loss" if name == "pretrain" else "train_loss"
+                    loss_a, loss_b = rec_a[0][loss_key], rec_b[0][loss_key]
+                    bit_equal = loss_a == loss_b and all(np.array_equal(w_a[k], w_b[k]) for k in w_a)
+                    one_rank[name] = {"loss": loss_a, "loss_group": loss_b, "bit_equal": bit_equal, "launches": l_b,
+                                      "max_abs_weight_diff": max(float(np.abs(w_a[k].astype(np.float64) - w_b[k]).max())
+                                                                 for k in w_a)}
+                    check(l_a == l_b and l_b[0] > 0, f"{name}: launches {l_a} without the group, {l_b} with it")
+                    check(abs(loss_a - loss_b) <= TRAIN_LOSS_RTOL * abs(loss_a), f"{name}: losses {loss_a} {loss_b}")
+            finally:
+                torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic
+                if dist.is_initialized():
+                    dist.destroy_process_group()
+                for key in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+                    os.environ.pop(key, None)
+            out["one_rank_nccl"] = one_rank
+            print("one_rank_nccl", json.dumps(one_rank), f"on {smi}", flush=True)
+        out["two_rank"] = two_rank
+        parts_s["distribution"] = time.perf_counter() - t0
+    out["launches"] = launches.totals
+    modes = out["two_rank"]["modes"].values()
+    out["rank_launches"] = {"packed_fwd": sum(m["launches_rank0"][0] for m in modes),
+                            "packed_bwd": sum(m["launches_rank0"][1] for m in modes)}
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["parts_s"] = parts_s
+    report["distribution"] = out
+    print("distribution_phase", json.dumps({"launches": out["launches"], "rank_launches": out["rank_launches"],
+                                            "parts_s": parts_s, "phase_s": out["phase_s"]}), f"on {smi}", flush=True)
+    return out
+
+
 def tf32_sass() -> dict:
     """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 function, forward (``flash_fwd_tf32x3``) and
     backward (``flash_bwd_dkdv_tf32x3``, ``flash_bwd_dq_tf32x3``), in the built libraries' machine code, by
@@ -3992,6 +4400,12 @@ def main() -> None:
                 function = line.split("'")[1]
             elif "registers" in line or "spill" in line or "wgmma" in line:  # wgmma: serialized products
                 print(f"ptxas {name} {function}: {line.replace('ptxas info    :', '').strip()}", flush=True)
+    # the C++ NIfTI frame reader (g++, seconds): built here, before the loaders' worker processes first read
+    from cinema_tpu_torch import native
+
+    report["native_reader"] = {"reader": native.reader(), **native.build_info}
+    print("native_reader", json.dumps(report["native_reader"]), flush=True)
+    check(report["native_reader"]["reader"] == "native", "the C++ NIfTI frame reader did not build or load")
     report["tf32_sass"] = tf32_sass()
     print("tf32_sass", json.dumps(report["tf32_sass"] if report["tf32_sass"] is not None else "cuobjdump not found"),
           flush=True)
@@ -4013,7 +4427,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 13. the ten paths at full width, launch counts set to 0 before each and read after
+    # 4. to 14. the paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -4026,6 +4440,8 @@ def main() -> None:
         baseline_phase(report, smi, args.profile)
         examples = examples_phase(report, smi)
         prep = preprocess_phase(report, smi, ukb)
+    dist_out = distribution_phase(report, smi)
+    dist_launches, rank_launches = dist_out["launches"], dist_out["rank_launches"]
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
@@ -4033,18 +4449,22 @@ def main() -> None:
         kernel_row("flash_attention_packed_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
                    serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
-                   + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"] + prep["packed_fwd"],
+                   + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"] + prep["packed_fwd"]
+                   + dist_launches["packed_fwd"] + rank_launches["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
                     "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"],
-                    "cine": cine["packed_fwd"], "examples": examples["packed_fwd"], "preprocess": prep["packed_fwd"]},
+                    "cine": cine["packed_fwd"], "examples": examples["packed_fwd"], "preprocess": prep["packed_fwd"],
+                    "distribution": dist_launches["packed_fwd"], "distribution_rank0": rank_launches["packed_fwd"]},
                    fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
                    train_bwd + tune["packed_bwd"] + seg["packed_bwd"] + lmk["packed_bwd"] + mnms["packed_bwd"]
-                   + cine["packed_bwd"] + examples["packed_bwd"],
+                   + cine["packed_bwd"] + examples["packed_bwd"] + dist_launches["packed_bwd"]
+                   + rank_launches["packed_bwd"],
                    {"train": train_bwd, "finetune": tune["packed_bwd"], "segmentation": seg["packed_bwd"],
                     "landmark": lmk["packed_bwd"], "mnms": mnms["packed_bwd"], "cine": cine["packed_bwd"],
-                    "examples": examples["packed_bwd"]}, bwd_rows),
+                    "examples": examples["packed_bwd"], "distribution": dist_launches["packed_bwd"],
+                    "distribution_rank0": rank_launches["packed_bwd"]}, bwd_rows),
         kernel_row("flash_attention_heads_fwd", "cinema_tpu_torch/csrc/flash_attention_fwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:143", tune["heads_fwd"],
                    {"finetune": tune["heads_fwd"]}, heads_fwd_rows),
@@ -4058,6 +4478,8 @@ def main() -> None:
     check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
     check(all(k["launches_by_path"]["examples"] > 0 for k in kernels[:2]), "the examples launched no packed kernel")
     check(kernels[0]["launches_by_path"]["preprocess"] > 0, "the preprocessed studies launched no packed forward")
+    check(all(k["launches_by_path"][p] > 0 for k in kernels[:2] for p in ("distribution", "distribution_rank0")),
+          "the distribution phase launched no packed kernel")
     # the f32 backward (split TF32) runs in the f32 check steps only: its launches there, apart
     f32_bwd = {key: sum(step[key] for step in F32_STEPS.values()) for key in ("packed_bwd", "heads_bwd")}
     report["f32_steps"] = {"steps": F32_STEPS, **f32_bwd}

@@ -71,17 +71,27 @@ class BatchLoader:
     consumer runs: ``depth`` batches and one item per worker ahead of it. Items depend on
     (seed, epoch, index) alone, so threads and processes give the same batches. A worker's
     exception is raised to the consumer. ``close`` stops the workers.
+
+    ``process_shard`` (a distributed run): (rank, size) of this process on the mesh's data axis
+    (``parallel.multihost.data_shard``); rank r of n loads its strided shard of the epoch's order,
+    wrap-padded to equal length (``DistributedSampler``; the JAX package's ``process_shard``), so
+    tensor-parallel peers, which share a data coordinate, load the same rows.
     """
 
     def __init__(self, dataset, batch_size: int, seed: int = 0, depth: int = 2, shuffle: bool = True,
-                 drop_last: bool = True, n_workers: int = 1, processes: bool = False) -> None:
+                 drop_last: bool = True, n_workers: int = 1, processes: bool = False,
+                 process_shard: Tuple[int, int] = (0, 1)) -> None:
         self.dataset, self.batch_size, self.seed, self.depth = dataset, batch_size, seed, depth
         self.shuffle, self.drop_last = shuffle, drop_last
         self.n_workers, self.processes = max(1, n_workers), processes
+        self.shard = process_shard
         self._pool: Optional[Executor] = None
 
+    def _n_items(self) -> int:
+        return -(-len(self.dataset) // self.shard[1])
+
     def __len__(self) -> int:
-        n = len(self.dataset)
+        n = self._n_items()
         return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def __enter__(self) -> "BatchLoader":
@@ -112,6 +122,9 @@ class BatchLoader:
         order = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
+        rank, world = self.shard
+        if world > 1:
+            order = np.resize(order, self._n_items() * world)[rank::world]
         indices = iter(order[: len(self) * self.batch_size].tolist())
         ahead = self.depth * self.batch_size + self.n_workers
         pending: Deque[Future] = deque()

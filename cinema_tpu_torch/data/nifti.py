@@ -11,9 +11,10 @@ reads one frame alone, by a seek in a ``.nii`` and by inflating the stream's pre
 the frame's end in a ``.nii.gz``. ``save_nifti(..., frame_indexed=True)`` writes a 4-D
 ``.nii.gz`` as one gzip member per frame (RFC 1952 lets a stream be a concatenation of
 members, and every reader decodes it as one), with the members' byte offsets in an FEXTRA
-subfield ``CT`` of member 0, so that a frame read inflates one member. Inflation is
-Python's ``zlib``; the JAX package's optional C++ reader (``cinema_tpu/native``) has no
-counterpart here (ROADMAP.md, Queue 1, item 14).
+subfield ``CT`` of member 0, so that a frame read inflates one member. A frame read inflates
+in C++ where the native reader runs (``cinema_tpu_torch.native``; ``native.reader()`` says
+which), else with Python's ``zlib``; the bytes are the same. Where the native reader refuses
+a stream that Python reads, the read is logged and Python reads it (``CINEMA_TORCH_NATIVE=1``: it raises).
 """
 
 from __future__ import annotations
@@ -26,6 +27,11 @@ from pathlib import Path
 from typing import BinaryIO, Optional, Sequence, Tuple, Union
 
 import numpy as np
+
+from cinema_tpu_torch import native
+from cinema_tpu_torch.log import get_logger
+
+logger = get_logger(__name__)
 
 _DTYPES = {
     2: np.dtype(np.uint8),
@@ -151,17 +157,35 @@ def read_frame_index(path: Union[str, Path]) -> Optional[np.ndarray]:
     return None
 
 
-def _read_member(path: Path, start: int, end: int, nbytes: int) -> bytes:
+def _native_or_none(read, path: Path, *args):
+    """``read(path, *args)`` of the native reader: its buffer, or None where Python is to read (the Python
+    reader runs, or the native one refused the stream: logged, or raised where ``native.required()``)."""
+    try:
+        return read(path, *args)
+    except IOError as e:
+        if native.required():
+            raise
+        logger.warning(f"native frame read failed ({e}); reading {path} with Python")
+        return None
+
+
+def _read_member(path: Path, start: int, end: int, nbytes: int) -> Union[bytes, np.ndarray]:
     """The first ``nbytes`` of the gzip member at the byte range [start, end), inflated."""
+    buf = _native_or_none(native.inflate_at, path, start, end - start, nbytes)
+    if buf is not None:
+        return buf
     with open(path, "rb") as f:
         f.seek(start)
         comp = f.read(end - start)
     return zlib.decompressobj(wbits=31).decompress(comp, nbytes)
 
 
-def _seek_read(path: Path, offset: int, nbytes: int) -> bytes:
+def _seek_read(path: Path, offset: int, nbytes: int) -> Union[bytes, np.ndarray]:
     """``nbytes`` of the voxel stream from ``offset``: a seek in a ``.nii``; in a ``.nii.gz`` the stream's
     prefix is inflated up to there (a gzip stream can only be read in order)."""
+    buf = _native_or_none(native.read_at, path, offset, nbytes)
+    if buf is not None:
+        return buf
     with _open(path) as f:
         f.seek(offset)
         return f.read(nbytes)

@@ -219,6 +219,18 @@ class CineMA(nn.Module):
             xs[i + 1] = self.enc_fusion_dict[view](skips_view[i], xs[i + 1], None)
         return dict(zip(["cls", *views], xs))
 
+    def draw_masks(
+        self, image_dict: Dict[str, torch.Tensor], enc_mask_ratio: float, generator: Optional[torch.Generator],
+        batch: Optional[int] = None,
+    ) -> Dict[str, PatchMask]:
+        """The masks that :meth:`forward` draws for ``image_dict`` when given none: one view after
+        another from ``generator``, for ``batch`` rows (default: the images')."""
+        views = self._check_views(image_dict)
+        first = image_dict[views[0]]
+        rows = first.shape[0] if batch is None else batch
+        return {view: random_patch_mask(generator, rows, self.enc_down_dict[view].n_patches, enc_mask_ratio,
+                                        first.device) for view in views}
+
     def forward(
         self,
         image_dict: Dict[str, torch.Tensor],
@@ -242,14 +254,8 @@ class CineMA(nn.Module):
             metrics: scalar device tensors.
         """
         views = self._check_views(image_dict)
-        first = image_dict[views[0]]
         if mask_dict is None:
-            mask_dict = {
-                view: random_patch_mask(
-                    generator, first.shape[0], self.enc_down_dict[view].n_patches, enc_mask_ratio, first.device
-                )
-                for view in views
-            }
+            mask_dict = self.draw_masks(image_dict, enc_mask_ratio, generator)
 
         # conv stems with masked conv blocks, gathered to the visible tokens
         xs, ns_keep, ns_masked, skips_view = [], [], [], []

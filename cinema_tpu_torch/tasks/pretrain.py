@@ -22,6 +22,11 @@ min-max scaled and end-padded to the view's patch size (``get_pretrain_transform
 package loads it; ``train.n_workers_per_device`` workers load the items, in processes where
 ``train.use_process_workers`` says so or, by default, on a host of more than four cores, and
 ``device_prefetch`` copies two batches ahead of the step.
+
+Several cards: ``torchrun --nproc_per_node=N -m cinema_tpu_torch.tasks.pretrain mesh.multiprocess=true
+[mesh.n_model=M] [mesh.fsdp=true] ...``: each process drives one card, each data rank loads its shard of
+the studies (``shard_manifest``, seeded with ``config.seed``), the gradients are reduced over the ranks
+(``cinema_tpu_torch.parallel``) and rank 0 writes the run folder.
 """
 
 from __future__ import annotations
@@ -38,14 +43,17 @@ from cinema_tpu_torch.config import Config
 from cinema_tpu_torch.data import BatchLoader, UKBCineDataset, device_prefetch, find_view_file
 from cinema_tpu_torch.data.transforms import get_pretrain_transforms
 from cinema_tpu_torch.factory import get_mae_model, init_weights, resolve_device
+from cinema_tpu_torch.parallel import multihost
+from cinema_tpu_torch.parallel.mesh import make_mesh, parallelize
 from cinema_tpu_torch.tasks.cli import task_main
 from cinema_tpu_torch.train.checkpoint import (
     CheckpointRetention,
+    checkpoint_state,
     load_checkpoint,
     save_checkpoint,
     save_params_safetensors,
 )
-from cinema_tpu_torch.train.loop import MetricsLogger, init_run_dir
+from cinema_tpu_torch.train.loop import MetricsLogger, init_run_dir, is_main_process
 from cinema_tpu_torch.train.optim import build_optimizer, get_n_accum_steps
 from cinema_tpu_torch.train.state import TrainState, make_mae_train_step
 
@@ -91,6 +99,9 @@ def scan_manifest(data_dir: Path, views: List[str], rescan: bool = False) -> Lis
 def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
     """Pretrain CineMA as ``config`` says, on ``device``; returns the run directory."""
     device = resolve_device(device)
+    mesh_cfg = config.get("mesh") or {}
+    multiprocess = bool(mesh_cfg.get("multiprocess", False))
+    device = multihost.maybe_initialize_distributed(multiprocess, device)
     views = list(config.model.views)
     if not config.data.get("dir"):
         raise ValueError("config.data.dir is not set: it names the directory of the UKB studies.")
@@ -100,9 +111,18 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
         pids = pids[: config.data.max_n_samples]
     if not pids:
         raise ValueError(f"No studies with views {views} found under {data_dir}.")
-    n_accum = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device, 1)
+    mesh = parallel = None
+    if multiprocess:
+        mesh = make_mesh(n_model=int(mesh_cfg.get("n_model", 1)), device_type=device.type)
+    n_accum = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device,
+                                1 if mesh is None else mesh.size(0))
+    # this data rank's studies (DistributedSampler's order; the whole list in a single process)
+    pids = multihost.shard_manifest(pids, *multihost.data_shard(mesh), shuffle_seed=config.seed)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     model = init_weights(get_mae_model(config, dtype=dtype, device=device), seed=config.seed)
+    if mesh is not None:
+        parallel = parallelize(model, mesh, fsdp=bool(mesh_cfg.get("fsdp", False)))
+    main = is_main_process()
 
     dataset = UKBCineDataset(data_dir, pids, views=views, transform=get_pretrain_transforms(config),
                              seed=config.seed)
@@ -116,10 +136,13 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
     if len(loader) == 0:
         raise ValueError(f"{len(dataset)} studies do not fill one batch of {config.train.batch_size_per_device}.")
     steps_per_epoch = max(len(loader) // n_accum, 1)
-    print(f"Found {len(dataset)} studies: {len(loader)} batches and {steps_per_epoch} updates per epoch.", flush=True)
+    if main:
+        print(f"Found {len(dataset)} studies: {len(loader)} batches and {steps_per_epoch} updates per epoch.",
+              flush=True)
 
     tx = build_optimizer(
-        dict(model.named_parameters()),
+        dict(model.named_parameters()) if parallel is None else dict(zip(parallel.names,
+                                                                         parallel.optimizer_params(model))),
         lr=config.train.lr,
         min_lr=config.train.min_lr,
         warmup_steps=config.train.n_warmup_epochs * steps_per_epoch,
@@ -128,18 +151,19 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
         weight_decay=config.train.weight_decay,
         clip_grad=config.train.clip_grad,
         accum_steps=n_accum,
+        global_norm=None if parallel is None else parallel.global_norm,
     )
     state = TrainState.create(model, tx)
-    step_fn = make_mae_train_step(model, tx, config.train.enc_mask_ratio, seed=config.seed)
+    step_fn = make_mae_train_step(model, tx, config.train.enc_mask_ratio, seed=config.seed, parallel=parallel)
 
     tags = ["ukb_mae_pretrain"] + (["multi_view"] if len(views) > 1 else [])
     out_dir = init_run_dir(config, tags)
-    metrics_logger = MetricsLogger(out_dir)
+    metrics_logger = MetricsLogger(out_dir, enabled=main)
     retention = CheckpointRetention(config.train.max_n_ckpts, pin_every=100)
 
     start_epoch = 0
     if config.train.get("ckpt_path"):
-        state = load_checkpoint(Path(config.train.ckpt_path), state)
+        state = load_checkpoint(Path(config.train.ckpt_path), state, parallel)
         # state.step counts batches; checkpoints are written at epoch ends
         start_epoch = state.step // len(loader)
         print(f"Resumed from {config.train.ckpt_path} at epoch {start_epoch}.", flush=True)
@@ -161,10 +185,12 @@ def run(config: Config, device: Union[str, torch.device] = "cuda") -> Path:
                 "epoch": epoch, "loss": epoch_loss, "clips_per_sec_per_chip": clips_per_sec,
                 "n_samples": state.n_samples, "skipped_nan": n_skipped,
             })
-            print(f"epoch {epoch}: loss={epoch_loss:.4f} {clips_per_sec:.1f} clips/s", flush=True)
-            path = save_checkpoint(out_dir, state, epoch)
-            save_params_safetensors(state.params, out_dir / "cinema.safetensors")
-            retention.add(path, epoch)
+            payload = checkpoint_state(state, parallel)  # every rank gathers its parts
+            path = save_checkpoint(out_dir, state, epoch, parallel, payload)
+            if main:
+                print(f"epoch {epoch}: loss={epoch_loss:.4f} {clips_per_sec:.1f} clips/s", flush=True)
+                save_params_safetensors(payload["params"], out_dir / "cinema.safetensors")
+                retention.add(path, epoch)
     return out_dir
 
 

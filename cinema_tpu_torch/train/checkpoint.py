@@ -2,6 +2,8 @@
 
 The whole train state (parameters, optimizer state, counters) goes into one
 ``torch.save`` file, which stands in for the JAX package's orbax directory.
+A distributed run writes whole tensors in the same layout, so its checkpoint
+loads in a single-process run and back.
 The model alone is exported as safetensors under the reference checkpoint's
 key names, loadable by the reference PyTorch stack, by the JAX package's
 bridge and by this package.
@@ -11,37 +13,61 @@ from __future__ import annotations
 
 import shutil
 from pathlib import Path
-from typing import List, Mapping, Optional, Union
+from typing import TYPE_CHECKING, List, Mapping, Optional, Union
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from cinema_tpu_torch.convert import save_safetensors
 from cinema_tpu_torch.train.state import TrainState
 
+if TYPE_CHECKING:
+    from cinema_tpu_torch.parallel.mesh import Parallel
 
-def save_checkpoint(ckpt_dir: Union[str, Path], state: TrainState, epoch: int) -> Path:
-    """Save a train state as ckpt_dir/ckpt_{epoch}.pt."""
+
+_SHARDED_MOMENTS = ("mu", "nu", "acc")  # the optimizer's per-parameter tensors
+
+
+def checkpoint_state(state: TrainState, parallel: Optional["Parallel"] = None) -> dict:
+    """What a checkpoint holds: counters, the model's ``state_dict`` and the optimizer's state. In a
+    distributed run every rank takes part and gets whole tensors (tensor-parallel and FSDP shards
+    gathered), the single-process layout."""
+    opt_state = state.opt_state.state_dict()
+    if parallel is None:
+        params = state.params.state_dict()
+    else:
+        params = parallel.full_state_dict(state.params)
+        for key in _SHARDED_MOMENTS:
+            opt_state[key] = [parallel.full_tensor(name, t) for name, t in zip(parallel.names, opt_state[key])]
+    return {"step": state.step, "n_samples": state.n_samples, "params": params, "opt_state": opt_state}
+
+
+def save_checkpoint(ckpt_dir: Union[str, Path], state: TrainState, epoch: int,
+                    parallel: Optional["Parallel"] = None, payload: Optional[dict] = None) -> Path:
+    """Save a train state as ckpt_dir/ckpt_{epoch}.pt (``payload``: its :func:`checkpoint_state`, made
+    here where not given). In a distributed run every rank gathers and rank 0 writes."""
     ckpt_dir = Path(ckpt_dir)
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
     path = (ckpt_dir / f"ckpt_{epoch}.pt").absolute()
-    torch.save(
-        {
-            "step": state.step,
-            "n_samples": state.n_samples,
-            "params": state.params.state_dict(),
-            "opt_state": state.opt_state.state_dict(),
-        },
-        path,
-    )
+    payload = checkpoint_state(state, parallel) if payload is None else payload
+    if parallel is None or dist.get_rank() == 0:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        torch.save(payload, path)
     return path
 
 
-def load_checkpoint(path: Union[str, Path], state: TrainState) -> TrainState:
-    """Restore a state saved by :func:`save_checkpoint` into ``state`` (in place, on its device)."""
+def load_checkpoint(path: Union[str, Path], state: TrainState, parallel: Optional["Parallel"] = None) -> TrainState:
+    """Restore a state saved by :func:`save_checkpoint` into ``state`` (in place, on its device); in a
+    distributed run each rank reads the whole file and keeps its parts."""
     device = next(state.params.parameters()).device
     saved = torch.load(Path(path), map_location=device, weights_only=True)
-    state.params.load_state_dict(saved["params"], strict=True)
+    if parallel is None:
+        state.params.load_state_dict(saved["params"], strict=True)
+    else:
+        parallel.load_full_state_dict(state.params, saved["params"])
+        for key in _SHARDED_MOMENTS:
+            saved["opt_state"][key] = [parallel.local_tensor(name, t)
+                                       for name, t in zip(parallel.names, saved["opt_state"][key])]
     state.opt_state.load_state_dict(saved["opt_state"])
     state.step = int(saved["step"])
     state.n_samples = int(saved["n_samples"])

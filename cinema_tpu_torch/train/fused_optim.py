@@ -26,6 +26,10 @@ Gradient accumulation (``accum_steps`` k > 1) takes the place of
 ``optax.MultiSteps``: each call adds g / k of a finite micro-batch to an
 f32 buffer, the k-th finite one applies the update above to the mean, and
 a micro-batch with a non-finite loss is skipped whole.
+
+Distributed runs (``parallel.mesh.Parallel``) pass the norm of the whole
+gradient over the ranks (``global_norm``) and, under FSDP, the local shards
+that a step updates (``params`` of :meth:`FusedAdamW.step`).
 """
 
 from __future__ import annotations
@@ -77,6 +81,7 @@ class FusedAdamW:
         clip_grad: Optional[float] = None,
         scales: Optional[Sequence[float]] = None,
         accum_steps: int = 1,
+        global_norm: Optional[Callable[[Sequence[torch.Tensor]], torch.Tensor]] = None,
     ) -> None:
         """
         Args:
@@ -86,12 +91,14 @@ class FusedAdamW:
             clip_grad: global-norm clip (None or <= 0 disables).
             scales: per parameter LR scale (layer decay x freeze); 0 freezes.
             accum_steps: micro-batches per update.
+            global_norm: gradients -> the norm of the whole gradient (default: of the tensors given).
         """
         self.params = list(params)
         self.schedule = schedule
         self.b1, self.b2, self.eps = b1, b2, eps
         self.clip_grad = clip_grad if clip_grad is not None and clip_grad > 0 else None
         self.accum_steps = int(accum_steps)
+        self.global_norm = _global_norm if global_norm is None else global_norm
         wd_mask = [p.ndim > 1 for p in self.params] if wd_mask is None else list(wd_mask)
         scales = [1.0] * len(self.params) if scales is None else [float(s) for s in scales]
         # per parameter: the LR scale, and the decay the update adds to it
@@ -108,35 +115,39 @@ class FusedAdamW:
         return state
 
     @torch.no_grad()
-    def step(self, grads: Sequence[torch.Tensor], state: FusedAdamWState, ok: torch.Tensor) -> torch.Tensor:
+    def step(self, grads: Sequence[torch.Tensor], state: FusedAdamWState, ok: torch.Tensor,
+             params: Optional[Sequence[torch.Tensor]] = None) -> torch.Tensor:
         """One call per (micro-)batch: accumulate where configured, update with the guard.
 
         Args:
             grads: one gradient per parameter.
             ok: bool scalar tensor, False for a batch whose loss is not finite.
+            params: the tensors to update, in the order of ``self.params`` (default: those).
 
         Returns:
             the global norm of ``grads`` (a tensor; not finite for a bad batch).
         """
         if self.accum_steps == 1:
-            return self.update_with_guard(grads, state, ok)
-        gnorm = _global_norm(grads)
+            return self.update_with_guard(grads, state, ok, params)
+        gnorm = self.global_norm(grads)
         ok = ok & torch.isfinite(gnorm)
         zero = torch.zeros((), device=ok.device)
         clean = [torch.where(ok, g.float(), zero) for g in grads]
         torch._foreach_add_(state.acc, clean, alpha=1.0 / self.accum_steps)
         apply = ok & (state.mini_step == self.accum_steps - 1)
-        self.update_with_guard(state.acc, state, apply)
+        self.update_with_guard(state.acc, state, apply, params)
         torch._foreach_mul_(state.acc, 1.0 - apply.float())
         state.mini_step.copy_(torch.where(apply, 0, state.mini_step + ok.to(torch.int32)))
         return gnorm
 
     @torch.no_grad()
     def update_with_guard(
-        self, grads: Sequence[torch.Tensor], state: FusedAdamWState, ok: torch.Tensor
+        self, grads: Sequence[torch.Tensor], state: FusedAdamWState, ok: torch.Tensor,
+        params: Optional[Sequence[torch.Tensor]] = None,
     ) -> torch.Tensor:
         """The update of the module docstring, in place; returns the global gradient norm."""
-        gnorm = _global_norm(grads)
+        params = self.params if params is None else list(params)
+        gnorm = self.global_norm(grads)
         ok = ok & torch.isfinite(gnorm)
         okf = ok.float()
         cscale = okf
@@ -169,10 +180,10 @@ class FusedAdamW:
         torch._foreach_add_(denom, self.eps)
         update = torch._foreach_div(state.mu, bc1)
         torch._foreach_div_(update, denom)
-        torch._foreach_add_(update, torch._foreach_mul(self.params, self.decays))
+        torch._foreach_add_(update, torch._foreach_mul(params, self.decays))
         torch._foreach_mul_(update, okf * lr_t)
         torch._foreach_mul_(update, self.scales)
-        torch._foreach_sub_(self.params, update)
+        torch._foreach_sub_(params, update)
         return gnorm
 
 

@@ -2,8 +2,12 @@
 
 The host orchestration around one train step: data loading, evaluation
 intervals, early stopping, checkpoint retention and the metrics log. One
-process drives one card; the JAX package's mesh, multi-host batches and
-ahead-of-time executable cache have no counterpart here.
+process drives one card. With ``mesh.multiprocess`` (one process per card,
+launched by torchrun) the run joins the process group and lays the model
+out over a ('data', 'model') mesh (``cinema_tpu_torch.parallel``): each data
+rank loads its shard of every epoch, the gradients are reduced over the
+ranks, and rank 0 alone writes the run folder, whose name every rank shares.
+The JAX package's ahead-of-time executable cache has no counterpart here.
 """
 
 from __future__ import annotations
@@ -20,8 +24,11 @@ from torch import nn
 from cinema_tpu_torch.config import Config, from_dict
 from cinema_tpu_torch.data import BatchLoader, device_prefetch
 from cinema_tpu_torch.factory import init_weights, resolve_device
+from cinema_tpu_torch.parallel import multihost
+from cinema_tpu_torch.parallel.mesh import make_mesh, parallelize
 from cinema_tpu_torch.train.checkpoint import (
     CheckpointRetention,
+    checkpoint_state,
     load_checkpoint,
     save_checkpoint,
     save_params_safetensors,
@@ -30,14 +37,35 @@ from cinema_tpu_torch.train.optim import EarlyStopping, build_optimizer, get_n_a
 from cinema_tpu_torch.train.state import TrainState, make_supervised_train_step
 
 
-class MetricsLogger:
-    """Append-only JSONL metrics log."""
+def pick_n_data(n_devices: int, batch_size: int, batch_size_per_device: int, n_samples: int) -> int:
+    """The widest data-parallel size that keeps the global batch divisible (cinema_tpu/train/loop.py:36-52):
+    the largest n <= n_devices with ``batch_size % (batch_size_per_device * n) == 0`` and a local batch
+    that the dataset can fill."""
+    cap = min(n_devices, max(batch_size // batch_size_per_device, 1))
+    cap = min(cap, max(n_samples // batch_size_per_device, 1))
+    for n in range(cap, 0, -1):
+        if batch_size % (batch_size_per_device * n) == 0:
+            return n
+    return 1
 
-    def __init__(self, out_dir: Path) -> None:
+
+def is_main_process() -> bool:
+    """Rank 0 of a distributed run, or a single-process run: the process that writes the run folder."""
+    return multihost.process_index() == 0
+
+
+class MetricsLogger:
+    """Append-only JSONL metrics log; a logger that is not ``enabled`` (a rank other than 0) writes nothing."""
+
+    def __init__(self, out_dir: Path, enabled: bool = True) -> None:
         self.path = Path(out_dir) / "metrics.jsonl"
-        self.path.parent.mkdir(parents=True, exist_ok=True)
+        self.enabled = enabled
+        if enabled:
+            self.path.parent.mkdir(parents=True, exist_ok=True)
 
     def log(self, metrics: Dict[str, Any]) -> None:
+        if not self.enabled:
+            return
         record = {k: (float(v) if hasattr(v, "item") else v) for k, v in metrics.items()}
         with open(self.path, "a") as f:
             f.write(json.dumps(record) + "\n")
@@ -45,15 +73,18 @@ class MetricsLogger:
 
 def init_run_dir(config: Config, tags: List[str], out_dir: Optional[Path] = None) -> Path:
     """Create the run directory (default ``<logging.dir>/<timestamp>-<tags>/``) with the
-    run record ``run.json`` (tags + config)."""
+    run record ``run.json`` (tags + config). In a distributed run the time stamp is rank 0's
+    and rank 0 alone creates the folder; every rank returns its path."""
+    now = time.localtime(multihost.synced_time())
     if out_dir is None:
         base = Path(config.get("logging", {}).get("dir") or "runs")
-        out_dir = base / "-".join([time.strftime("%Y%m%d-%H%M%S"), *tags[:3]])
+        out_dir = base / "-".join([time.strftime("%Y%m%d-%H%M%S", now), *tags[:3]])
     out_dir = Path(out_dir)
-    out_dir.mkdir(parents=True, exist_ok=True)
-    with open(out_dir / "run.json", "w") as f:
-        json.dump({"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S"), "config": config}, f, indent=2,
-                  default=str)
+    if is_main_process():
+        out_dir.mkdir(parents=True, exist_ok=True)
+        with open(out_dir / "run.json", "w") as f:
+            json.dump({"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S", now), "config": config}, f,
+                      indent=2, default=str)
     return out_dir
 
 
@@ -168,24 +199,40 @@ def run_train(
         out_dir: run directory; defaults to ``config.logging.dir`` / timestamp.
         device: the card, unless the caller asks for the CPU (float32 there, bfloat16 on the card).
 
+    With ``mesh.multiprocess``, ``mesh.n_model`` (tensor parallelism), ``mesh.fsdp`` and ``mesh.n_data``
+    (default: ``pick_n_data`` of the processes) lay the run out over the processes (module docstring).
+
     Returns:
         the run directory, holding ``run.json``, ``metrics.jsonl`` and for each saved epoch
         ``ckpt_{epoch}.pt``, its early-stopping sidecar ``ckpt_{epoch}.pt.meta.json`` and
         ``model_{epoch}.safetensors``. ``config.train.resume_path`` names a checkpoint to resume from.
     """
     device = resolve_device(device)
+    mesh_cfg = config.get("mesh") or {}
+    multiprocess = bool(mesh_cfg.get("multiprocess", False))
+    device = multihost.maybe_initialize_distributed(multiprocess, device)
     train_dataset, val_dataset = load_dataset(config)
     for ds in (train_dataset, val_dataset):
         if hasattr(ds, "seed"):
             ds.seed = config.seed  # reproducible per-item choices
     config = maybe_reduce_batch_size(config, len(train_dataset))
+    mesh = None
+    if multiprocess:
+        n_model = int(mesh_cfg.get("n_model", 1))
+        n_data = mesh_cfg.get("n_data")
+        if n_data is None:
+            n_data = pick_n_data(multihost.process_count() // n_model, config.train.batch_size,
+                                 config.train.batch_size_per_device, len(train_dataset))
+        mesh = make_mesh(int(n_data), n_model, device.type)
     # the items load in ``train.n_workers`` threads: on the card's host they keep a ConvUNetR-base step fed,
-    # where worker processes load no faster and take seconds to start (PERF.md, section 6)
+    # where worker processes load no faster and take seconds to start (PERF.md, section 6); each data rank
+    # loads its shard of the epoch's order
     n_workers = config.train.get("n_workers", 4)
     train_loader = BatchLoader(train_dataset, config.train.batch_size_per_device, seed=config.seed,
-                               n_workers=n_workers)
+                               n_workers=n_workers, process_shard=multihost.data_shard(mesh))
     val_loader = BatchLoader(val_dataset, 1, shuffle=False, drop_last=False, n_workers=n_workers)
-    n_accum_steps = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device, 1)
+    n_accum_steps = get_n_accum_steps(config.train.batch_size, config.train.batch_size_per_device,
+                                      1 if mesh is None else mesh.size(0))
     steps_per_epoch = max(len(train_loader) // n_accum_steps, 1)
 
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
@@ -196,9 +243,14 @@ def run_train(
         loaded = load_pretrained_fn(model, config)
         if config.model.get("freeze_pretrained"):
             freeze_mask = loaded
+    parallel = None
+    if mesh is not None:
+        parallel = parallelize(model, mesh, fsdp=bool(mesh_cfg.get("fsdp", False)))
+    main = is_main_process()
 
     tx = build_optimizer(
-        dict(model.named_parameters()),
+        dict(model.named_parameters()) if parallel is None else dict(zip(parallel.names,
+                                                                         parallel.optimizer_params(model))),
         lr=config.train.lr,
         min_lr=config.train.min_lr,
         warmup_steps=config.train.n_warmup_epochs * steps_per_epoch,
@@ -210,6 +262,7 @@ def run_train(
         n_blocks=getattr(model, "enc_depth", 0),
         freeze_mask=freeze_mask,
         accum_steps=n_accum_steps,
+        global_norm=None if parallel is None else parallel.global_norm,
     )
     state = TrainState.create(model, tx)
 
@@ -224,7 +277,7 @@ def run_train(
         resume = Path(config.train.resume_path)
         if not resume.exists():
             raise FileNotFoundError(f"train.resume_path {resume} does not exist.")
-        state = load_checkpoint(resume, state)
+        state = load_checkpoint(resume, state, parallel)
         # state.step counts micro-batches
         start_epoch = state.step // len(train_loader)
         meta_path = resume.parent / f"{resume.name}.meta.json"
@@ -233,9 +286,9 @@ def run_train(
             resumed_meta = True
         print(f"Resumed from {resume} at epoch {start_epoch}.", flush=True)
 
-    step_fn = make_supervised_train_step(model, tx, loss_fn, seed=config.seed)
+    step_fn = make_supervised_train_step(model, tx, loss_fn, seed=config.seed, parallel=parallel)
     out_dir = init_run_dir(config, [config.get("task", "train"), config.data.get("name", "data")], out_dir)
-    metrics_logger = MetricsLogger(out_dir)
+    metrics_logger = MetricsLogger(out_dir, enabled=main)
     retention = CheckpointRetention(config.train.max_n_ckpts)
     saved_any = False
 
@@ -257,8 +310,9 @@ def run_train(
             val_metrics = {f"val_{k}": v for k, v in eval_dataloader_fn(model, val_loader, config).items()}
             val_metrics["epoch"] = epoch
             metrics_logger.log(val_metrics)
-            print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items() if isinstance(v, float)),
-                  flush=True)
+            if main:
+                print(f"epoch {epoch}: " + ", ".join(f"{k}={v:.4f}" for k, v in val_metrics.items()
+                                                    if isinstance(v, float)), flush=True)
 
             early_metric = val_metrics[config.train.early_stopping.metric]
             if config.train.early_stopping.mode == "max":
@@ -269,13 +323,15 @@ def run_train(
             # train.py:335-342): a metric that is NaN at every epoch never improves
             if early_stop.has_improved or not (saved_any or resumed_meta):
                 saved_any = True
-                path = save_checkpoint(out_dir, state, epoch)
-                (path.parent / f"{path.name}.meta.json").write_text(
-                    json.dumps({**early_stop.state_dict(), "epoch": epoch})
-                )
-                save_params_safetensors(state.params, out_dir / f"model_{epoch}.safetensors")
-                retention.add(path, epoch)
-                print(f"Saved checkpoint of epoch {epoch} at {path}.", flush=True)
+                payload = checkpoint_state(state, parallel)  # every rank gathers its parts
+                path = save_checkpoint(out_dir, state, epoch, parallel, payload)
+                if main:
+                    (path.parent / f"{path.name}.meta.json").write_text(
+                        json.dumps({**early_stop.state_dict(), "epoch": epoch})
+                    )
+                    save_params_safetensors(payload["params"], out_dir / f"model_{epoch}.safetensors")
+                    retention.add(path, epoch)
+                    print(f"Saved checkpoint of epoch {epoch} at {path}.", flush=True)
             if early_stop.should_stop:
                 print("Met early stopping criteria, breaking.", flush=True)
                 break

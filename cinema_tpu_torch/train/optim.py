@@ -59,6 +59,7 @@ def build_optimizer(
     n_blocks: int = 0,
     freeze_mask: Optional[Mapping[str, bool]] = None,
     accum_steps: int = 1,
+    global_norm: Optional[Callable] = None,
 ) -> FusedAdamW:
     """AdamW with warmup-cosine LR, optional layer decay, freezing and accumulation.
 
@@ -70,6 +71,7 @@ def build_optimizer(
         params: name -> parameter (``dict(model.named_parameters())``); updated in place by the optimizer.
         freeze_mask: name -> True for a frozen parameter (its update is zeroed).
         accum_steps: micro-batches whose mean gradient makes one update.
+        global_norm: the norm of the whole gradient of a distributed run (``Parallel.global_norm``).
     """
     # PyYAML reads '1e-3' (no decimal point) as a string
     lr, min_lr = float(lr), float(min_lr)
@@ -89,6 +91,7 @@ def build_optimizer(
         clip_grad=None if clip_grad is None else float(clip_grad),
         scales=[scales[key] for key in params],
         accum_steps=accum_steps,
+        global_norm=global_norm,
     )
 
 

@@ -6,12 +6,18 @@ host: the loss, the gradient norm and the skip flag are returned as tensors
 on the device, and a batch with a non-finite loss (reference train.py:138-140)
 leaves parameters, moments, update count and the running statistics of the
 model's BatchNorms as they were.
+
+A distributed run passes the model's ``parallel.mesh.Parallel``: the
+gradients are reduced over the ranks, a batch is skipped on every rank where
+any rank's loss is not finite, the metrics are the data ranks' mean, and
+``n_samples`` counts the rows of every data rank. Without it a step is what
+it was.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -19,6 +25,9 @@ from torch import nn
 from cinema_tpu_torch.models.layers import sampling_from
 from cinema_tpu_torch.ops.masking import PatchMask
 from cinema_tpu_torch.train.fused_optim import FusedAdamW, FusedAdamWState
+
+if TYPE_CHECKING:
+    from cinema_tpu_torch.parallel.mesh import Parallel
 
 
 @dataclass
@@ -44,48 +53,65 @@ def mask_generator(seed: int, step: int, device: torch.device) -> torch.Generato
 
 
 def make_mae_train_step(
-    model: nn.Module, tx: FusedAdamW, enc_mask_ratio: float, seed: int = 0
+    model: nn.Module, tx: FusedAdamW, enc_mask_ratio: float, seed: int = 0, parallel: Optional["Parallel"] = None
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the MAE pretrain step ``step_fn(state, batch, mask_dict=None) -> (state, metrics)``.
 
     ``batch`` holds per-view images (batch, *spatial, chans) on the model's
-    device. ``mask_dict`` overrides the masks drawn from (seed, state.step).
+    device. ``mask_dict`` overrides the masks drawn from (seed, state.step);
+    in a data-parallel run the masks of the whole batch are drawn and a rank
+    takes its rows, those the single-process step would give its images.
     ``metrics`` are device tensors: the model's, ``grad_norm`` and
     ``skipped_nan`` (1.0 when the loss or the gradient norm was not finite and the batch was skipped).
     """
-    params = _optimizer_params(model, tx)
+    params = _optimizer_params(model, tx, parallel)
 
     def step_fn(
         state: TrainState, batch: Dict[str, torch.Tensor], mask_dict: Optional[Dict[str, PatchMask]] = None
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         first = next(iter(batch.values()))
         generator = mask_generator(seed, state.step, first.device)
+        if mask_dict is None and parallel is not None and parallel.n_data > 1:
+            rows = first.shape[0]
+            whole = model.draw_masks(batch, enc_mask_ratio, generator, rows * parallel.n_data)
+            own = slice(parallel.data_rank * rows, (parallel.data_rank + 1) * rows)
+            mask_dict = {v: PatchMask(*(t[own] for t in m)) for v, m in whole.items()}
         loss, _preds, _masks, metrics = model(batch, enc_mask_ratio, mask_dict, generator=generator)
-        return _guarded_update(state, tx, params, loss, metrics, first.shape[0])
+        return _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model)
 
     return step_fn
 
 
-def _optimizer_params(model: nn.Module, tx: FusedAdamW) -> list:
+def _optimizer_params(model: nn.Module, tx: FusedAdamW, parallel: Optional["Parallel"] = None) -> list:
     params = list(model.parameters())
-    if [id(p) for p in params] != [id(p) for p in tx.params]:
+    if parallel is not None and parallel.fsdp:  # the optimizer holds local shards, fetched anew each step
+        ok = [tuple(p.shape) for p in parallel.optimizer_params(model)] == [tuple(p.shape) for p in tx.params]
+    else:
+        ok = [id(p) for p in params] == [id(p) for p in tx.params]
+    if not ok:
         raise ValueError("The optimizer was not built over this model's parameters.")
     return params
 
 
 def _guarded_update(
     state: TrainState, tx: FusedAdamW, params: list, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
-    batch_size: int,
+    batch_size: int, parallel: Optional["Parallel"] = None, model: Optional[nn.Module] = None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """Gradients of ``loss``, the guarded optimizer step, the counters."""
-    grads = torch.autograd.grad(loss, params, allow_unused=True)
-    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-    ok = torch.isfinite(loss.detach())
     metrics = {k: v.detach() for k, v in metrics.items()}
-    metrics["grad_norm"] = tx.step(grads, state.opt_state, ok)
+    if parallel is None:
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        ok, targets, rows = torch.isfinite(loss.detach()), None, batch_size
+    else:
+        grads = parallel.gradients(loss, model)
+        ok, metrics = parallel.all_finite(loss), parallel.mean_metrics(metrics)
+        targets = parallel.optimizer_params(model) if parallel.fsdp else None
+        rows = batch_size * parallel.n_data
+    metrics["grad_norm"] = tx.step(grads, state.opt_state, ok, targets)
     metrics["skipped_nan"] = (~(ok & torch.isfinite(metrics["grad_norm"]))).float()
     state.step += 1
-    state.n_samples += batch_size
+    state.n_samples += rows
     return state, metrics
 
 
@@ -94,6 +120,7 @@ def make_supervised_train_step(
     tx: FusedAdamW,
     loss_fn: Callable[[nn.Module, Dict[str, torch.Tensor]], Tuple[torch.Tensor, Dict[str, torch.Tensor]]],
     seed: int = 0,
+    parallel: Optional["Parallel"] = None,
 ) -> Callable[..., Tuple[TrainState, Dict[str, torch.Tensor]]]:
     """Build the supervised step ``step_fn(state, batch) -> (state, metrics)``.
 
@@ -105,9 +132,10 @@ def make_supervised_train_step(
     The model's buffers (the running statistics of the baselines' BatchNorms)
     change in the forward pass, before the guard has seen the loss: they are
     saved before it and put back where the batch is skipped, as the JAX
-    package's step keeps the old ``batch_stats`` under its guard.
+    package's step keeps the old ``batch_stats`` under its guard. In a data-parallel run
+    they are data rank 0's after the step (DDP's ``broadcast_buffers``).
     """
-    params = _optimizer_params(model, tx)
+    params = _optimizer_params(model, tx, parallel)
     buffers = list(model.buffers())
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
@@ -116,12 +144,14 @@ def make_supervised_train_step(
         saved = [b.clone() for b in buffers]
         with sampling_from(mask_generator(seed, state.step, first.device)):
             loss, metrics = loss_fn(model, batch)
-        state, metrics = _guarded_update(state, tx, params, loss, metrics, first.shape[0])
+        state, metrics = _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model)
         if buffers:
             skipped = metrics["skipped_nan"].bool()
             with torch.no_grad():
                 for b, old in zip(buffers, saved):
                     b.copy_(torch.where(skipped, old, b))
+            if parallel is not None and parallel.n_data > 1:
+                parallel.broadcast_buffers(model)
         return state, metrics
 
     return step_fn

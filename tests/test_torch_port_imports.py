@@ -91,6 +91,10 @@ PREPROCESS_MODULES = {
     *(f"cinema_tpu_torch.data.preprocess.{name}" for name in PREPROCESS_CLI_MODULES),
 }
 
+# and every module of the native-reader and distribution slice
+DISTRIBUTION_MODULES = {"cinema_tpu_torch.native", "cinema_tpu_torch.parallel", "cinema_tpu_torch.parallel.mesh",
+                        "cinema_tpu_torch.parallel.multihost"}
+
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     proc = subprocess.run(
@@ -98,11 +102,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     )
     first, names = proc.stdout.splitlines()
     n_modules, bad = first.split(" ", 1)
-    assert int(n_modules) >= 54 + len(PREPROCESS_MODULES), proc.stdout
+    assert int(n_modules) >= 54 + len(PREPROCESS_MODULES) + len(DISTRIBUTION_MODULES), proc.stdout
     assert bad.strip() == "[]", proc.stdout
     assert len(PREPROCESS_MODULES) == 16
     wanted = (PRETRAIN_MODULES | FINETUNE_MODULES | SEGMENTATION_MODULES | LANDMARK_MODULES | NIFTI_MODULES
-              | CINE_MODULES | BASELINE_MODULES | EXAMPLE_MODULES | PREPROCESS_MODULES)
+              | CINE_MODULES | BASELINE_MODULES | EXAMPLE_MODULES | PREPROCESS_MODULES | DISTRIBUTION_MODULES)
     assert wanted <= set(names.split()), proc.stdout
 
 
