@@ -196,6 +196,22 @@ card:
    ``mesh.multiprocess=true`` in a one-rank NCCL group against the same runs
    without it (cuDNN deterministic in both; bit equality reported, the loss
    held to rtol 1e-5, launch counts equal).
+15. last slice: a seeded 256x256 8-bit gray landmark image written by this
+   script's PNG encoder as 8-bit and 4-bit palette PNGs (16 gray levels for
+   the 4-bit one), Adam7-interlaced, and 16-bit RGB with each sample v * 257,
+   each read by ``data.read_png_gray`` equal to its 8-bit original; a raw
+   landmark tree of such images through ``landmark_preprocess`` (scale 1:
+   each output equal to its original) into ``LandmarkDetectionDataset`` and
+   one ConvUNetR-base heatmap forward on the card (12 packed forward
+   launches); every run folder that a ``run_train`` of phases 8 to 11 wrote
+   (checked where ``check_run_and_reload`` reads it): the JAX package's name
+   ``%Y%m%d_%H%M%S-<three tags>``, its ``config.yaml`` read back equal to the
+   run's config, a flat ``run.json`` with ``get_run_tags``' tags (phase 9's
+   six M&Ms folders among them; phase 10's ``tasks.evaluate.main`` reads
+   ``config.yaml``); and ``examples.cine_cmr.main`` with no ``--image``: the
+   960x960 RGB PNG it writes equal to the picture rendered here, the slices
+   drawn after the textured one with the outline colour at their projected
+   corners.
 
 Every f32 check step (phases 5-8 and 10) is also timed through the kernels
 and through the plain attention, and its backward launches are counted apart
@@ -228,6 +244,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import zlib
 from pathlib import Path
 
 import numpy as np
@@ -1809,6 +1826,7 @@ def check_run_and_reload(label: str, config, out_dir: Path, make_model, make_ste
     from cinema_tpu_torch.convert import load_safetensors
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
 
+    check_run_folder(label, config, out_dir)
     records = [json.loads(line) for line in (out_dir / "metrics.jsonl").read_text().splitlines()]
     train_loss = [r["train_loss"] for r in records if "train_loss" in r]
     val = [r for r in records if val_keys[0] in r]
@@ -1835,6 +1853,38 @@ def check_run_and_reload(label: str, config, out_dir: Path, make_model, make_ste
     check(torch.equal(outs[0], outs[1]), f"{label}: the checkpoint and the safetensors give other outputs")
     return {"epochs": n_epochs, "train_loss": train_loss, **{k: [r[k] for r in val] for k in val_keys},
             "saved_epoch": epoch}
+
+
+# the run folders checked by check_run_folder: label -> what was found
+RUN_FOLDERS: dict = {}
+
+
+def check_run_folder(label: str, config, out_dir: Path) -> None:
+    """A folder that ``run_train`` wrote is the JAX package's (cinema_tpu/log.py:89-120, train/loop.py:290):
+    named ``%Y%m%d_%H%M%S-`` and the first three of ``get_run_tags``, its ``config.yaml`` read back as the
+    run's config (the batch sizes as ``run_train`` may have halved them), and its ``run.json`` holding those
+    tags and the config flattened."""
+    import re
+
+    from cinema_tpu_torch.config import load_config
+    from cinema_tpu_torch.log import flatten_dict, get_run_tags
+
+    tags = get_run_tags(config)
+    check(re.fullmatch(r"\d{8}_\d{6}-" + re.escape("-".join(tags[:3])), out_dir.name) is not None,
+          f"{label}: the run folder's name {out_dir.name} is not the JAX package's")
+    check((out_dir / "config.yaml").exists(), f"{label}: the run folder has no config.yaml")
+    saved = load_config(out_dir / "config.yaml")
+    expected = json.loads(json.dumps(config))
+    for key in ("batch_size", "batch_size_per_device"):
+        check(saved.train[key] <= expected["train"][key], f"{label}: config.yaml's train.{key} grew")
+        expected["train"][key] = saved.train[key]
+    check(saved == expected, f"{label}: config.yaml reads back as another config than the run's")
+    record = json.loads((out_dir / "run.json").read_text())
+    check(record["tags"] == tags and record["config"] == flatten_dict(saved)
+          and not any(isinstance(v, dict) for v in record["config"].values()),
+          f"{label}: run.json is not the JAX package's record (tags {record['tags']}, expected {tags})")
+    RUN_FOLDERS[label] = {"name": out_dir.name, "config_yaml_bytes": (out_dir / "config.yaml").stat().st_size,
+                          "run_json_keys": len(record["config"])}
 
 
 # (x, y) sizes of the heatmap validation images: one patch, and 2 x 2 patches (overlap 128)
@@ -2979,31 +3029,6 @@ def baseline_phase(report: dict, smi: str, profile: bool) -> dict:
     return launches.totals
 
 
-def write_config_yaml(path: Path, config: dict) -> None:
-    """A config as block YAML (the port has no YAML writer; the card's machine has no PyYAML): mappings by
-    indentation, scalars and lists of scalars as JSON, which the YAML reader reads back as the same values;
-    checked by reading it back."""
-    from cinema_tpu_torch.config import load_config
-
-    def scalar(v):
-        if isinstance(v, float):  # YAML 1.1 reads 1e-05 as a string: a float needs its dot
-            s = repr(v)
-            return s.replace("e", ".0e") if "e" in s and "." not in s else s
-        if isinstance(v, list):
-            return "[" + ", ".join(scalar(x) for x in v) + "]"
-        return json.dumps(v)
-
-    def lines(mapping: dict, indent: int) -> list:
-        out = []
-        for key, v in mapping.items():
-            out += [f"{' ' * indent}{key}:", *lines(v, indent + 2)] if isinstance(v, dict) else \
-                [f"{' ' * indent}{key}: {scalar(v)}"]
-        return out
-
-    path.write_text("\n".join(lines(config, 0)) + "\n")
-    check(load_config(path) == config, f"{path} reads back as another config")
-
-
 def write_example_acdc(data_dir: Path, n: int, n_classes: int, seed: int) -> None:
     """Seeded synthetic ACDC studies for the training tutorials: ED and ES SAX frames of 192x192x16 with
     labels (``seg_frames``) and ``train_metadata.csv`` with ``pid``, ``n_slices``, ``pathology`` (the first
@@ -3029,7 +3054,7 @@ def examples_phase(report: dict, smi: str) -> dict:
     import io
 
     from cinema_tpu_torch import viz
-    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.config import PACKAGED, from_dict, load_config, save_config
     from cinema_tpu_torch.convert import load_safetensors, save_safetensors
     from cinema_tpu_torch.data import load_nifti, save_nifti
     from cinema_tpu_torch.examples.inference import (
@@ -3066,7 +3091,8 @@ def examples_phase(report: dict, smi: str) -> dict:
         """The model's weights and its config.yaml in ``folder``; returns the scripts' --model/--config."""
         folder.mkdir(parents=True)
         save_safetensors(folder / "model.safetensors", {k: v.float().cpu().numpy() for k, v in model.state_dict().items()})
-        write_config_yaml(folder / "config.yaml", config)
+        save_config(config, folder / "config.yaml")  # the JAX package's save_config bytes
+        check(load_config(folder / "config.yaml") == config, f"{folder / 'config.yaml'} reads back as another config")
         return ["--model", str(folder / "model.safetensors"), "--config", str(folder / "config.yaml")]
 
     def run_main(name: str, main, argv: list):
@@ -4301,6 +4327,192 @@ def distribution_phase(report: dict, smi: str) -> dict:
     return out
 
 
+# Adam7: (x start, y start, x step, y step) of each pass
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def encode_png(samples: np.ndarray, colour_type: int, depth: int, interlace: bool = False,
+               palette: np.ndarray | None = None) -> bytes:
+    """A PNG of ``samples`` (height, width, channels) integers of ``depth`` bits (the card's machine has no PIL to
+    write one): row r of each (sub-)image filtered None, Sub, Up, Average or Paeth by (r + width) % 5, Adam7 pass
+    by pass where ``interlace``, a ``PLTE`` of ``palette`` (n, 3) for colour type 3, the data in three IDATs."""
+    channels = samples.shape[2]
+    bpp = max(1, channels * depth // 8)
+
+    def scanlines(image: np.ndarray) -> bytes:
+        h, w = image.shape[:2]
+        if not h or not w:
+            return b""
+        flat = image.reshape(h, w * channels).astype(np.int64)
+        if depth == 16:
+            rows = flat.astype(">u2").view(np.uint8).reshape(h, -1)
+        elif depth == 8:
+            rows = flat.astype(np.uint8)
+        else:
+            bits = ((flat[..., None] >> np.arange(depth - 1, -1, -1)) & 1).astype(np.uint8)
+            rows = np.packbits(bits.reshape(h, -1), axis=1)
+        x = rows.astype(np.int64)
+        up = np.vstack([np.zeros((1, x.shape[1]), np.int64), x[:-1]])
+        left = np.hstack([np.zeros((h, bpp), np.int64), x[:, :-bpp]])
+        upleft = np.hstack([np.zeros((h, bpp), np.int64), up[:, :-bpp]])
+        pa, pb, pc = abs(up - upleft), abs(left - upleft), abs(left + up - 2 * upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, upleft))
+        kinds = (np.arange(h) + w) % 5
+        predicted = np.choose(kinds[:, None], [np.zeros_like(x), left, up, (left + up) // 2, paeth])
+        return np.hstack([kinds[:, None], (x - predicted) % 256]).astype(np.uint8).tobytes()
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    height, width = samples.shape[:2]
+    if interlace:
+        raw = b"".join(scanlines(samples[y0::dy, x0::dx]) for x0, y0, dx, dy in ADAM7)
+    else:
+        raw = scanlines(samples)
+    header = struct.pack(">IIBBBBB", width, height, depth, colour_type, 0, 0, int(interlace))
+    plte = chunk(b"PLTE", np.asarray(palette, np.uint8).tobytes()) if palette is not None else b""
+    data = zlib.compress(raw)
+    cuts = [0, len(data) // 3, 2 * len(data) // 3, len(data)]
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", header) + plte
+            + b"".join(chunk(b"IDAT", data[a:b]) for a, b in zip(cuts, cuts[1:])) + chunk(b"IEND", b""))
+
+
+PNG_VARIANTS = ("gray8", "palette8", "palette4", "adam7", "rgb16")
+
+
+def png_variant(image: np.ndarray, variant: str) -> tuple[bytes, np.ndarray]:
+    """(a PNG of the uint8 (height, width) ``image`` in ``variant``, the 8-bit gray image it holds): 8-bit gray;
+    8-bit palette of the 256 grays; 4-bit palette of 16 grays (the image cut to 16 levels, v // 17 * 17);
+    8-bit gray Adam7; 16-bit RGB with each sample v * 257."""
+    ramp = np.repeat(np.arange(256, dtype=np.uint8)[:, None], 3, axis=1)
+    if variant == "gray8":
+        return encode_png(image[..., None], 0, 8), image
+    if variant == "palette8":
+        return encode_png(image[..., None], 3, 8, palette=ramp), image
+    if variant == "palette4":
+        levels = image // 17
+        return encode_png(levels[..., None], 3, 4, palette=ramp[::17]), (levels * 17).astype(np.uint8)
+    if variant == "adam7":
+        return encode_png(image[..., None], 0, 8, interlace=True), image
+    if variant == "rgb16":
+        return encode_png(np.repeat(image[..., None].astype(np.uint16) * 257, 3, axis=2), 2, 16), image
+    raise ValueError(variant)
+
+
+def write_raw_landmark_variants(root: Path, seed: int, size: tuple = (256, 256), n: int = 10) -> dict:
+    """A raw landmark tree as the landmark preprocessing reads it (``lax_2c.csv`` headerless, cohort_name, uid,
+    view, landmark_number, x, y; ``lax_2c/images/<uid>.png``): ``n`` seeded (width, height) = ``size`` images,
+    noise with three bright discs at the landmarks, image ``i`` written as ``PNG_VARIANTS[i % 5]``. Returns
+    uid -> the 8-bit (height, width) image each file holds."""
+    rs = np.random.RandomState(seed)
+    (root / "lax_2c" / "images").mkdir(parents=True)
+    w, h = size
+    lines, originals = [], {}
+    yy, xx = np.mgrid[:h, :w]
+    for i in range(n):
+        uid = f"U{i:03d}"
+        image = rs.randint(0, 80, (h, w))
+        for number in (1, 2, 3):
+            x, y = rs.randint(16, w - 16), rs.randint(16, h - 16)
+            image[(xx - x) ** 2 + (yy - y) ** 2 <= 16] = 230
+            lines.append(f"cohort{i % 2},{uid},lax_2c,{number},{x}.00,{y}.00")
+        png, originals[uid] = png_variant(image.astype(np.uint8), PNG_VARIANTS[i % len(PNG_VARIANTS)])
+        (root / "lax_2c" / "images" / f"{uid}.png").write_bytes(png)
+    (root / "lax_2c.csv").write_text("\n".join(lines) + "\n")
+    return originals
+
+
+def png_rgb(path: Path) -> np.ndarray:
+    """The (height, width, 3) pixels of an 8-bit RGB PNG as ``viz.write_png`` writes it (one IDAT, filter 0)."""
+    data = path.read_bytes()
+    width, height, depth, colour_type = struct.unpack(">IIBB", data[16:26])
+    check((depth, colour_type) == (8, 2), f"{path} is not an 8-bit RGB PNG")
+    idat = data.index(b"IDAT")
+    rows = np.frombuffer(zlib.decompress(data[idat + 4 : idat + int.from_bytes(data[idat - 4 : idat], "big") + 4]),
+                         np.uint8).reshape(height, 3 * width + 1)
+    check(not rows[:, 0].any(), f"{path}: a row with another filter than None")
+    return rows[:, 1:].reshape(height, width, 3)
+
+
+def last_slice_phase(report: dict, smi: str) -> dict:
+    """Phase 15: PNGs as PIL reads them through the landmark preprocessing and heatmap forward, the run folders
+    in the JAX package's format, and the cine_cmr example; returns the packed kernels' launches."""
+    from cinema_tpu_torch.config import PACKAGED, from_dict
+    from cinema_tpu_torch.data import LandmarkDetectionDataset, load_nifti, read_metadata, read_png_gray
+    from cinema_tpu_torch.data.preprocess import landmark as landmark_preprocess
+    from cinema_tpu_torch.examples import cine_cmr
+    from cinema_tpu_torch.factory import get_segmentation_model, init_weights
+
+    t_phase = time.perf_counter()
+    launches = Launches()
+    reset, read, counters = launches.reset, launches.read, launches.totals
+    cuda, view, depth = torch.device("cuda"), "lax_2c", 12
+    out: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        # a. one seeded landmark image in every variant, each read equal to its 8-bit original
+        t0 = time.perf_counter()
+        image = np.random.RandomState(15).randint(0, 256, (256, 256)).astype(np.uint8)
+        for variant in PNG_VARIANTS:
+            png, original = png_variant(image, variant)
+            (tmp / f"{variant}.png").write_bytes(png)
+            check(np.array_equal(read_png_gray(tmp / f"{variant}.png"), original.T.astype(np.float32)),
+                  f"the {variant} PNG does not read as its 8-bit original")
+        out["png_variants_s"] = time.perf_counter() - t0
+        # b. a raw tree of such PNGs through landmark_preprocess (scale 1: the images stay 256x256) into the
+        # dataset and one heatmap forward on the card
+        t0 = time.perf_counter()
+        originals = write_raw_landmark_variants(tmp / "raw", seed=15)
+        landmark_preprocess.main(["--data_dir", str(tmp / "raw"), "--out_dir", str(tmp / "processed"),
+                                  "--scale", "1.0"])
+        out["landmark_preprocess_s"] = time.perf_counter() - t0
+        for uid, original in originals.items():
+            check(np.array_equal(read_png_gray(tmp / "processed" / view / "images" / f"{uid}.png"),
+                                 original.T.astype(np.float32)), f"the processed {uid} is not its original")
+        rows = read_metadata(tmp / "processed" / "train_metadata.csv")
+        dataset = LandmarkDetectionDataset(tmp / "processed", rows, view)
+        check(len(dataset) == 8, f"{len(dataset)} training images, expected 8 of 10")
+        item = dataset.load(0, 0)
+        check(item[f"{view}_image"].shape == (256, 256, 1), f"landmark item {item[f'{view}_image'].shape}")
+        config = from_dict(PACKAGED["segmentation/landmark"])
+        model = init_weights(get_segmentation_model(config, dtype=torch.bfloat16, device=cuda), seed=0).eval()
+        batch = {view: torch.from_numpy(item[f"{view}_image"][None]).to(cuda, torch.bfloat16)}
+        reset()
+        with torch.no_grad():
+            logits = model(batch)[view]
+        torch.cuda.synchronize()
+        got = read()
+        check(got == (depth, 0, 0, 0), f"the heatmap forward launched {got}, expected {depth} packed forward")
+        check(tuple(logits.shape) == (1, 256, 256, 3) and bool(torch.isfinite(logits).all()),
+              f"heatmap logits {tuple(logits.shape)} not finite or of another shape")
+        del model
+        # c. the run folders of phases 8 to 11, checked as each was read
+        check(all(task in RUN_FOLDERS for task in MNMS_TASKS), f"phase 9's run folders not all checked: "
+                                                                f"{sorted(RUN_FOLDERS)}")
+        out["run_folders"] = RUN_FOLDERS
+        # d. cine_cmr with no --image: its PNG against the picture rendered here
+        t0 = time.perf_counter()
+        png = cine_cmr.main(["--out", str(tmp / "cmr" / "cine_cmr.png")])
+        volume, header = load_nifti(tmp / "cmr" / "synthetic_sax_t.nii.gz")
+        picture = cine_cmr.render_cmr_views(volume, header, 0, 4)
+        pixels = png_rgb(png)
+        check(pixels.shape == (cine_cmr.SIZE, cine_cmr.SIZE, 3) and np.array_equal(pixels, picture["canvas"]),
+              f"cine_cmr's PNG {pixels.shape} is not the picture rendered here")
+        after = picture["order"][picture["order"].index(("texture", 4)) + 1:]
+        corners = [picture["corners"][d] for kind, d in after]
+        check(len(corners) >= 1 and all(tuple(pixels[int(round(r)), int(round(c))]) == cine_cmr.OUTLINE
+                                        for ring in corners for r, c in ring),
+              "a slice drawn after the textured one lacks the outline colour at a projected corner")
+        out["cine_cmr"] = {"png_bytes": png.stat().st_size, "corners_checked": 4 * len(corners),
+                           "seconds": time.perf_counter() - t0}
+    out["launches"] = dict(counters)
+    out["phase_s"] = time.perf_counter() - t_phase
+    report["last_slice"] = out
+    print("last_slice", json.dumps({k: v for k, v in out.items() if k != "run_folders"}),
+          f"run_folders {len(RUN_FOLDERS)}", f"on {smi}", flush=True)
+    return counters
+
+
 def tf32_sass() -> dict:
     """TF32 tensor-core instructions (``HMMA ... TF32``) of each f32 function, forward (``flash_fwd_tf32x3``) and
     backward (``flash_bwd_dkdv_tf32x3``, ``flash_bwd_dq_tf32x3``), in the built libraries' machine code, by
@@ -4427,7 +4639,7 @@ def main() -> None:
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
-    # 4. to 14. the paths at full width, launch counts set to 0 before each and read after
+    # 4. to 15. the paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
     serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
     train_fwd, train_bwd = train_phase(report, smi, args.profile)
@@ -4442,6 +4654,7 @@ def main() -> None:
         prep = preprocess_phase(report, smi, ukb)
     dist_out = distribution_phase(report, smi)
     dist_launches, rank_launches = dist_out["launches"], dist_out["rank_launches"]
+    last = last_slice_phase(report, smi)
     report["paths_s"] = time.perf_counter() - t0
     print(f"paths driven in {report['paths_s']:.1f} s", flush=True)
 
@@ -4450,11 +4663,12 @@ def main() -> None:
                    "cinema_tpu/ops/pallas/flash_attention.py:483",
                    serve_launches + train_fwd + tune["packed_fwd"] + seg["packed_fwd"] + lmk["packed_fwd"]
                    + mnms["packed_fwd"] + cine["packed_fwd"] + examples["packed_fwd"] + prep["packed_fwd"]
-                   + dist_launches["packed_fwd"] + rank_launches["packed_fwd"],
+                   + dist_launches["packed_fwd"] + rank_launches["packed_fwd"] + last["packed_fwd"],
                    {"serve": serve_launches, "train": train_fwd, "finetune": tune["packed_fwd"],
                     "segmentation": seg["packed_fwd"], "landmark": lmk["packed_fwd"], "mnms": mnms["packed_fwd"],
                     "cine": cine["packed_fwd"], "examples": examples["packed_fwd"], "preprocess": prep["packed_fwd"],
-                    "distribution": dist_launches["packed_fwd"], "distribution_rank0": rank_launches["packed_fwd"]},
+                    "distribution": dist_launches["packed_fwd"], "distribution_rank0": rank_launches["packed_fwd"],
+                    "last_slice": last["packed_fwd"]},
                    fwd_rows),
         kernel_row("flash_attention_packed_bwd", "cinema_tpu_torch/csrc/flash_attention_bwd.cu",
                    "cinema_tpu/ops/pallas/flash_attention.py:565",
@@ -4478,6 +4692,7 @@ def main() -> None:
     check(all(k["launches_by_path"]["cine"] > 0 for k in kernels[:2]), "the cine path launched no packed kernel")
     check(all(k["launches_by_path"]["examples"] > 0 for k in kernels[:2]), "the examples launched no packed kernel")
     check(kernels[0]["launches_by_path"]["preprocess"] > 0, "the preprocessed studies launched no packed forward")
+    check(kernels[0]["launches_by_path"]["last_slice"] > 0, "the converted landmark PNG launched no packed forward")
     check(all(k["launches_by_path"][p] > 0 for k in kernels[:2] for p in ("distribution", "distribution_rank0")),
           "the distribution phase launched no packed kernel")
     # the f32 backward (split TF32) runs in the f32 check steps only: its launches there, apart

@@ -1,9 +1,11 @@
 """Hierarchical config with attribute access (port of cinema_tpu/config.py).
 
 Same YAML schema as the JAX package, so the published config.yaml files
-rebuild the same models. YAML is read by the port's own reader
-(:mod:`cinema_tpu_torch.yaml_reader`): the machine with the card has no
-PyYAML. :data:`PACKAGED` holds the configs the entry points default to.
+rebuild the same models. YAML is read and written by the port's own reader
+and writer (:mod:`cinema_tpu_torch.yaml_reader`, :mod:`cinema_tpu_torch.yaml_writer`):
+the machine with the card has no PyYAML. :func:`save_config` writes the bytes
+the JAX package's ``save_config`` writes. :data:`PACKAGED` holds the configs
+the entry points default to.
 """
 
 from __future__ import annotations
@@ -12,7 +14,7 @@ import copy
 from pathlib import Path
 from typing import Any, Dict, List, Union
 
-from cinema_tpu_torch import yaml_reader
+from cinema_tpu_torch import yaml_reader, yaml_writer
 
 
 class Config(dict):
@@ -36,6 +38,14 @@ def _wrap(value: Any) -> Any:
     return value
 
 
+def _unwrap(value: Any) -> Any:
+    if isinstance(value, dict):
+        return {k: _unwrap(v) for k, v in value.items()}
+    if isinstance(value, list):
+        return [_unwrap(v) for v in value]
+    return value
+
+
 def from_dict(d: Dict[str, Any]) -> Config:
     """Wrap a nested dict into a Config (a deep copy)."""
     return _wrap(dict(d))
@@ -44,6 +54,25 @@ def from_dict(d: Dict[str, Any]) -> Config:
 def load_config(path: Union[str, Path]) -> Config:
     """Load a YAML config file."""
     return from_dict(yaml_reader.load(path) or {})
+
+
+def save_config(config: Dict[str, Any], path: Union[str, Path]) -> None:
+    """Write a config as YAML, the bytes of the JAX package's ``save_config``
+    (``yaml.safe_dump(config.to_dict(), f, sort_keys=False)``); the Configs in it are written as the plain
+    mappings they are."""
+    yaml_writer.dump(_unwrap(config), path)
+
+
+def merge(base: Dict[str, Any], override: Dict[str, Any]) -> Config:
+    """Deep-merge ``override`` into ``base``, the override winning, as a new Config (cinema_tpu/config.py:74-82):
+    a mapping that meets a mapping is merged key by key, anything else replaces."""
+    out = from_dict(base)
+    for k, v in override.items():
+        if isinstance(v, dict) and isinstance(out.get(k), dict):
+            out[k] = merge(out[k], v)
+        else:
+            out[k] = _wrap(v)
+    return out
 
 
 def apply_overrides(config: Config, overrides: List[str]) -> Config:

@@ -12,8 +12,8 @@ cinema_tpu/data/datasets.py).
   augmented by the task's transform with its own generator,
   ``np.random.default_rng([seed, epoch, index])``, as the JAX package's ``SeededItemRNG``
   draws it, so an item is a pure function of (seed, epoch, index).
-- The landmark datasets read 8-bit grayscale PNGs and their metadata tables; their items
-  take no transform, as the JAX package's landmark tasks build them.
+- The landmark datasets read PNGs (``png.read_png_gray``, as PIL's ``convert("L")``) and their
+  metadata tables; their items take no transform, as the JAX package's landmark tasks build them.
 - :class:`UKBCineDataset` reads the pretraining studies that the UKB preprocessing writes
   (cinema_tpu/data/preprocess/ukb_dicom.py): ``<pid>/<pid>_<view>.nii.gz``, one 4-D cine per view,
   one random frame of each per item by a frame seek.
@@ -26,8 +26,6 @@ from __future__ import annotations
 import csv
 import multiprocessing
 import re
-import struct
-import zlib
 from collections import deque
 from concurrent.futures import Executor, Future, ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
@@ -36,6 +34,7 @@ from typing import Any, Callable, Deque, Dict, Iterable, Iterator, List, Optiona
 import numpy as np
 
 from cinema_tpu_torch.data.nifti import load_nifti, load_nifti_frame, load_nifti_header
+from cinema_tpu_torch.data.png import read_png_gray
 
 Sample = Dict[str, Any]
 Transform = Callable[[Sample, np.random.Generator], Sample]
@@ -620,87 +619,6 @@ def gaussian_heatmap(shape: Sequence[int], centers: np.ndarray, sigma: float = 3
     xs, ys = np.meshgrid(np.arange(w), np.arange(h), indexing="ij")
     maps = [np.exp(-((xs - cx) ** 2 + (ys - cy) ** 2) / (2 * sigma**2)) for cx, cy in centers]
     return np.stack(maps, axis=-1).astype(np.float32)
-
-
-_PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
-
-
-# samples per pixel of the 8-bit colour types read here: gray, RGB, gray + alpha, RGBA
-_PNG_CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}
-
-
-def _unfilter_row(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
-    """One scanline of ``bpp`` bytes per pixel, its PNG filter undone (None, Sub, Up, Average, Paeth); the
-    left neighbour of a byte is the byte ``bpp`` before it."""
-    if kind == 0:
-        return line
-    if kind == 1:  # Sub: a running sum of each channel along the row, mod 256
-        return np.cumsum(line.reshape(-1, bpp), axis=0, dtype=np.uint8).reshape(-1)
-    if kind == 2:  # Up
-        return line + prior
-    f, b = line.tolist(), prior.tolist()
-    out = [0] * len(f)
-    if kind == 3:  # Average of the left and the upper neighbour
-        for i, (fi, bi) in enumerate(zip(f, b)):
-            out[i] = (fi + (((out[i - bpp] if i >= bpp else 0) + bi) >> 1)) & 255
-    elif kind == 4:  # Paeth: of left, upper and upper-left, the one nearest to left + upper - upper-left
-        for i, (fi, bi) in enumerate(zip(f, b)):
-            a, c = (out[i - bpp], b[i - bpp]) if i >= bpp else (0, 0)
-            pa, pb, pc = abs(bi - c), abs(a - c), abs(a + bi - 2 * c)
-            out[i] = (fi + (a if pa <= pb and pa <= pc else bi if pb <= pc else c)) & 255
-    else:
-        raise ValueError(f"Unknown PNG filter type {kind}.")
-    return np.asarray(out, np.uint8)
-
-
-def read_png_gray(path: Union[str, Path]) -> np.ndarray:
-    """An 8-bit non-interlaced PNG, gray, gray + alpha, RGB or RGBA, as a float32 (x, y) array of its
-    luminance: the JAX package's ``np.asarray(Image.open(path).convert("L"), np.float32).T``. The luminance
-    is PIL's, in its integer arithmetic: gray as it is, ``(19595 R + 38470 G + 7471 B + 2^15) >> 16`` for
-    colour; alpha is dropped. Ancillary chunks are skipped. Palette, 16-bit and interlaced PNGs raise
-    ``ValueError``."""
-    data = Path(path).read_bytes()
-    if data[:8] != _PNG_SIGNATURE:
-        raise ValueError(f"{path} is not a PNG file.")
-    header, idat, pos = None, [], 8
-    while pos + 12 <= len(data):
-        length, kind = struct.unpack(">I4s", data[pos : pos + 8])
-        body = data[pos + 8 : pos + 8 + length]
-        (crc,) = struct.unpack(">I", data[pos + 8 + length : pos + 12 + length])
-        if zlib.crc32(kind + body) != crc:
-            raise ValueError(f"{path}: CRC mismatch in the {kind!r} chunk.")
-        if kind == b"IHDR":
-            header = struct.unpack(">IIBBBBB", body)
-        elif kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"IEND":
-            break
-        pos += 12 + length
-    if header is None or not idat:
-        raise ValueError(f"{path}: no IHDR or IDAT chunk.")
-    width, height, bit_depth, colour_type, _, _, interlace = header
-    if bit_depth != 8 or colour_type not in _PNG_CHANNELS or interlace != 0:
-        raise ValueError(
-            f"{path}: bit depth {bit_depth}, colour type {colour_type}, interlace {interlace}; only 8-bit "
-            "non-interlaced gray, gray + alpha, RGB and RGBA PNGs are read here. Other images wait for the port "
-            "of the data engine (ROADMAP.md, Queue 1, item 14).")
-    bpp = _PNG_CHANNELS[colour_type]
-    stride = width * bpp
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size != height * (stride + 1):
-        raise ValueError(f"{path}: {raw.size} bytes of image data, expected {height * (stride + 1)}.")
-    rows = raw.reshape(height, stride + 1)
-    pixels = np.empty((height, stride), np.uint8)
-    prior = np.zeros(stride, np.uint8)
-    for r in range(height):
-        prior = pixels[r] = _unfilter_row(int(rows[r, 0]), rows[r, 1:], prior, bpp)
-    pixels = pixels.reshape(height, width, bpp)
-    if colour_type in (0, 4):
-        gray = pixels[..., 0]
-    else:
-        rgb = pixels[..., :3].astype(np.uint32)
-        gray = ((rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471 + 0x8000) >> 16).astype(np.uint8)
-    return gray.T.astype(np.float32)
 
 
 class LandmarkDetectionDataset:

@@ -299,3 +299,41 @@ def save_nifti(
     with _open(path, "wb") as f:
         f.write(head_payload)
         f.write(stored.tobytes())
+
+
+def save_nifti_like(
+    array: np.ndarray,
+    reference_image_path: Optional[Union[str, Path]],
+    out_path: Union[str, Path],
+) -> None:
+    """Save ``array`` with the geometry (spacing and affine) of a reference NIfTI (port of
+    cinema_tpu/data/nifti.py:367-407; reference sitk.py save_image).
+
+    - no reference (None): a plain :func:`save_nifti`;
+    - a 4-D reference and a 3-D array: the reference's first frame's geometry (rescan data);
+    - sizes that differ on the last axis: both clamped to the shorter length, logged as an error
+      (Kaggle studies of more than 30 frames);
+    - any other size mismatch raises ValueError.
+    """
+    out_path = Path(out_path)
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    if reference_image_path is None:
+        save_nifti(out_path, array)
+        return
+    ref = load_nifti_header(reference_image_path)
+    ref_shape = tuple(ref.shape)
+    if len(ref_shape) == 4 and array.ndim == 3:
+        ref_shape = ref_shape[:3]
+    if ref_shape != array.shape:
+        def mismatch() -> str:
+            return f"Reference image {reference_image_path} has different size from the input image, " \
+                   f"{ref_shape} != {array.shape}"
+
+        logger.error(mismatch())
+        n = min(ref_shape[-1], array.shape[-1])
+        ref_shape, array = ref_shape[:-1] + (n,), array[..., :n]
+        if ref_shape != array.shape:
+            raise ValueError(mismatch())
+    spacing = tuple(ref.spacing[: array.ndim])
+    spacing += (1.0,) * (array.ndim - len(spacing))
+    save_nifti(out_path, array, spacing=spacing, affine=ref.affine)

@@ -5,9 +5,10 @@ Usage:
     python -m cinema_tpu_torch.tasks.evaluate --folder_path <run> [--split test] [--data <name>] [--device cuda]
 
 :func:`load_run` rebuilds a run folder's model: the newest ``*.safetensors`` of the folder
-and its config, from ``config.yaml`` where the JAX package wrote the folder or from the
-port's ``run.json``. The model runs in float32 unless the caller asks for another dtype, as
-in the JAX package, and :func:`main` evaluates with TF32 off (:func:`float32_precision`).
+and its config, from ``config.yaml`` (written by the JAX package's and the port's ``run_train``) or,
+in a folder of an older port, from the nested config of ``run.json``. The model runs in float32
+unless the caller asks for another dtype, as in the JAX package, and :func:`main` evaluates with
+TF32 off (:func:`float32_precision`).
 ``--data`` (default: the config's ``data.name``) picks the route:
 
 - segmentation: ``acdc``, ``mnms``, ``mnms2`` (ED/ES frames: ``metrics.csv``,
@@ -86,11 +87,22 @@ def float32_precision():
 
 
 def run_config(folder: Path) -> Config:
-    """A run folder's config: ``config.yaml`` (a folder the JAX package wrote) or ``run.json``'s ``config``
-    (one the port wrote)."""
+    """A run folder's config: its ``config.yaml`` (what the JAX package's and the port's ``run_train`` write),
+    or else the nested ``config`` of the ``run.json`` that the port wrote before it wrote ``config.yaml``.
+    A folder with neither, or with only a flat ``run.json`` (whose keys are joined with ``_`` and cannot be
+    split back), raises FileNotFoundError."""
+    folder = Path(folder)
     if (folder / "config.yaml").exists():
         return load_config(folder / "config.yaml")
-    return from_dict(json.loads((folder / "run.json").read_text())["config"])
+    if not (folder / "run.json").exists():
+        raise FileNotFoundError(f"{folder} holds neither config.yaml nor run.json: not a run folder.")
+    config = json.loads((folder / "run.json").read_text()).get("config")
+    flat = isinstance(config, dict) and not any(isinstance(v, dict) for v in config.values()) \
+        and any("_" in k for k in config)  # model_name, data_dir, ...
+    if not isinstance(config, dict) or flat:
+        raise FileNotFoundError(f"{folder} has no config.yaml, and its run.json holds a flattened config, which "
+                                "does not give the nested one back: restore the run's config.yaml.")
+    return from_dict(config)
 
 
 def load_run(folder: Path, dtype: torch.dtype = torch.float32, device: Device = "cuda") -> Tuple[Config, nn.Module]:

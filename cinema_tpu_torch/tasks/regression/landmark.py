@@ -11,7 +11,7 @@ view at 256x256, one frame, six outputs); ``data.dir=...`` names the data,
 ``train.resume_path=...`` a checkpoint to resume from.
 
 Data: the layout of ``cinema_tpu_torch.tasks.segmentation.landmark`` (metadata
-tables and 8-bit grayscale PNGs). The label is the six coordinates divided by
+tables and PNGs). The label is the six coordinates divided by
 the image's width and height; the loss is the Wing loss of the coordinates and
 of their relative distances, in pixels. As in the JAX package no transform is
 applied and the evaluation runs one plain forward per image, so every image

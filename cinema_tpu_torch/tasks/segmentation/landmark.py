@@ -12,8 +12,9 @@ names the data, ``model.ckpt_path=...`` pretrained MAE weights (safetensors),
 
 Data: ``data.dir`` holds ``train_metadata.csv`` and ``val_metadata.csv`` (columns
 ``path``, ``x1``..``y3`` and optionally ``view``, whose other views' rows are left
-out) and the 8-bit grayscale PNGs they name relative to ``data.dir``, as
-cinema_tpu/data/preprocess/landmark.py writes them (``lax_2c/images/<uid>.png``).
+out) and the PNGs they name relative to ``data.dir``, as
+cinema_tpu/data/preprocess/landmark.py writes them (``lax_2c/images/<uid>.png``; any PNG
+is read as PIL's ``convert("L")`` reads it, ``data/png.py``).
 The label of an image is the Gaussian heatmap (sigma 3) of its three landmarks.
 As in the JAX package no transform is applied: images keep their 0-255
 intensities and their size, so training images must be of exactly

@@ -21,9 +21,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from cinema_tpu_torch.config import Config, from_dict
+from cinema_tpu_torch.config import Config, from_dict, save_config
 from cinema_tpu_torch.data import BatchLoader, device_prefetch
 from cinema_tpu_torch.factory import init_weights, resolve_device
+from cinema_tpu_torch.log import flatten_dict, get_run_tags
 from cinema_tpu_torch.parallel import multihost
 from cinema_tpu_torch.parallel.mesh import make_mesh, parallelize
 from cinema_tpu_torch.train.checkpoint import (
@@ -71,20 +72,27 @@ class MetricsLogger:
             f.write(json.dumps(record) + "\n")
 
 
-def init_run_dir(config: Config, tags: List[str], out_dir: Optional[Path] = None) -> Path:
-    """Create the run directory (default ``<logging.dir>/<timestamp>-<tags>/``) with the
-    run record ``run.json`` (tags + config). In a distributed run the time stamp is rank 0's
-    and rank 0 alone creates the folder; every rank returns its path."""
+def init_run_dir(config: Config, tags: Optional[List[str]] = None, out_dir: Optional[Path] = None) -> Path:
+    """Create the run directory with its run record ``run.json`` (cinema_tpu/log.py:89-120): ``tags``
+    (default :func:`get_run_tags`, ``[]`` where the config lacks one of its keys), ``created`` and the config
+    flattened with ``_``. The directory defaults to ``<logging.dir or runs>/%Y%m%d_%H%M%S-<first three tags>``.
+    In a distributed run the time stamp is rank 0's and rank 0 alone writes; every rank returns the path."""
+    if tags is None:
+        try:
+            tags = get_run_tags(config)
+        except (AttributeError, KeyError, TypeError):
+            tags = []
     now = time.localtime(multihost.synced_time())
     if out_dir is None:
-        base = Path(config.get("logging", {}).get("dir") or "runs")
-        out_dir = base / "-".join([time.strftime("%Y%m%d-%H%M%S", now), *tags[:3]])
+        base = Path(config.logging.dir) if config.get("logging") and config.logging.get("dir") else Path("runs")
+        out_dir = base / "-".join([time.strftime("%Y%m%d_%H%M%S", now), *tags[:3]])
     out_dir = Path(out_dir)
     if is_main_process():
         out_dir.mkdir(parents=True, exist_ok=True)
+        record = {"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S", now),
+                  "config": flatten_dict(config)}
         with open(out_dir / "run.json", "w") as f:
-            json.dump({"tags": tags, "created": time.strftime("%Y-%m-%dT%H:%M:%S", now), "config": config}, f,
-                      indent=2, default=str)
+            json.dump(record, f, indent=2, default=str)
     return out_dir
 
 
@@ -203,7 +211,7 @@ def run_train(
     (default: ``pick_n_data`` of the processes) lay the run out over the processes (module docstring).
 
     Returns:
-        the run directory, holding ``run.json``, ``metrics.jsonl`` and for each saved epoch
+        the run directory, holding ``run.json``, ``config.yaml``, ``metrics.jsonl`` and for each saved epoch
         ``ckpt_{epoch}.pt``, its early-stopping sidecar ``ckpt_{epoch}.pt.meta.json`` and
         ``model_{epoch}.safetensors``. ``config.train.resume_path`` names a checkpoint to resume from.
     """
@@ -287,7 +295,9 @@ def run_train(
         print(f"Resumed from {resume} at epoch {start_epoch}.", flush=True)
 
     step_fn = make_supervised_train_step(model, tx, loss_fn, seed=config.seed, parallel=parallel)
-    out_dir = init_run_dir(config, [config.get("task", "train"), config.data.get("name", "data")], out_dir)
+    out_dir = init_run_dir(config, out_dir=out_dir)
+    if main:  # the config as the JAX package's run_train saves it, read by its load_run and cinema_eval
+        save_config(config, out_dir / "config.yaml")
     metrics_logger = MetricsLogger(out_dir, enabled=main)
     retention = CheckpointRetention(config.train.max_n_ckpts)
     saved_any = False

@@ -13,9 +13,13 @@ Reads what the JAX package's configs and its writer (``yaml.safe_dump``) hold, t
   ``0b``, ``0x``, leading-0 octal and base 60; floats only with a dot (``1.0e-05`` is a float,
   ``1e-3`` a string); ``.inf`` and ``.nan``.
 
+- plain and quoted scalars continued on later lines, folded as PyYAML folds them (one line break is a
+  space, each empty line a line break, an escaped break in double quotes joins the lines): what
+  ``yaml.safe_dump`` writes for a string past 80 columns or one that holds line breaks.
+
 Raises ValueError with the line number on what it does not read: anchors and aliases, tags, block
 scalars (``|``, ``>``), several documents, directives, complex (``?``) and merge (``<<``) keys,
-timestamps, scalars and flow collections continued on another line, tabs used as indentation, and
+timestamps, flow collections continued on another line, tabs used as indentation, and
 duplicate keys (which PyYAML would let the last one win).
 """
 
@@ -60,6 +64,7 @@ class _Line(NamedTuple):
     number: int
     indent: int
     text: str  # stripped of the indentation and of trailing spaces
+    raw_index: int  # the index of the line in the document, blank and comment lines included
 
 
 def _sexagesimal(text: str) -> Union[int, float]:
@@ -138,6 +143,63 @@ def _quoted(s: str, p: int) -> Tuple[str, int]:
         else:
             raise ValueError(f"unknown escape \\{code} in a double-quoted scalar" if code else
                              "a double-quoted scalar continued on another line is not read")
+
+
+def _quoted_lines(raw: List[str], r: int, p: int) -> Tuple[str, str, int]:
+    """The quoted scalar starting at raw[r][p], which may run over the lines after it: (value, the text after
+    its closing quote on its last line, the index of that line). Line breaks fold as in PyYAML: the spaces
+    before a break go, one break is a space and each empty line after it a line break, the next line's
+    leading spaces go; in double quotes a backslash at the end of a line joins it to the next."""
+    s, quote = raw[r], raw[r][p]
+    out: List[str] = []
+    keep, p = 0, p + 1  # keep: the length of ``out`` up to the last character a line break does not drop
+
+    def next_line(escaped: bool) -> str:
+        nonlocal r, keep
+        blanks = 0
+        r += 1
+        while r < len(raw) and not raw[r].strip(" \t"):
+            blanks, r = blanks + 1, r + 1
+        if r >= len(raw):
+            raise ValueError("a quoted scalar is not closed")
+        if not escaped:
+            del out[keep:]
+        out.append("\n" * blanks if blanks or escaped else " ")
+        keep = len(out)
+        return raw[r].lstrip(" \t")
+
+    while True:
+        if p >= len(s):
+            s, p = next_line(escaped=False), 0
+            continue
+        c = s[p]
+        if c == quote and not (quote == "'" and s.startswith("''", p)):
+            return "".join(out), s[p + 1:], r
+        if quote == "'" and c == "'":
+            out.append("'")
+            p += 2
+        elif quote == "'" or c != "\\":
+            out.append(c)
+            p += 1
+            if c in " \t":
+                continue
+        else:
+            code = s[p + 1] if p + 1 < len(s) else ""
+            if not code:
+                s, p = next_line(escaped=True), 0
+                continue
+            if code in _ESCAPES:
+                out.append(_ESCAPES[code])
+                p += 2
+            elif code in _ESCAPE_CODES:
+                digits = s[p + 2:p + 2 + _ESCAPE_CODES[code]]
+                if len(digits) != _ESCAPE_CODES[code] or not all(x in "0123456789abcdefABCDEF" for x in digits):
+                    raise ValueError(f"bad escape \\{code}{digits} in a double-quoted scalar")
+                out.append(chr(int(digits, 16)))
+                p += 2 + len(digits)
+            else:
+                raise ValueError(f"unknown escape \\{code} in a double-quoted scalar")
+        keep = len(out)
 
 
 def _refuse_indicator(s: str, p: int) -> None:
@@ -242,8 +304,8 @@ def _is_entry(text: str) -> bool:
 
 
 class _Parser:
-    def __init__(self, lines: List[_Line]):
-        self.lines = lines
+    def __init__(self, lines: List[_Line], raw: List[str]):
+        self.lines, self.raw = lines, raw
         self.i = 0
 
     def _next(self) -> Optional[_Line]:
@@ -280,7 +342,7 @@ class _Parser:
         if self._key(line) is not None:
             return self.mapping(indent)
         self.i += 1
-        return self.inline(line.text, line)
+        return self.inline(line.text, line, indent - 1)
 
     def mapping(self, indent: int) -> dict:
         out: dict = {}
@@ -310,7 +372,7 @@ class _Parser:
             column = indent + len(line.text) - len(rest)
             if rest and not rest.startswith("#") and (_is_entry(rest) or self._key(line._replace(text=rest))):
                 # a compact nested node: the rest of the line is its first line, at its own column
-                self.lines[self.i] = _Line(line.number, column, rest)
+                self.lines[self.i] = line._replace(indent=column, text=rest)
                 out.append(self.node(column))
             else:
                 self.i += 1
@@ -323,7 +385,7 @@ class _Parser:
         """The value after a key or a '-' at column ``indent``: on the rest of the line, on the deeper lines
         below it, or (a mapping's value) a sequence at the key's own column; else None."""
         if rest and not rest.startswith("#"):
-            return self.inline(rest, line)
+            return self.inline(rest, line, indent)
         nxt = self._next()
         if nxt is not None and nxt.indent > indent:
             return self.node(nxt.indent)
@@ -331,11 +393,40 @@ class _Parser:
             return self.sequence(indent)
         return None
 
-    @staticmethod
-    def inline(text: str, line: _Line) -> Any:
-        """A scalar or flow node on the rest of a line."""
+    def _consumed(self, last: int) -> None:
+        """Past the lines of a scalar that ended on the document's line ``last``."""
+        while self.i < len(self.lines) and self.lines[self.i].raw_index <= last:
+            self.i += 1
+
+    def _plain_lines(self, plain: str, line: _Line, indent: int) -> str:
+        """A plain scalar continued on the lines after ``line`` that are deeper than ``indent``: one line
+        break folds to a space, each empty line to a line break; a comment ends it."""
+        last, blanks = line.raw_index, 0
+        for r in range(line.raw_index + 1, len(self.raw)):
+            body = self.raw[r].strip(" \t")
+            if not body:
+                blanks += 1
+                continue
+            if len(self.raw[r]) - len(self.raw[r].lstrip(" ")) <= indent or body.startswith("#"):
+                break
+            cut = body.find(" #")
+            plain += ("\n" * blanks if blanks else " ") + (body if cut < 0 else body[:cut].rstrip(" "))
+            last, blanks = r, 0
+            if cut >= 0:
+                break
+        self._consumed(last)
+        return plain
+
+    def inline(self, text: str, line: _Line, indent: int) -> Any:
+        """A scalar or flow node on the rest of a line (a scalar may continue on the lines deeper than
+        ``indent``)."""
         try:
-            if text[0] in "[{\"'":
+            if text[0] in "\"'":
+                value, rest, last = _quoted_lines(self.raw, line.raw_index, line.indent + len(line.text) - len(text))
+                self._consumed(last)
+                _end_of_node(rest, 0)
+                return value
+            if text[0] in "[{":
                 value, p = _flow_node(text, 0)
                 _end_of_node(text, p)
                 return value
@@ -344,6 +435,8 @@ class _Parser:
                 raise ValueError("a block sequence may not start on a key's line")
             cut = text.find(" #")
             plain = (text if cut < 0 else text[:cut]).rstrip(" ")
+            if cut < 0:
+                plain = self._plain_lines(plain, line, indent)
             if re.search(r":( |$)", plain):
                 raise ValueError(f"mapping values are not allowed here: {plain!r}")
             return resolve(plain)
@@ -355,7 +448,8 @@ def loads(text: str) -> Any:
     """The value of a YAML document, as ``yaml.safe_load`` gives it (None for an empty one)."""
     lines: List[_Line] = []
     started = ended = False
-    for number, raw in enumerate(text.splitlines(), 1):
+    raws = text.splitlines()
+    for number, raw in enumerate(raws, 1):
         body = raw.strip(" \t")
         if not body or body.startswith("#"):
             continue
@@ -376,10 +470,10 @@ def loads(text: str) -> Any:
             continue
         if indent == 0 and body.startswith("%"):
             raise ValueError(f"line {number}: directives are not read")
-        lines.append(_Line(number, indent, body))
+        lines.append(_Line(number, indent, body, number - 1))
     if not lines:
         return None
-    parser = _Parser(lines)
+    parser = _Parser(lines, raws)
     value = parser.node(lines[0].indent)
     if parser.i < len(lines):
         line = lines[parser.i]

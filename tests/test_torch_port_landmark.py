@@ -358,27 +358,36 @@ def test_read_png_gray_is_bit_equal_to_pil_on_pngs_that_pil_writes(tmp_path, sha
 
 @pytest.mark.parametrize("mode", ["RGB", "P", "I;16", "interlaced", "bad-crc", "not-a-png"])
 def test_read_png_gray_refuses_other_pngs(tmp_path, mode):
+    """PNGs other than 8-bit plain gray or colour: 16-bit RGB, palette, 16-bit gray and interlaced ones read as
+    PIL reads them; a file PIL refuses (a chunk whose CRC fails, another format) is refused."""
     from PIL import Image
+
+    from tests.test_torch_port_png import encode, pil_gray
 
     path = tmp_path / "other.png"
     image = _test_image(np.random.default_rng(10), 8, 8)
     if mode == "P":
         Image.fromarray(image).convert(mode).save(path)
-    elif mode == "RGB":  # 8-bit RGB is read (test_torch_port_viz.py); 16-bit RGB is not
-        path.write_bytes(_handmade_png(image, [0], bit_depth=16, colour_type=2))
+    elif mode == "RGB":  # 16-bit RGB: PIL keeps each sample's high byte
+        wide = image.astype(np.int64) * 256 + np.random.default_rng(11).integers(0, 256, size=(8, 8))
+        path.write_bytes(encode(np.stack([wide, wide[::-1], wide.T], axis=-1), 2, 16))
     elif mode == "I;16":
         Image.fromarray(image.astype(np.uint16) * 257).save(path)
     elif mode == "interlaced":
-        path.write_bytes(_handmade_png(image, [0], interlace=1))
+        path.write_bytes(encode(image[..., None], 0, 8, interlace=1))
     elif mode == "bad-crc":
         png = bytearray(_handmade_png(image, [0]))
         png[40] ^= 1
         path.write_bytes(bytes(png))
     else:
         path.write_bytes(b"GIF89a" + bytes(20))
-    match = "item 14" if mode in ("RGB", "P", "I;16", "interlaced") else "CRC|not a PNG"
-    with pytest.raises(ValueError, match=match):
-        data.read_png_gray(path)
+    want = pil_gray(path.read_bytes())
+    if mode in ("RGB", "P", "I;16", "interlaced"):
+        np.testing.assert_array_equal(data.read_png_gray(path), want)
+    else:
+        assert isinstance(want, Exception)
+        with pytest.raises(ValueError, match="CRC|not a PNG"):
+            data.read_png_gray(path)
 
 
 # --- datasets ----------------------------------------------------------------------------

@@ -94,8 +94,8 @@ def _jax_run_folder(folder, config):
 
 
 def _port_run_folder(folder, config, seed=0, build=get_segmentation_model):
-    """A run folder as the port's ``run_train`` leaves it: ``run.json`` and the exported safetensors of a
-    seeded model."""
+    """A run folder as an older port's ``run_train`` left it, before it wrote ``config.yaml``: a ``run.json``
+    with the nested config, and the exported safetensors of a seeded model."""
     folder.mkdir(parents=True)
     (folder / "run.json").write_text(json.dumps({"tags": [], "config": config}))
     model = init_weights(build(config, device="cpu"), seed=seed)
