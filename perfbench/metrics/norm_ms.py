@@ -1,0 +1,7 @@
+"""norm_ms.*: device milliseconds per unit in which a kernel of the norm class ran (the union of
+their intervals in the profiled span, over the span's units)."""
+
+
+def read(result, span):
+    busy = span.busy_s("norm")
+    return busy * 1e3 / span.units if busy > 0 else None

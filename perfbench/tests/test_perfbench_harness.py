@@ -1,0 +1,288 @@
+"""CPU tests of the benchmark: its files and their contract, the frozen arithmetic, the result line,
+the imports, and ``correct`` at a size the CPU holds (sound runs pass; the control and every planted
+fault fail). Run with ``python -m pytest perfbench/tests -q``; the test marked ``gpu`` runs the
+cells on the card and skips elsewhere."""
+
+from __future__ import annotations
+
+import ast
+import json
+import math
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from perfbench.harness import faults, registry, trace, yardstick
+from perfbench.run import FORBIDDEN
+from perfbench.tests.tiny import tiny_cell
+
+ROOT = registry.PERFBENCH
+CHECKOUT = registry.CHECKOUT
+BENCH = registry.benchmark()
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+WORKLOADS = registry.workload_names()
+
+
+# ---------------------------------------------------------------- files and contract
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_every_workload_resolves_to_a_config_a_driver_and_metrics(name):
+    w = registry.workload(name)
+    cfg = registry.config(w["config"])
+    assert cfg["name"] == w["config"]
+    assert callable(registry.driver(w["kind"]).run)
+    entry = next(e for e in BENCH["workloads"] if e["name"] == name)
+    assert entry["config"] == w["config"]
+    e2e = [m["name"] for m in registry.cell_metrics(name, "end_to_end", BENCH)]
+    assert w["rate_metric"] in e2e and "setup_s" in e2e
+    per_layer = registry.cell_metrics(name, "per_layer", BENCH)
+    assert per_layer
+    for m in per_layer:
+        assert callable(registry.metric_reader(m["name"]).read)
+    assert w["correct"]["limits"]
+
+
+def test_benchmark_json_keeps_to_the_contract():
+    assert set(BENCH) == {"command", "paths", "run_seconds", "configs", "workloads", "end_to_end", "per_layer"}
+    assert 1 <= BENCH["run_seconds"] <= 51
+    for p in BENCH["paths"]:
+        assert (CHECKOUT / p).is_dir() and re.fullmatch(r"[A-Za-z0-9_./-]{1,200}", p)
+    names = [c["name"] for c in BENCH["configs"]]
+    for c in BENCH["configs"]:
+        assert set(c) == {"name", "source", "file", "reduced", "why"} and NAME.match(c["name"])
+        assert (CHECKOUT / c["file"]).is_file() and any(c["file"].startswith(p + "/") for p in BENCH["paths"])
+    cells = [w["name"] for w in BENCH["workloads"]]
+    assert len(set(cells)) == len(cells) and sorted(cells) == WORKLOADS
+    for w in BENCH["workloads"]:
+        assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["config"] in names
+        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+    metrics = BENCH["end_to_end"] + BENCH["per_layer"]
+    assert len({m["name"] for m in metrics}) == len(metrics)
+    assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in BENCH["end_to_end"])
+    for m in BENCH["end_to_end"]:
+        assert set(m) <= {"name", "unit", "better", "bound", "source", "workloads"}
+        assert 0.01 <= m["bound"] <= 0.25 and m["source"] in ("host_clock", "device_trace")
+    e2e = {m["name"] for m in BENCH["end_to_end"]}
+    for m in BENCH["per_layer"]:
+        assert set(m) <= {"name", "unit", "better", "source", "layer", "moves", "workloads"}
+        assert m["moves"] in e2e and set(m["workloads"]) <= set(cells)
+        if m["name"].endswith("_roofline") or "_roofline." in m["name"] or "mfu" in m["name"]:
+            assert m["unit"] == "%"
+    for m in metrics:
+        assert NAME.match(m["name"]) and re.fullmatch(r"[A-Za-z0-9_/%.-]{1,16}", m["unit"])
+        assert m["better"] in ("lower", "higher")
+    assert len(json.dumps(BENCH)) < 64 * 1024
+
+
+def test_a_dropped_in_cell_metric_and_kernel_class_are_found_without_an_edit(tmp_path):
+    root = tmp_path / "perfbench"
+    shutil.copytree(ROOT, root, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    extra = dict(registry.workload("mae-pretrain-b16"), traffic=dict(registry.workload("mae-pretrain-b16")["traffic"],
+                                                                     n_batches=4))
+    (root / "workloads" / "mae-pretrain-b16-small.json").write_text(json.dumps(extra))
+    (root / "metrics" / "softmax_ms.py").write_text("def read(result, span):\n    return span.busy_s('softmax') * 1e3\n")
+    (root / "kernel_classes" / "softmax.json").write_text(json.dumps({"rank": 5, "include": ["(?i)softmax"]}))
+    assert "mae-pretrain-b16-small" in registry.workload_names(root)
+    assert registry.workload("mae-pretrain-b16-small", root)["traffic"]["n_batches"] == 4
+    assert registry.metric_reader("softmax_ms.pretrain", root).read is not None
+    classes = registry.kernel_classes(root)
+    assert registry.classify("cunn_SoftMaxForward<4, float>", classes) == "softmax"
+    assert registry.classify("flash_fwd_bf16<128>", classes) == "attention"
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+# ---------------------------------------------------------------- frozen arithmetic
+
+
+def _hand_attention_min_s(b, tq, tk, e, train):
+    flop = 4 * b * tq * tk * e + (10 * b * tq * tk * e if train else 0)
+    nbytes = 2 * (b * tq * e * 2 + b * tk * e * 2) + (2 * (4 * b * tq * e + 4 * b * tk * e) if train else 0)
+    return max(flop / 989e12, nbytes / 3.35e12)
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_attention_work_agrees_with_a_hand_count(name):
+    w = registry.workload(name)
+    cfg = registry.config(w["config"])
+    if w["kind"] == "train_pool":
+        calls = yardstick.attention_calls(cfg, w["step"], w["traffic"]["batch"], train=True)
+    else:
+        calls = yardstick.attention_calls(cfg, "segmentation", 8, train=False)
+    if name.startswith("mae"):
+        # 2304 SAX tokens and 3 x 256 LAX tokens at mask ratio 0.75: 576 + 3 x 64 kept, 1728 + 3 x 192 masked
+        hand = 12 * _hand_attention_min_s(16, 769, 769, 768, True) + 8 * _hand_attention_min_s(16, 2305, 768, 512, True)
+    elif w["kind"] == "train_pool":
+        hand = 12 * _hand_attention_min_s(4, 2305, 2305, 768, True)
+    else:
+        hand = 12 * _hand_attention_min_s(8, 2305, 2305, 768, False)
+    assert math.isclose(yardstick.attention_min_s(calls), hand, rel_tol=1e-12)
+
+
+def _convunetr_forward_flop_by_hand() -> float:
+    """ConvUNetR-base on one 192x192x16 frame, forward: 2 x multiply-adds of every conv and linear layer
+    and of the two attention products."""
+    def conv(cin, cout, k, positions):
+        return 2 * cin * cout * k * positions
+    f = 0
+    p1, p2 = 48 * 48 * 16, 24 * 24 * 16
+    f += conv(1, 64, 16, p1)  # stem level 1, kernel 4x4x1
+    f += 2 * (conv(64, 64, 1, p1) * 2 + 2 * 64 * 125 * p1 + conv(64, 256, 1, p1) * 2)  # two masked conv blocks
+    f += conv(64, 128, 4, p2)
+    f += 2 * (conv(128, 128, 1, p2) * 2 + 2 * 128 * 125 * p2 + conv(128, 512, 1, p2) * 2)
+    t, e = 2304, 768
+    f += 2 * t * 512 * e + 2 * t * e * e  # patch embed, linear
+    t += 1
+    f += 12 * (24 * t * e * e + 4 * t * t * e)  # ViT blocks
+    g = 12 * 12 * 16
+    f += conv(768, 768, 4, g // 4)  # one strided downsample below the ViT grid
+
+    def res(cin, cout, positions):
+        return conv(cin, cout, 27, positions) + conv(cout, cout, 27, positions) + (
+            conv(cin, cout, 1, positions) if cin != cout else 0)
+    full = 192 * 192 * 16
+    dec = [32, 64, 128, 256, 512]
+    f += res(1, 32, full)
+    sizes = [full // 16, full // 64, g, g // 4]  # the skips' positions, finest first
+    for ch_in, ch_out, pos in zip([64, 128, 768, 768], dec[1:], sizes):
+        f += res(ch_in, ch_out, pos)
+    levels = [(512, 256, g), (256, 128, full // 64), (128, 64, full // 16), (64, 32, full // 4), (32, 32, full)]
+    for cin, cout, pos in levels:
+        f += 2 * cin * cout * 4 * (pos // 4) + 2 * res(cout, cout, pos)  # transposed conv 2x2x1, two blocks
+    f += conv(32, 4, 1, full)
+    return float(f)
+
+
+def test_model_flop_agrees_with_a_hand_count_at_the_cells_shapes():
+    cfg = registry.config("convunetr-base-sax")
+    forward = yardstick.model_flop(cfg, "segmentation", 1, train=False)
+    assert math.isclose(forward, _convunetr_forward_flop_by_hand(), rel_tol=1e-9)
+    train = yardstick.model_flop(cfg, "segmentation", 4, train=True)
+    # the backward is two forwards, less the input gradient of the first layers, which nothing needs
+    assert 2.9 * 4 * forward < train <= 3 * 4 * forward
+
+
+def test_busy_time_is_the_union_of_intervals_and_gaps_are_named_by_the_host():
+    assert trace.union_us([(0, 10), (5, 15), (20, 30)]) == 25
+    span = trace.Span(device=[("flash_fwd_bf16", 0, 10), ("sm90_xmma_gemm", 5, 15), ("cudnn_conv", 40, 50)],
+                      host=[("aten::mm", 14, 35), ("aten::linear", 12, 38), ("cudaLaunchKernel", 15, 45),
+                            (trace.SPAN, -5, 60)],
+                      wall_s=65e-6, units=2)
+    span.classify(registry.kernel_classes())
+    assert span.busy_s() == 25e-6 and span.busy_s("attention") == 10e-6 and span.busy_s("conv") == 10e-6
+    gaps = span.idle_gaps()
+    assert [name for name, _ in gaps] == ["aten::mm", "host work outside torch operations"]
+    assert [round(s * 1e6, 6) for _, s in gaps] == [25, 15]
+    assert span.device_ops()[0][0] in ("flash_fwd_bf16", "sm90_xmma_gemm", "cudnn_conv")
+
+
+# ---------------------------------------------------------------- result line and correct, on the CPU
+
+
+def test_the_result_line_has_the_keys_of_the_contract():
+    out = tiny_cell("mae-pretrain-b16").run(BENCH)
+    lines = out.pop("_lines")
+    assert list(out) == ["correct", "attempted", "failed", "metrics", "device", "checks"]
+    assert out["correct"] is True and out["attempted"] >= 1 and out["failed"] == 0
+    assert set(out["metrics"]) == {"clips_per_s", "setup_s"}
+    assert all(set(v) == {"value", "unit"} and v["value"] > 0 for v in out["metrics"].values())
+    assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    limits = registry.workload("mae-pretrain-b16")["correct"]["limits"]
+    assert set(out["checks"]) == set(limits) == {line.split()[0] for line in lines}
+    json.dumps(out)
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_a_sound_run_is_correct(name):
+    assert tiny_cell(name).run(BENCH)["correct"] is True
+
+
+@pytest.mark.parametrize("name,fault", [(n, f) for n in WORKLOADS
+                                        for f in (faults.TRAIN if registry.workload(n)["kind"] == "train_pool"
+                                                  else faults.SERVE)])
+def test_every_planted_fault_makes_correct_false(name, fault):
+    assert tiny_cell(name, fault=fault).run(BENCH)["correct"] is False
+
+
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_the_control_fails_a_limit(name):
+    cell = tiny_cell(name, fault=faults.CONTROL)
+    result = cell.drive()
+    correct, judged = cell.judge(result)
+    assert not correct and result["failed"] == 0
+    assert not all(v["ok"] for v in judged.values())
+
+
+# ---------------------------------------------------------------- imports
+
+
+def _imports(path: Path):
+    for node in ast.walk(ast.parse(path.read_text(encoding="utf-8"))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_no_file_of_the_benchmark_imports_jax_or_the_jax_package():
+    for path in ROOT.rglob("*.py"):
+        for name in _imports(path):
+            assert name.split(".")[0] not in FORBIDDEN, f"{path} imports {name}"
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    for path in (ROOT / "reference").rglob("*.py"):
+        for name in _imports(path):
+            assert name.split(".")[0] != "cinema_tpu_torch", f"{path} imports {name}"
+
+
+def test_a_run_loads_no_jax_into_its_process():
+    code = ("import sys; sys.argv = ['x']\n"
+            "from perfbench.run import forbidden_modules\n"
+            "from perfbench.tests.tiny import tiny_cell\n"
+            "from perfbench.harness import registry\n"
+            "tiny_cell('seg-serve-cine').run(registry.benchmark())\n"
+            "print(forbidden_modules())\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=CHECKOUT, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip().splitlines()[-1] == "[]"
+
+
+# ---------------------------------------------------------------- on the card
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the cells run the program's CUDA kernels")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", WORKLOADS)
+def test_each_cell_runs_correct_on_the_card(card, name):
+    out = subprocess.run([sys.executable, "-m", "perfbench.run", "--workload", name, "--seed", "2147483659",
+                          "--seconds", "3", "--trace", "1"], cwd=CHECKOUT, capture_output=True, text=True, timeout=900)
+    assert out.returncode == 0, out.stderr[-4000:]
+    assert json.loads(out.stdout.strip().splitlines()[-1])["correct"] is True
+
+
+def test_a_depthwise_convolution_s_backward_counts_twice_its_forward():
+    from torch.nn import functional as F
+    from torch.utils.flop_counter import FlopCounterMode
+
+    x = torch.empty(2, 8, 6, 6, 6, device="meta", requires_grad=True)
+    w = torch.empty(8, 1, 5, 5, 5, device="meta", requires_grad=True)
+    counter = FlopCounterMode(display=False, custom_mapping={torch.ops.aten.convolution_backward:
+                                                             yardstick.conv_backward_flop})
+    with counter:
+        F.conv3d(x, w, padding=2, groups=8).sum().backward()
+    counts = {str(k): v for k, v in counter.get_flop_counts()["Global"].items()}
+    assert counts["aten.convolution"] == 2 * 2 * 8 * 125 * 216
+    assert counts["aten.convolution_backward"] == 2 * counts["aten.convolution"]
