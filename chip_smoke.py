@@ -779,11 +779,8 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     from cinema_tpu_torch.factory import get_convunetr_model, init_weights
     from cinema_tpu_torch.inference import sliding_window_forward
     from cinema_tpu_torch.models import vit
-    from cinema_tpu_torch.ops.flash_attention import (
-        flash_attention_packed,
-        flash_attention_packed_kv,
-        flash_attention_packed_kv_plain,
-    )
+    from cinema_tpu_torch import trace
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv, flash_attention_packed_kv_plain
     from cinema_tpu_torch.serve import segment_cine
 
     config = from_dict(PACKAGED["segmentation/acdc"])
@@ -795,11 +792,11 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention_packed.launches = 0
+    trace.reset("attention.packed.launches")
     t0 = time.perf_counter()
     labels = segment_cine(model, video, chunk)
     serve_s = time.perf_counter() - t0
-    serve_launches = flash_attention_packed.launches
+    serve_launches = trace.counter("attention.packed.launches")
     n_chunks = -(-n_frames // chunk)
     expected = len(model.encoder.blocks) * n_chunks
     print(f"serve: {n_frames} frames of {(x, y, z)}, {serve_launches} kernel launches "
@@ -824,12 +821,12 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     with torch.no_grad():
         sliding_window_forward(model, {"sax": study}, {"sax": (x, y, z)})  # warm-up
         torch.cuda.synchronize()
-        flash_attention_packed.launches = 0
+        trace.reset("attention.packed.launches")
         t0 = time.perf_counter()
         logp = sliding_window_forward(model, {"sax": study}, {"sax": (x, y, z)})["sax"]
         torch.cuda.synchronize()
     window_s = time.perf_counter() - t0
-    window_launches = flash_attention_packed.launches
+    window_launches = trace.counter("attention.packed.launches")
     check(window_launches == len(model.encoder.blocks), f"sliding window launched {window_launches} times")
     check(logp.shape == (1, x, y, 24, config.model.out_chans) and bool(torch.isfinite(logp).all()),
           f"sliding window output {tuple(logp.shape)} not finite or mis-shaped")
@@ -909,11 +906,8 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     from cinema_tpu_torch.data.transforms import get_pretrain_transforms
     from cinema_tpu_torch.factory import get_mae_model, init_weights
     from cinema_tpu_torch.models import vit
-    from cinema_tpu_torch.ops.flash_attention import (
-        flash_attention_packed,
-        flash_attention_packed_kv,
-        flash_attention_packed_kv_plain,
-    )
+    from cinema_tpu_torch import trace
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv, flash_attention_packed_kv_plain
     from cinema_tpu_torch.ops.masking import random_patch_mask
     from cinema_tpu_torch.tasks import pretrain
     from cinema_tpu_torch.train.checkpoint import latest_checkpoint, load_checkpoint
@@ -934,7 +928,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     path_launches = [0, 0]
 
     def read_launches() -> tuple:
-        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches)
+        got = (trace.counter("attention.packed.launches"), trace.counter("attention.packed.bwd_launches"))
         path_launches[0] += got[0]
         path_launches[1] += got[1]
         return got
@@ -950,7 +944,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
 
         # a. the entry point: the manifest, one epoch of two steps fed by its loader's worker processes,
         # checkpoint and export; then a second scan of the folder reads the manifest's cache
-        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+        trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
         t0 = time.perf_counter()
         out_dir = pretrain.run(config, device="cuda")
         run_s = time.perf_counter() - t0
@@ -1057,7 +1051,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
                 state, _ = step_fn(state, on_card[0])  # warm-up
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+                trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
                 waits, losses = [], []
                 t0 = time.perf_counter()
                 for _ in range(n_fed):
@@ -1094,7 +1088,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+    trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
     losses, skipped, seconds = [], [], []
     for i in range(n_timed):
         t0 = time.perf_counter()
@@ -1113,7 +1107,8 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
           f"counters {state.step} {state.n_samples} {int(state.opt_state.count)}, expected {done} steps")
     moved = sum(not torch.equal(before[k], v) for k, v in model.state_dict().items())
     check(moved == len(before), f"only {moved} of {len(before)} parameters moved in the timed steps")
-    check(flash_attention_packed.grad_copies == 0, "the backward copied a gradient it should read in place")
+    check(trace.counter("attention.packed.grad_copies") == 0, "the backward copied a gradient it should read "
+          "in place")
     step_s = statistics.median(seconds)
     report["train"] = {
         "batch": batch_size, "steps": n_timed, "launches_fwd": fwd, "launches_bwd": bwd, "losses": losses,
@@ -1150,9 +1145,9 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
         loss = model32(small, 0.75, masks)[0]
         return loss.detach(), torch.autograd.grad(loss, params)
 
-    before = flash_attention_packed.bwd_launches
+    before = trace.counter("attention.packed.bwd_launches")
     loss_k, grads_k = loss_and_grads()
-    f32_bwd = flash_attention_packed.bwd_launches - before
+    f32_bwd = trace.counter("attention.packed.bwd_launches") - before
     ms = f32_step_ms(loss_and_grads, lambda: None)
     vit.flash_attention_packed_kv = flash_attention_packed_kv_plain
     try:
@@ -1235,21 +1230,22 @@ class Launches:
     """The launch counters of the packed and the per-head kernels: ``reset`` sets them to 0, ``read``
     returns (packed fwd, packed bwd, per-head fwd, per-head bwd) and adds them to ``totals``, a path's sum."""
 
+    COUNTERS = ("attention.packed.launches", "attention.packed.bwd_launches", "attention.heads.launches",
+                "attention.heads.bwd_launches")
+
     def __init__(self) -> None:
         self.totals = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0}
 
     @staticmethod
     def reset() -> None:
-        from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed
+        from cinema_tpu_torch import trace
 
-        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
-        flash_attention.launches = flash_attention.bwd_launches = 0
+        trace.reset(*Launches.COUNTERS)
 
     def read(self) -> tuple:
-        from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_packed
+        from cinema_tpu_torch import trace
 
-        got = (flash_attention_packed.launches, flash_attention_packed.bwd_launches,
-               flash_attention.launches, flash_attention.bwd_launches)
+        got = tuple(map(trace.counter, self.COUNTERS))
         for key, n in zip(self.totals, got):
             self.totals[key] += n
         return got
@@ -1374,7 +1370,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
     from cinema_tpu_torch.convert import load_safetensors
     from cinema_tpu_torch.factory import get_convvit_model, init_weights
     from cinema_tpu_torch.ops import attention
-    from cinema_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+    from cinema_tpu_torch import trace
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_plain
     from cinema_tpu_torch.tasks.classification import acdc as clf_acdc
     from cinema_tpu_torch.tasks.classification import classification_loss_fn
     from cinema_tpu_torch.tasks.regression import acdc as reg_acdc
@@ -1423,7 +1420,8 @@ def finetune_phase(report: dict, smi: str, profile: bool) -> dict:
         state, step_fn = make_step(rotary)
         report["finetune_rotary"] = timed_steps(launches, smi, "finetune_rotary", rotary, state, step_fn, batches,
                                                 n_timed, (0, 0, depth, depth))
-        check(flash_attention.grad_copies == 0, "the per-head backward copied a gradient it should read in place")
+        check(trace.counter("attention.heads.grad_copies") == 0,
+              "the per-head backward copied a gradient it should read in place")
 
         # a NaN batch leaves parameters, moments and count bit-identical
         state = check_nan_batch("finetune", launches, rotary, state, step_fn, batches[0], "sax_image")
@@ -1578,10 +1576,8 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
     from cinema_tpu_torch.data import BatchLoader, to_device
     from cinema_tpu_torch.factory import get_convunetr_model, get_segmentation_model, init_weights
     from cinema_tpu_torch.models import vit
-    from cinema_tpu_torch.ops.flash_attention import (
-        flash_attention_packed,
-        flash_attention_packed_kv_plain,
-    )
+    from cinema_tpu_torch import trace
+    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed_kv_plain
     from cinema_tpu_torch.ops.window import crop_start, get_patch_grid
     from cinema_tpu_torch.tasks.segmentation import (
         acdc as seg_acdc,
@@ -1629,7 +1625,8 @@ def segmentation_phase(report: dict, smi: str, profile: bool) -> dict:
         state, step_fn = make_step(model)
         report["segmentation_remat"] = timed_steps(launches, smi, "segmentation_remat", model, state, step_fn, batches,
                                                    6, (2 * depth, depth, 0, 0), may_stay)
-        check(flash_attention_packed.grad_copies == 0, "the packed backward copied a gradient it should read in place")
+        check(trace.counter("attention.packed.grad_copies") == 0,
+              "the packed backward copied a gradient it should read in place")
 
         # a NaN batch leaves parameters, moments and count bit-identical
         state = check_nan_batch("segmentation", launches, model, state, step_fn, batches[0], "sax_image")
@@ -3985,7 +3982,7 @@ def _two_rank_worker(rank: int, port: int, work: str) -> None:
 
     from cinema_tpu_torch.config import from_dict
     from cinema_tpu_torch.factory import get_mae_model, init_weights
-    from cinema_tpu_torch.ops.flash_attention import flash_attention_packed
+    from cinema_tpu_torch import trace
     from cinema_tpu_torch.ops.masking import PatchMask
     from cinema_tpu_torch.parallel.mesh import make_mesh, parallelize
 
@@ -4005,14 +4002,14 @@ def _two_rank_worker(rank: int, port: int, work: str) -> None:
         own = slice(par.data_rank * rows, (par.data_rank + 1) * rows)
         batch = {v: x[own].cuda() for v, x in inputs["batch"].items()}
         masks = {v: PatchMask(*(t[own].cuda() for t in m)) for v, m in inputs["masks"].items()}
-        flash_attention_packed.launches = flash_attention_packed.bwd_launches = 0
+        trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         loss = model(batch, 0.75, masks)[0]
         grads = par.gradients(loss, model)
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t0) * 1e3
-        launches = (flash_attention_packed.launches, flash_attention_packed.bwd_launches)
+        launches = (trace.counter("attention.packed.launches"), trace.counter("attention.packed.bwd_launches"))
         loss = par.mean_metrics({"loss": loss.detach()})["loss"]
         full = {name: par.full_tensor(name, g).cpu() for name, g in zip(par.names, grads)}
         widths = sorted({tuple(m.weight.shape) for name, m in model.named_modules() if name.endswith("attn.q")})
@@ -4730,18 +4727,16 @@ def profile_call(label: str, fn, smi: str) -> dict:
     kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(kernels), "the profiler recorded no device time")
     rows = sorted(((e.key, e.device_time_total / 1e3, e.count) for e in kernels), key=lambda r: -r[1])
-    total = sum(r[1] for r in rows)
     # the time the device was busy: the union of its kernels' intervals (kernels may overlap, so their
-    # durations can add up to more than the wall time); the idle share is against the call timed without
-    # the profiler, whose host overhead would lengthen a host-bound call (near 0, or a little below, where
-    # the device is busy throughout)
+    # durations can add up to more than the wall time); the idle share takes busy time and wall time
+    # from the same profiled call
     busy_us, end = 0.0, float("-inf")
     for start, stop in sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                               if e.device_type == torch.autograd.DeviceType.CUDA):
         busy_us += max(stop - max(start, end), 0.0)
         end = max(end, stop)
     result = {
-        "device_ms": total, "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / wall_ms,
+        "device_busy_ms": busy_us / 1e3, "idle_share": 1.0 - busy_us / 1e3 / profiled_wall_ms,
         "wall_ms": wall_ms, "wall_ms_while_profiled": profiled_wall_ms,
         "attention_fwd_ms": sum(ms for key, ms, _ in rows if "flash_fwd" in key),
         "attention_bwd_ms": sum(ms for key, ms, _ in rows if "flash_bwd" in key),

@@ -53,8 +53,8 @@ correction are VMEM tiling for v5e and have no counterpart here: ragged
 tails are masked exactly.
 
 CUDA tensors go to the kernels or raise; CPU tensors take the plain
-versions. ``flash_attention_packed.launches`` and ``.bwd_launches`` count
-the kernel launches per direction.
+versions. The counters ``attention.{packed,heads}.launches`` and ``.bwd_launches`` of
+:mod:`cinema_tpu_torch.trace` count the kernel launches per direction.
 """
 
 from __future__ import annotations
@@ -64,7 +64,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from cinema_tpu_torch import build
+from cinema_tpu_torch import build, trace
 
 _LOG2E = 1.4426950408889634
 HEAD_DIMS = (32, 64)  # head_dim values the kernels are compiled for
@@ -166,7 +166,7 @@ def flash_attention_packed_forward(
     _check_on_card(q=q, k=k, v=v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = _run_fwd(q, k, v, out, save_lse, n_heads)
-    flash_attention_packed.launches += 1
+    trace.count("attention.packed.launches")
     return out, lse
 
 
@@ -182,7 +182,7 @@ def _launch_bwd(
     """
     _check_on_card(q=q, k=k, v=v, out=out, g=g, dq=dq, dk=dk, dv=dv)
     _run_bwd(q, k, v, out, g, dq, dk, dv, lse, n_heads)
-    flash_attention_packed.bwd_launches += 1
+    trace.count("attention.packed.bwd_launches")
 
 
 def flash_attention_packed_backward(
@@ -199,11 +199,11 @@ def _kernel_ready_grad(g: torch.Tensor) -> torch.Tensor:
     """The output gradient as the kernel reads it: any batch and row strides,
     but a contiguous, 16-byte aligned last axis. Autograd may hand over an
     expanded or transposed gradient; that one is copied, and the copy is
-    counted in ``flash_attention_packed.grad_copies``."""
+    counted in the counter ``attention.packed.grad_copies``."""
     align = 16 // g.element_size()
     if g.stride(2) == 1 and g.stride(0) % align == 0 and g.stride(1) % align == 0 and g.data_ptr() % 16 == 0:
         return g
-    flash_attention_packed.grad_copies += 1
+    trace.count("attention.packed.grad_copies")
     return g.contiguous()
 
 
@@ -299,8 +299,8 @@ def flash_attention_packed(
     """Multi-head attention on packed (batch, tokens, embed) tensors, differentiable.
 
     CUDA tensors go to the hand-written kernels: each forward launch adds
-    one to ``flash_attention_packed.launches`` and each backward one to
-    ``flash_attention_packed.bwd_launches``. CPU tensors go to
+    one to the counter ``attention.packed.launches`` and each backward one to
+    ``attention.packed.bwd_launches``. CPU tensors go to
     :func:`flash_attention_packed_plain` and
     :func:`flash_attention_packed_bwd_plain`. Any other case raises: there is
     no fallback from the card to the plain versions.
@@ -341,9 +341,6 @@ def flash_attention_packed_kv_plain(q: torch.Tensor, kv: torch.Tensor, n_heads: 
     return flash_attention_packed_plain(q, kv[..., :embed], kv[..., embed:], n_heads)
 
 
-flash_attention_packed.launches = 0
-flash_attention_packed.bwd_launches = 0
-flash_attention_packed.grad_copies = 0
 
 
 # ---------------------------------------------------------------------------
@@ -436,7 +433,7 @@ def flash_attention_forward(
     _check_on_card(q=q, k=k, v=v)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     lse = _run_fwd(q, k, v, out, save_lse)
-    flash_attention.launches += 1
+    trace.count("attention.heads.launches")
     return out, lse
 
 
@@ -673,7 +670,7 @@ def _launch_heads_bwd(
     """Fill the given gradient buffers (None: not computed; dk and dv go together)."""
     _check_on_card(q=q, k=k, v=v, out=out, g=g, dq=dq, dk=dk, dv=dv)
     _run_bwd(q, k, v, out, g, dq, dk, dv, lse)
-    flash_attention.bwd_launches += 1
+    trace.count("attention.heads.bwd_launches")
 
 
 def _is_v_half(v: torch.Tensor) -> bool:
@@ -701,7 +698,7 @@ def flash_attention_backward(
     dq, dk = (torch.empty(x.shape, dtype=x.dtype, device=x.device) for x in (q, k))
     dv = _empty_like_v(v)
     if not _kernel_ready(g):
-        flash_attention.grad_copies += 1
+        trace.count("attention.heads.grad_copies")
         g = g.contiguous()
     _launch_heads_bwd(q, k, v, out, lse, g, dq, dk, dv)
     return dq, dk, dv
@@ -734,7 +731,7 @@ class _HeadsAttention(torch.autograd.Function):
                 dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
                 dv = _empty_like_v(v)
             if not _kernel_ready(g):
-                flash_attention.grad_copies += 1
+                trace.count("attention.heads.grad_copies")
                 g = g.contiguous()
             _launch_heads_bwd(q, k, v, out, lse, g, dq, dk, dv)
         return (dq if need_q else None), (dk if need_k else None), (dv if need_v else None)
@@ -744,8 +741,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     """Multi-head attention on (batch, tokens, heads, head_dim) tensors, differentiable.
 
     CUDA tensors go to the hand-written per-head kernels: each forward launch
-    adds one to ``flash_attention.launches`` and each backward one to
-    ``flash_attention.bwd_launches``. CPU tensors go to
+    adds one to the counter ``attention.heads.launches`` and each backward one to
+    ``attention.heads.bwd_launches``. CPU tensors go to
     :func:`flash_attention_plain` and :func:`flash_attention_bwd_plain`. Any
     other case raises: there is no fallback from the card to the plain versions.
 
@@ -768,9 +765,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.
     return flash_attention_forward(q, k, v, save_lse=False)[0]
 
 
-flash_attention.launches = 0
-flash_attention.bwd_launches = 0
-flash_attention.grad_copies = 0
 
 
 class _SplitKV(torch.autograd.Function):

@@ -23,6 +23,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.data.nifti import load_nifti, save_nifti
 from cinema_tpu_torch.data.transforms import scale_intensity, spatial_pad
 from cinema_tpu_torch.factory import from_finetuned
@@ -42,12 +43,28 @@ def preprocess(video: np.ndarray, patch_size: Sequence[int]) -> np.ndarray:
 
 @torch.no_grad()
 def segment_cine(model: ConvUNetR, video: np.ndarray, chunk: int = CHUNK) -> np.ndarray:
-    """Segment every frame of a (x, y, z, t) SAX cine; returns (x, y, z, t) uint8 labels."""
+    """Segment every frame of a (x, y, z, t) SAX cine; returns (x, y, z, t) uint8 labels.
+
+    Counts the call in ``serve.studies``, its frames in ``serve.frames`` and the frames the model ran,
+    the ragged last chunk's repeats included, in ``serve.frame_slots``; traced as ``serve.study``
+    (request: the call's ordinal) and its phases (:mod:`cinema_tpu_torch.trace`)."""
+    n_frames = video.shape[-1]
+    trace.count("serve.studies")
+    trace.count("serve.frames", n_frames)
+    trace.count("serve.frame_slots", -(-n_frames // chunk) * chunk)
     device = next(model.parameters()).device
-    frames = torch.from_numpy(preprocess(video, model.image_size_dict["sax"])).to(device)
-    labels = video_forward(lambda x: model.predict_labels({"sax": x})["sax"], frames, chunk)
-    labels = crop_start(labels.cpu().numpy(), (video.shape[-1], *video.shape[:3]))
-    return np.moveaxis(labels, 0, -1)
+    with trace.span("serve.study", request=trace.counter("serve.studies")):
+        with trace.span("serve.preprocess"):
+            frames = preprocess(video, model.image_size_dict["sax"])
+        with trace.span("serve.upload"):
+            frames = torch.from_numpy(frames).to(device)
+        with trace.span("serve.forward"):
+            labels = video_forward(lambda x: model.predict_labels({"sax": x})["sax"], frames, chunk)
+        with trace.span("serve.readback"):
+            labels = labels.cpu()
+        with trace.span("serve.crop"):
+            labels = np.moveaxis(crop_start(labels.numpy(), (n_frames, *video.shape[:3])), 0, -1)
+    return labels
 
 
 def _is_nifti(path: Path) -> bool:

@@ -17,11 +17,12 @@ it was.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.models.layers import sampling_from
 from cinema_tpu_torch.ops.masking import PatchMask
 from cinema_tpu_torch.train.fused_optim import FusedAdamW, FusedAdamWState
@@ -69,15 +70,17 @@ def make_mae_train_step(
     def step_fn(
         state: TrainState, batch: Dict[str, torch.Tensor], mask_dict: Optional[Dict[str, PatchMask]] = None
     ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        first = next(iter(batch.values()))
-        generator = mask_generator(seed, state.step, first.device)
-        if mask_dict is None and parallel is not None and parallel.n_data > 1:
-            rows = first.shape[0]
-            whole = model.draw_masks(batch, enc_mask_ratio, generator, rows * parallel.n_data)
-            own = slice(parallel.data_rank * rows, (parallel.data_rank + 1) * rows)
-            mask_dict = {v: PatchMask(*(t[own] for t in m)) for v, m in whole.items()}
-        loss, _preds, _masks, metrics = model(batch, enc_mask_ratio, mask_dict, generator=generator)
-        return _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model)
+        with trace.span("step", request=state.step):
+            first = next(iter(batch.values()))
+            with trace.span("step.forward"):
+                generator = mask_generator(seed, state.step, first.device)
+                if mask_dict is None and parallel is not None and parallel.n_data > 1:
+                    rows = first.shape[0]
+                    whole = model.draw_masks(batch, enc_mask_ratio, generator, rows * parallel.n_data)
+                    own = slice(parallel.data_rank * rows, (parallel.data_rank + 1) * rows)
+                    mask_dict = {v: PatchMask(*(t[own] for t in m)) for v, m in whole.items()}
+                loss, _preds, _masks, metrics = model(batch, enc_mask_ratio, mask_dict, generator=generator)
+            return _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model)
 
     return step_fn
 
@@ -96,20 +99,31 @@ def _optimizer_params(model: nn.Module, tx: FusedAdamW, parallel: Optional["Para
 def _guarded_update(
     state: TrainState, tx: FusedAdamW, params: list, loss: torch.Tensor, metrics: Dict[str, torch.Tensor],
     batch_size: int, parallel: Optional["Parallel"] = None, model: Optional[nn.Module] = None,
+    saved_buffers: Sequence[Tuple[torch.Tensor, torch.Tensor]] = (),
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """Gradients of ``loss``, the guarded optimizer step, the counters."""
+    """Gradients of ``loss``, the guarded optimizer step, the counters. Each (buffer, value before
+    the forward) of ``saved_buffers`` gets its old value back where the batch is skipped."""
     metrics = {k: v.detach() for k, v in metrics.items()}
-    if parallel is None:
-        grads = torch.autograd.grad(loss, params, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        ok, targets, rows = torch.isfinite(loss.detach()), None, batch_size
-    else:
-        grads = parallel.gradients(loss, model)
-        ok, metrics = parallel.all_finite(loss), parallel.mean_metrics(metrics)
-        targets = parallel.optimizer_params(model) if parallel.fsdp else None
-        rows = batch_size * parallel.n_data
-    metrics["grad_norm"] = tx.step(grads, state.opt_state, ok, targets)
-    metrics["skipped_nan"] = (~(ok & torch.isfinite(metrics["grad_norm"]))).float()
+    with trace.span("step.backward"):
+        if parallel is None:
+            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            ok, targets, rows = torch.isfinite(loss.detach()), None, batch_size
+        else:
+            grads = parallel.gradients(loss, model)
+            ok, metrics = parallel.all_finite(loss), parallel.mean_metrics(metrics)
+            targets = parallel.optimizer_params(model) if parallel.fsdp else None
+            rows = batch_size * parallel.n_data
+    with trace.span("step.update"):
+        metrics["grad_norm"] = tx.step(grads, state.opt_state, ok, targets)
+        metrics["skipped_nan"] = (~(ok & torch.isfinite(metrics["grad_norm"]))).float()
+        if saved_buffers:
+            skipped = metrics["skipped_nan"].bool()
+            with torch.no_grad():
+                for b, old in saved_buffers:
+                    b.copy_(torch.where(skipped, old, b))
+            if parallel is not None and parallel.n_data > 1:
+                parallel.broadcast_buffers(model)
     state.step += 1
     state.n_samples += rows
     return state, metrics
@@ -139,19 +153,13 @@ def make_supervised_train_step(
     buffers = list(model.buffers())
 
     def step_fn(state: TrainState, batch: Dict[str, torch.Tensor]) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        first = next(iter(batch.values()))
-        model.train()
-        saved = [b.clone() for b in buffers]
-        with sampling_from(mask_generator(seed, state.step, first.device)):
-            loss, metrics = loss_fn(model, batch)
-        state, metrics = _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model)
-        if buffers:
-            skipped = metrics["skipped_nan"].bool()
-            with torch.no_grad():
-                for b, old in zip(buffers, saved):
-                    b.copy_(torch.where(skipped, old, b))
-            if parallel is not None and parallel.n_data > 1:
-                parallel.broadcast_buffers(model)
-        return state, metrics
+        with trace.span("step", request=state.step):
+            first = next(iter(batch.values()))
+            with trace.span("step.forward"):
+                model.train()
+                saved = [(b, b.clone()) for b in buffers]
+                with sampling_from(mask_generator(seed, state.step, first.device)):
+                    loss, metrics = loss_fn(model, batch)
+            return _guarded_update(state, tx, params, loss, metrics, first.shape[0], parallel, model, saved)
 
     return step_fn

@@ -17,9 +17,9 @@ import pytest
 import torch
 
 from cinema_tpu_torch import inference as port_inference
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.convert import state_dict_from_jax
 from cinema_tpu_torch.models.convunetr import ConvUNetR as PortConvUNetR
-from cinema_tpu_torch.ops.flash_attention import flash_attention_packed
 
 ATOL = 2e-4
 SIZES = {"sax": (32, 32, 4), "lax_2c": (32, 32)}
@@ -85,10 +85,10 @@ def test_convunetr_logits_match_jax(views):
     _, params, apply, port = _models(views)
     images = _images(views)
     want = apply(params, {k: jnp.asarray(v) for k, v in images.items()})
-    before = flash_attention_packed.launches
+    before = trace.counter("attention.packed.launches")
     with torch.no_grad():
         got = port(_torch(images))
-    assert flash_attention_packed.launches == before  # CPU tensors take the plain version
+    assert trace.counter("attention.packed.launches") == before  # CPU tensors take the plain version
     for v in views:
         assert got[v].shape == (2, *SIZES[v], 4)
         np.testing.assert_allclose(got[v].numpy(), np.asarray(want[v]), atol=ATOL, rtol=0, err_msg=v)

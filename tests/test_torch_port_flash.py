@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops.attention import dot_product_attention
 from cinema_tpu_torch.ops.flash_attention import flash_attention_packed, flash_attention_packed_plain
 
@@ -49,9 +50,9 @@ def test_packed_plain_matches_pallas(n_q, n_k, embed, n_heads):
 def test_cpu_tensors_take_the_plain_version_without_counting():
     rng = np.random.default_rng(1)
     q, k, v = (torch.from_numpy(rng.normal(size=(1, 33, 32)).astype(np.float32)) for _ in range(3))
-    before = flash_attention_packed.launches
+    before = trace.counter("attention.packed.launches")
     out = flash_attention_packed(q, k, v, 2)
-    assert flash_attention_packed.launches == before
+    assert trace.counter("attention.packed.launches") == before
     per_head = dot_product_attention(q.reshape(1, 33, 2, 16), k.reshape(1, 33, 2, 16), v.reshape(1, 33, 2, 16))
     torch.testing.assert_close(out, per_head.reshape(1, 33, 32), atol=ATOL, rtol=0)
 

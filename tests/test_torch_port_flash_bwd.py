@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops import flash_attention as fa
 
 ATOL = 2e-5  # f32 on both sides; only the summation order differs
@@ -120,11 +121,12 @@ def test_only_needed_gradients_are_returned_and_cpu_counts_no_launch():
     q, kv, w = _inputs(9, 7, 32, seed=5)
     q_t = torch.from_numpy(q)
     kv_t = torch.from_numpy(kv).requires_grad_()
-    before = (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches)
+    packed = ("attention.packed.launches", "attention.packed.bwd_launches")
+    before = tuple(map(trace.counter, packed))
     out = fa.flash_attention_packed_kv(q_t, kv_t, 2)
     (out * torch.from_numpy(w)).sum().backward()
     assert q_t.grad is None and kv_t.grad is not None
-    assert (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches) == before
+    assert tuple(map(trace.counter, packed)) == before
     with torch.no_grad():  # no gradient wanted: no Function, no saved tensors
         assert fa.flash_attention_packed_kv(q_t, kv_t, 2).grad_fn is None
 

@@ -18,6 +18,7 @@ import types
 import pytest
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops import flash_attention as fa
 
 BATCH = 2
@@ -123,7 +124,8 @@ def test_packed_and_per_head_entries_make_the_same_call_for_the_same_memory(capt
     kv, dkv = (_empty((BATCH, n_k, 2 * embed), (n_k * 2 * embed, 2 * embed, 1)) for _ in range(2))
     lse = torch.empty(BATCH, heads, n_q)
     k, v, dk, dv = kv[..., :embed], kv[..., embed:], dkv[..., :embed], dkv[..., embed:]
-    before = (fa.flash_attention_packed.bwd_launches, fa.flash_attention.bwd_launches)
+    bwd = ("attention.packed.bwd_launches", "attention.heads.bwd_launches")
+    before = tuple(map(trace.counter, bwd))
     fa._launch_bwd(q, k, v, out, lse, g, heads, dq, dk, dv)
     per_head = [x.view(*x.shape[:2], heads, d) for x in (q, k, v, out, g, dq, dk, dv)]
     fa._launch_heads_bwd(*per_head[:4], lse, per_head[4], *per_head[5:])
@@ -131,7 +133,7 @@ def test_packed_and_per_head_entries_make_the_same_call_for_the_same_memory(capt
     assert captured[0][:6] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), g.data_ptr(),
                                lse.data_ptr())
     assert captured[0][7:10] == (dq.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    assert (fa.flash_attention_packed.bwd_launches, fa.flash_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert tuple(map(trace.counter, bwd)) == (before[0] + 1, before[1] + 1)
     fa._launch_bwd(q, k, v, out, lse, g, heads, None, dk, dv)  # dq not computed: a null pointer
     assert captured[2][7] is None and captured[2][8] == dk.data_ptr()
 

@@ -19,6 +19,7 @@ import types
 import pytest
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops import flash_attention as fa
 
 BATCH = 2
@@ -129,12 +130,13 @@ def _as_call(args):
 @pytest.mark.parametrize("n_q,n_k,embed,heads", [(129, 129, 768, 12), (2305, 768, 512, 16), (1, 1, 768, 12)])
 def test_packed_and_per_head_entries_make_the_same_call_for_the_same_memory(captured, n_q, n_k, embed, heads):
     q, k, v, _ = _packed(n_q, n_k, embed)
-    before = (fa.flash_attention_packed.launches, fa.flash_attention.launches)
+    fwd = ("attention.packed.launches", "attention.heads.launches")
+    before = tuple(map(trace.counter, fwd))
     out, lse = fa.flash_attention_packed_forward(q, k, v, heads, save_lse=False)
-    assert (fa.flash_attention_packed.launches, fa.flash_attention.launches) == (before[0] + 1, before[1])
+    assert tuple(map(trace.counter, fwd)) == (before[0] + 1, before[1])
     per_head = [x.view(*x.shape[:2], heads, embed // heads) for x in (q, k, v)]
     out_h, lse_h = fa.flash_attention_forward(*per_head, save_lse=False)
-    assert (fa.flash_attention_packed.launches, fa.flash_attention.launches) == (before[0] + 1, before[1] + 1)
+    assert tuple(map(trace.counter, fwd)) == (before[0] + 1, before[1] + 1)
     assert len(captured) == 2 and _as_call(captured[0]) == _as_call(captured[1])
     assert captured[0][:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     assert captured[1][3] == out_h.data_ptr()

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops import flash_attention as fa
 
 
@@ -29,10 +30,11 @@ def test_per_head_kernels_agree_with_their_plain_versions(card, dtype, atol):
     kv = torch.from_numpy(rng.normal(size=(2, 77, 256)).astype(np.float32)).to(card, dtype).requires_grad_()
     g = torch.from_numpy(rng.normal(size=(2, 130, 2, 64)).astype(np.float32)).to(card, dtype)
     v = fa.split_kv(kv, 2)[1]
-    before = (fa.flash_attention.launches, fa.flash_attention.bwd_launches)
+    heads = ("attention.heads.launches", "attention.heads.bwd_launches")
+    before = tuple(map(trace.counter, heads))
     out = fa.flash_attention(q, k, v)
     got = torch.autograd.grad(out, (q, k, kv), g)
-    assert (fa.flash_attention.launches, fa.flash_attention.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert tuple(map(trace.counter, heads)) == (before[0] + 1, before[1] + 1)
     want_out = fa.flash_attention_plain(q, k, v)
     torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=0)
     want = fa.flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), want_out.detach(), g)
@@ -59,10 +61,10 @@ def test_packed_backward_at_a_ragged_shape_agrees_with_its_plain_version(card, d
     q = torch.from_numpy(rng.normal(size=(2, 129, 512)).astype(np.float32)).to(card, dtype).requires_grad_()
     kv = torch.from_numpy(rng.normal(size=(2, 200, 1024)).astype(np.float32)).to(card, dtype).requires_grad_()
     g = torch.from_numpy(rng.normal(size=(2, 129, 512)).astype(np.float32)).to(card, dtype)
-    before = fa.flash_attention_packed.bwd_launches
+    before = trace.counter("attention.packed.bwd_launches")
     out = fa.flash_attention_packed_kv(q, kv, 16)
     dq, dkv = torch.autograd.grad(out, (q, kv), g)
-    assert fa.flash_attention_packed.bwd_launches == before + 1
+    assert trace.counter("attention.packed.bwd_launches") == before + 1
     want = fa.flash_attention_packed_bwd_plain(q.detach(), kv[..., :512].detach(), kv[..., 512:].detach(),
                                                out.detach(), g, 16)
     torch.testing.assert_close(dq.float(), want[0].float(), atol=atol, rtol=0)
@@ -86,19 +88,19 @@ def test_forward_at_a_ragged_cross_shape_agrees_with_its_plain_version(card, dty
     if layout == "packed":
         q, kv = tensor(2, 129, 512), tensor(2, 200, 1024)
         k, v = kv[..., :512], kv[..., 512:]
-        counter = fa.flash_attention_packed
-        before = counter.launches
+        counter = "attention.packed.launches"
+        before = trace.counter(counter)
         out = fa.flash_attention_packed(q, k, v, 16)
         out_lse, lse = fa.flash_attention_packed_forward(q, k, v, 16, save_lse=True)
         want, want_lse = fa.flash_attention_packed_plain(q, k, v, 16), fa.flash_attention_packed_lse_plain(q, k, 16)
     else:
         q, k, v = (tensor(2, 12, n, 64).transpose(1, 2) for n in (130, 77, 77))
-        counter = fa.flash_attention
-        before = counter.launches
+        counter = "attention.heads.launches"
+        before = trace.counter(counter)
         out = fa.flash_attention(q, k, v)
         out_lse, lse = fa.flash_attention_forward(q, k, v, save_lse=True)
         want, want_lse = fa.flash_attention_plain(q, k, v), fa.flash_attention_lse_plain(q, k)
-    assert counter.launches == before + 2
+    assert trace.counter(counter) == before + 2
     torch.testing.assert_close(out.float(), want.float(), atol=atol, rtol=0)
     assert torch.equal(out, out_lse)
     torch.testing.assert_close(lse, want_lse, atol=1e-3, rtol=0)
@@ -151,11 +153,11 @@ def test_packed_kernels_at_the_emidec_and_myops_token_counts_agree_with_their_pl
     q = torch.from_numpy(rng.normal(size=(4, n_tokens, 768)).astype(np.float32)).to(card, dtype).requires_grad_()
     kv = torch.from_numpy(rng.normal(size=(4, n_tokens, 1536)).astype(np.float32)).to(card, dtype).requires_grad_()
     g = torch.from_numpy(rng.normal(size=(4, n_tokens, 768)).astype(np.float32)).to(card, dtype)
-    before = (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches)
+    packed = ("attention.packed.launches", "attention.packed.bwd_launches")
+    before = tuple(map(trace.counter, packed))
     out = fa.flash_attention_packed_kv(q, kv, 12)
     dq, dkv = torch.autograd.grad(out, (q, kv), g)
-    assert (fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches) == (before[0] + 1,
-                                                                                          before[1] + 1)
+    assert tuple(map(trace.counter, packed)) == (before[0] + 1, before[1] + 1)
     k, v = kv[..., :768].detach(), kv[..., 768:].detach()
     want_out = fa.flash_attention_packed_plain(q.detach(), k, v, 12)
     torch.testing.assert_close(out.float(), want_out.float(), atol=atol, rtol=0)
@@ -187,12 +189,13 @@ def _step_on_the_cpu_and_the_card(card, build, loss_fn, batch, zero_grad: str = 
             grads.append([g.cpu() for g in torch.autograd.grad(loss_fn(fresh, device_batch)[0],
                                                                 list(fresh.parameters()))])
             model = init_weights(build(), seed=2).to(device)
-            fa.flash_attention_packed.launches = fa.flash_attention_packed.bwd_launches = 0
+            trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
             tx = build_optimizer(dict(model.named_parameters()), lr=1e-3)
             step_fn = make_supervised_train_step(model, tx, loss_fn)
             _, metrics = step_fn(TrainState.create(model, tx), device_batch)
             results.append((float(metrics["loss"]), float(metrics["grad_norm"])))
-            launches.append((fa.flash_attention_packed.launches, fa.flash_attention_packed.bwd_launches))
+            launches.append((trace.counter("attention.packed.launches"),
+                             trace.counter("attention.packed.bwd_launches")))
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     assert launches[0] == (0, 0)

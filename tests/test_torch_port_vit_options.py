@@ -20,6 +20,7 @@ import torch
 from cinema_tpu_torch.convert import state_dict_from_jax
 from cinema_tpu_torch.models import layers as port_layers
 from cinema_tpu_torch.models import vit as port_vit
+from cinema_tpu_torch import trace
 from cinema_tpu_torch.ops import flash_attention as fa
 from cinema_tpu_torch.ops import rotary as port_rotary
 from cinema_tpu_torch.ops.attention import dot_product_attention
@@ -119,9 +120,9 @@ def test_attention_per_head_path_matches_jax(qk_norm, rotary):
 
     attn = _load(port_vit.Attention(64, 2, qk_norm=qk_norm, rotary=rotary), params)
     assert qk_norm == any("q_norm" in k for k in attn.state_dict())
-    launches = fa.flash_attention.launches
+    launches = trace.counter("attention.heads.launches")
     out = attn(torch.from_numpy(x))
-    assert "HeadsAttention" in str(_grad_fn_names(out)) and fa.flash_attention.launches == launches
+    assert "HeadsAttention" in str(_grad_fn_names(out)) and trace.counter("attention.heads.launches") == launches
     np.testing.assert_allclose(out.detach().numpy(), want_out, atol=ATOL, rtol=0)
     (out * torch.from_numpy(w)).sum().backward()
     _assert_grads_close(attn, want_grads)
