@@ -29,7 +29,12 @@ card:
    and device alone) and the card's lower bound (f32, forward and backward:
    three TF32 passes on the tensor cores, and ``bound_simt_ms``, one f32 pass
    on the CUDA cores); each backward also with its passes apart (dk/dv, dq,
-   delta);
+   delta); then the stems' depthwise 5^nd convolution (forward, data
+   gradient, weight gradient) against its plain versions in f32 at the
+   fine-tuning, serving and pretraining shapes (SAX as the sparse stem's
+   strided view, LAX 2-D, f32), with the same times, cuDNN's as the library
+   call and the CUDA cores' f32 rate or the bytes as the bound, and the weight
+   gradient bit-identical over two calls;
 4. serving: ConvUNetR-base from the packaged ACDC config with seeded random
    weights serves a 50-frame 192x192x16 SAX cine in chunks of 8 and one
    192x192x24 study by sliding window, in bf16; the launch counts of the
@@ -218,6 +223,11 @@ and through the plain attention, and its backward launches are counted apart
 from its path's (the ``f32_steps`` line; ``f32_step_launches`` in the
 kernels line): only those steps run the f32 backward.
 
+The depthwise kernels' calls are counted on every path: serving, one forward
+each depthwise convolution of a chunk; the timed steps of phases 5 to 11, one
+forward, data gradient and weight gradient each depthwise convolution of a
+step; the other paths' sums go to the kernels line.
+
 Any failed check exits non-zero. The last two lines of stdout are the
 kernels JSON line and ``{"ok": true, "device": {...}}``.
 
@@ -237,6 +247,7 @@ import argparse
 import contextlib
 import csv
 import json
+import math
 import os
 import statistics
 import struct
@@ -367,6 +378,126 @@ def flop_s(flop: float, dtype: torch.dtype, simt: bool = False) -> float:
     if dtype == torch.float32 and not simt:
         return F32_PASSES * flop / PEAK_TF32
     return flop / PEAK_FLOPS[dtype]
+
+
+# The depthwise 5^nd convolution of the conv stems at the main paths' shapes: (label, (batch, chans, *spatial),
+# memory layout, passes). ConvUNetR-base fine-tuning (batch 4) and serving (a chunk of 8) at both SAX stem
+# levels, channels_last; CineMA-base pretraining (batch 16), SAX as the sparse stem's densified image hands it
+# over ((batch, z, x, y, chans) in memory) and LAX channels_last; f32 as the f32 evaluation and check steps
+# run it
+DEPTHWISE_SHAPES = (
+    ("finetune", (4, 64, 48, 48, 16), "channels_last", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("finetune", (4, 128, 24, 24, 16), "channels_last", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("serve", (8, 64, 48, 48, 16), "channels_last", torch.bfloat16, ("fwd",)),
+    ("serve", (8, 128, 24, 24, 16), "channels_last", torch.bfloat16, ("fwd",)),
+    ("pretrain_sax", (16, 64, 48, 48, 16), "densified", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("pretrain_sax", (16, 128, 24, 24, 16), "densified", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("pretrain_lax", (16, 64, 64, 64), "channels_last", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("pretrain_lax", (16, 128, 32, 32), "channels_last", torch.bfloat16, ("fwd", "dgrad", "wgrad")),
+    ("f32", (4, 64, 48, 48, 16), "channels_last", torch.float32, ("fwd", "dgrad", "wgrad")),
+    ("f32", (4, 64, 64, 64), "channels_last", torch.float32, ("fwd", "dgrad", "wgrad")),
+)
+# kernel against the plain version in f32 from the same inputs (cuDNN, TF32 off), largest error relative to the
+# largest reference entry: the bf16 forward and data gradient round each output once (half an ulp, 2^-9), so
+# 2^-8 leaves room for the f32 sums' order; a skipped tap moves outputs by ~1/sqrt(125) of their scale. The f32
+# ones and the weight gradient (f32 out; sums of up to 16 * 48 * 48 * 16 terms, in another order) 1e-5 and 1e-4
+DEPTHWISE_REL = {torch.bfloat16: 2.0**-8, torch.float32: 1e-5}
+DEPTHWISE_WGRAD_REL = 1e-4
+
+
+DEPTHWISE_COUNTERS = ("depthwise.launches", "depthwise.dgrad_launches", "depthwise.wgrad_launches")
+
+
+def depthwise_blocks(model) -> int:
+    """The model's depthwise convolutions (MaskedConvBlock.dw_conv), over every view's stem."""
+    from cinema_tpu_torch.models.layers import DepthwiseConv2d, DepthwiseConv3d
+
+    return sum(isinstance(m, (DepthwiseConv2d, DepthwiseConv3d)) for m in model.modules())
+
+
+def _depthwise_operand(shape: tuple, layout: str, dtype: torch.dtype, gen: torch.Generator) -> torch.Tensor:
+    x = torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    if layout == "densified":  # (batch, z, x, y, chans) in memory
+        return x.permute(0, 4, 2, 3, 1).contiguous().permute(0, 4, 2, 3, 1)
+    return x.contiguous(memory_format=torch.channels_last_3d if x.ndim == 5 else torch.channels_last)
+
+
+def depthwise_bound_ms(shape: tuple, dtype: torch.dtype) -> tuple[float, str]:
+    """The card's least time for one pass: 125 (or 25) FMAs an output on the CUDA cores' f32 rate, or two
+    tensors of ``shape`` (in and out; the weight gradient's x and g) moved once at 3.35 TB/s, whichever is
+    larger."""
+    numel = math.prod(shape)
+    taps = 5 ** (len(shape) - 2)
+    simt_ms = 2 * taps * numel / PEAK_FLOPS[torch.float32] * 1e3
+    bytes_ms = 2 * numel * torch.finfo(dtype).bits / 8 / PEAK_BYTES * 1e3
+    return (simt_ms, "simt") if simt_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
+def check_depthwise_shapes(gen: torch.Generator) -> dict[str, list[dict]]:
+    """The depthwise kernels (forward, data gradient, weight gradient) against their plain versions at the main
+    paths' shapes, with each one's device time, bound and share, the plain version's time and, as a yardstick
+    the port never calls, cuDNN's (``library_ms``: F.conv{2,3}d and its two gradients). The weight gradient is
+    also called twice and must be bit-identical."""
+    from torch.nn import functional as F
+
+    from cinema_tpu_torch import trace
+    from cinema_tpu_torch.ops import depthwise_conv as dc
+
+    rows: dict[str, list[dict]] = {"fwd": [], "dgrad": [], "wgrad": []}
+    for label, shape, layout, dtype, passes in DEPTHWISE_SHAPES:
+        nd, chans = len(shape) - 2, shape[1]
+        x, g = (_depthwise_operand(shape, layout, dtype, gen) for _ in range(2))
+        w = torch.randn((chans, 1, *(5,) * nd), generator=gen, device="cuda") * 0.2
+        b = torch.randn((chans,), generator=gen, device="cuda")
+        wd, bd = w.to(dtype), b.to(dtype)
+        conv = F.conv2d if nd == 2 else F.conv3d
+        common = {"label": label, "shape": list(shape), "layout": layout, "dtype": str(dtype).split(".")[-1]}
+
+        def library_bwd(mask):
+            return lambda: torch.ops.aten.convolution_backward(g, x, wd, None, [1] * nd, [2] * nd, [1] * nd, False,
+                                                               [0] * nd, chans, mask)
+
+        # pass -> (kernel, plain version on the same operands, plain version in f32 as the reference, cuDNN)
+        calls = {
+            "fwd": (lambda: dc.depthwise_conv_forward(x, w, b), lambda: dc.depthwise_conv_plain(x, w, b),
+                    lambda: dc.depthwise_conv_plain(x.float(), wd.float(), bd.float()),
+                    lambda: conv(x, wd, bd, padding=2, groups=chans)),
+            "dgrad": (lambda: dc.depthwise_conv_dgrad(g, w), lambda: dc.depthwise_conv_dgrad_plain(g, w),
+                      lambda: dc.depthwise_conv_dgrad_plain(g.float(), wd.float()), library_bwd([True, False, False])),
+            "wgrad": (lambda: dc.depthwise_conv_wgrad(x, g), lambda: dc.depthwise_conv_wgrad_plain(x, g),
+                      lambda: dc.depthwise_conv_wgrad_plain(x.float(), g.float()), library_bwd([False, True, True])),
+        }
+        for name in passes:
+            kernel, plain, reference, library = calls[name]
+            counter = DEPTHWISE_COUNTERS[("fwd", "dgrad", "wgrad").index(name)]
+            before = trace.counter(counter)
+            got = kernel()
+            got = got if isinstance(got, tuple) else (got,)
+            if name == "wgrad":
+                check(all(torch.equal(a, c) for a, c in zip(got, kernel())),
+                      f"the depthwise weight gradient at {shape} differs between two calls")
+            launches = trace.counter(counter) - before
+            check(launches == (2 if name == "wgrad" else 1), f"depthwise {name} counted {launches} calls")
+            want = reference()
+            want = want if isinstance(want, tuple) else (want,)
+            abs_errs = [(a.float() - c).abs().max().item() for a, c in zip(got, want)]
+            errs = [e / c.abs().max().item() for e, c in zip(abs_errs, want)]
+            gate = DEPTHWISE_WGRAD_REL if name == "wgrad" else DEPTHWISE_REL[dtype]
+            row = {**common, "max_abs_err": max(abs_errs), "rel_errs": errs, "rel_gate": gate}
+            check(all(e <= gate for e in errs), f"depthwise {name} at {shape} {dtype} differs by {errs} (gate {gate})")
+            row["ms"] = median_ms(kernel)
+            row["device_ms"] = device_ms(kernel)
+            row["plain_ms"] = median_ms(plain, reps=3, warmup=1)
+            row["library_ms"] = median_ms(library)
+            # cuDNN's gradients take tens of ms of host time a call: fewer calls, so the device's sleep
+            # outlasts their enqueueing
+            row["library_device_ms"] = device_ms(library, n=5)
+            row["bound_ms"], row["bound_by"] = depthwise_bound_ms(shape, dtype)
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            row["device_bound_share"] = row["bound_ms"] / row["device_ms"]
+            rows[name].append(row)
+            print(f"depthwise_{name}", json.dumps(row), flush=True)
+    return rows
 
 
 def attention_bound_ms(batch: int, n_q: int, n_k: int, embed: int, dtype: torch.dtype,
@@ -773,7 +904,7 @@ def serve_from_yaml(model, rng: torch.Generator, smi: str) -> dict:
     return out
 
 
-def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> int:
+def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> tuple[int, int]:
     """ConvUNetR-base serving at full width; returns the forward launches of the serving run."""
     from cinema_tpu_torch.config import PACKAGED, from_dict
     from cinema_tpu_torch.factory import get_convunetr_model, init_weights
@@ -792,7 +923,7 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    trace.reset("attention.packed.launches")
+    trace.reset("attention.packed.launches", "depthwise.launches")
     t0 = time.perf_counter()
     labels = segment_cine(model, video, chunk)
     serve_s = time.perf_counter() - t0
@@ -802,6 +933,11 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
     print(f"serve: {n_frames} frames of {(x, y, z)}, {serve_launches} kernel launches "
           f"(expected {expected})", flush=True)
     check(serve_launches == expected, f"serving launched the kernel {serve_launches} times, expected {expected}")
+    # the SAX stem's depthwise convolutions: two levels of two blocks, one forward launch each a chunk
+    dw_expected = depthwise_blocks(model) * n_chunks
+    counted = trace.counter("depthwise.launches")
+    check(depthwise_blocks(model) == 4 and counted == dw_expected,
+          f"serving launched the depthwise kernel {counted} times, expected {dw_expected}")
     check(labels.shape == video.shape and labels.dtype.name == "uint8", f"labels {labels.shape} {labels.dtype}")
     check(int(labels.max()) < config.model.out_chans, "labels out of range")
     repeats = []
@@ -811,7 +947,8 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
         repeats.append(time.perf_counter() - t0)
     study_s = statistics.median([serve_s, *repeats])
     report["serve"] = {
-        "frames": n_frames, "chunk": chunk, "launches": serve_launches, "seconds": [serve_s, *repeats],
+        "frames": n_frames, "chunk": chunk, "launches": serve_launches, "depthwise_launches": counted,
+        "seconds": [serve_s, *repeats],
         "ms_per_study": study_s * 1e3, "frames_per_s": n_frames / study_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -856,7 +993,7 @@ def serve_phase(report: dict, smi: str, rng: torch.Generator, profile: bool) -> 
                 "profile", lambda: model.predict_labels({"sax": frames.to(torch.bfloat16)}), smi
             )
     report["serve_yaml"] = serve_from_yaml(model, rng, smi)
-    return serve_launches
+    return serve_launches, counted
 
 
 # UKB cines hold 50 frames; 10 keep the writing of the synthetic studies short, and a frame seek reads one
@@ -894,9 +1031,10 @@ def write_ukb_studies(data_dir: Path, n: int, sizes: dict, n_frames: int, seed: 
         return list(pool.map(write, range(n)))
 
 
-def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
+def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int, list[int]]:
     """CineMA-base MAE pretraining at full width on synthetic UKB studies; returns the (forward, backward)
-    launches of the path: ``pretrain.run``, the steps fed through ``device_prefetch`` and the timed steps."""
+    launches of the path: ``pretrain.run``, the steps fed through ``device_prefetch`` and the timed steps, and
+    the depthwise kernels' (forward, data gradient, weight gradient) calls in the timed steps."""
     import copy
     import itertools
 
@@ -1088,7 +1226,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: v.clone() for k, v in model.state_dict().items()}
-    trace.reset("attention.packed.launches", "attention.packed.bwd_launches")
+    trace.reset("attention.packed.launches", "attention.packed.bwd_launches", *DEPTHWISE_COUNTERS)
     losses, skipped, seconds = [], [], []
     for i in range(n_timed):
         t0 = time.perf_counter()
@@ -1100,6 +1238,11 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     fwd, bwd = read_launches()
     check(fwd == n_blocks * n_timed and bwd == n_blocks * n_timed,
           f"{n_timed} train steps launched {fwd} forward and {bwd} backward kernels, expected {n_blocks} each per step")
+    # the four views' stems: two levels of two blocks each, one call of each depthwise kernel a block and step
+    dw_blocks = depthwise_blocks(model)
+    dw = [trace.counter(name) for name in DEPTHWISE_COUNTERS]
+    check(dw_blocks == 4 * len(views) and dw == [dw_blocks * n_timed] * 3,
+          f"{n_timed} train steps called the depthwise kernels {dw} times, expected {dw_blocks * n_timed} each")
     check(all(x == x and abs(x) < 1e4 for x in losses), f"losses not finite: {losses}")
     check(sum(skipped) == 0, f"steps skipped: {skipped}")
     done = done_before + n_timed
@@ -1111,7 +1254,8 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
           "in place")
     step_s = statistics.median(seconds)
     report["train"] = {
-        "batch": batch_size, "steps": n_timed, "launches_fwd": fwd, "launches_bwd": bwd, "losses": losses,
+        "batch": batch_size, "steps": n_timed, "launches_fwd": fwd, "launches_bwd": bwd, "depthwise_launches": dw,
+        "losses": losses,
         "seconds": seconds, "ms_per_step": step_s * 1e3, "clips_per_s": batch_size / step_s,
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -1168,7 +1312,7 @@ def train_phase(report: dict, smi: str, profile: bool) -> tuple[int, int]:
     check(worst <= TRAIN_GRAD_RTOL, f"f32 gradients through the kernels differ by {worst} of a parameter's largest")
     report["train_phase"] = {"launches": path_launches, "phase_s": time.perf_counter() - t_phase}
     print("train_phase", json.dumps(report["train_phase"]), f"on {smi}", flush=True)
-    return path_launches[0], path_launches[1]
+    return path_launches[0], path_launches[1], dw
 
 
 def write_metadata(path: Path, rows: list[dict]) -> None:
@@ -1227,26 +1371,31 @@ def check_nan_batch(label: str, launches, model, state, step_fn, batch: dict, im
 
 
 class Launches:
-    """The launch counters of the packed and the per-head kernels: ``reset`` sets them to 0, ``read``
-    returns (packed fwd, packed bwd, per-head fwd, per-head bwd) and adds them to ``totals``, a path's sum."""
+    """The launch counters of the packed and the per-head attention kernels and of the depthwise kernels:
+    ``reset`` sets them to 0, ``read`` returns the attention's (packed fwd, packed bwd, per-head fwd, per-head
+    bwd), keeps the depthwise (forward, data gradient, weight gradient) calls as ``depthwise`` and adds both to
+    ``totals``, a path's sum."""
 
     COUNTERS = ("attention.packed.launches", "attention.packed.bwd_launches", "attention.heads.launches",
                 "attention.heads.bwd_launches")
 
     def __init__(self) -> None:
-        self.totals = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0}
+        self.totals = {"packed_fwd": 0, "packed_bwd": 0, "heads_fwd": 0, "heads_bwd": 0,
+                       "depthwise_fwd": 0, "depthwise_dgrad": 0, "depthwise_wgrad": 0}
+        self.depthwise = (0, 0, 0)
 
     @staticmethod
     def reset() -> None:
         from cinema_tpu_torch import trace
 
-        trace.reset(*Launches.COUNTERS)
+        trace.reset(*Launches.COUNTERS, *DEPTHWISE_COUNTERS)
 
     def read(self) -> tuple:
         from cinema_tpu_torch import trace
 
         got = tuple(map(trace.counter, self.COUNTERS))
-        for key, n in zip(self.totals, got):
+        self.depthwise = tuple(map(trace.counter, DEPTHWISE_COUNTERS))
+        for key, n in zip(self.totals, got + self.depthwise):
             self.totals[key] += n
         return got
 
@@ -1277,12 +1426,18 @@ def supervised_step(config, model, loss_fn) -> tuple:
 def timed_steps(launches: Launches, smi: str, label: str, model, state, step_fn, batches: list, n: int,
                 expected: tuple, may_stay: frozenset = frozenset()) -> dict:
     """One warm-up and ``n`` timed steps (host clock to ``torch.cuda.synchronize()``) with their launches
-    (``expected`` per step), losses, skips and peak memory checked; every parameter but those of
-    ``may_stay`` must move. ``state`` advances in place."""
+    (``expected`` per step; each depthwise convolution's call one launch of each depthwise kernel), losses,
+    skips and peak memory checked; every parameter but those of ``may_stay`` must move. ``state`` advances in
+    place."""
+    from cinema_tpu_torch.models.layers import DepthwiseConv2d, DepthwiseConv3d
+
     state, _ = step_fn(state, batches[0])  # warm-up
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     before = {k: v.clone() for k, v in model.state_dict().items()}
+    dw_calls = []
+    hooks = [m.register_forward_hook(lambda *_: dw_calls.append(1)) for m in model.modules()
+             if isinstance(m, (DepthwiseConv2d, DepthwiseConv3d))]
     launches.reset()
     losses, skipped, seconds = [], [], []
     for i in range(n):
@@ -1293,16 +1448,22 @@ def timed_steps(launches: Launches, smi: str, label: str, model, state, step_fn,
         losses.append(float(metrics["loss"]))
         skipped.append(float(metrics["skipped_nan"]))
     got = launches.read()
+    for hook in hooks:
+        hook.remove()
     check(got == tuple(n * x for x in expected),
           f"{n} {label} steps launched (packed fwd, packed bwd, per-head fwd, per-head bwd) = {got}, "
           f"expected {expected} per step")
+    check(len(dw_calls) == n * len(hooks) and launches.depthwise == (len(dw_calls),) * 3,
+          f"{n} {label} steps called the {len(hooks)} depthwise convolutions {len(dw_calls)} times and launched "
+          f"the depthwise (forward, data gradient, weight gradient) kernels {launches.depthwise} times")
     check(all(x == x and abs(x) < 1e4 for x in losses), f"{label} losses not finite: {losses}")
     check(sum(skipped) == 0, f"{label} steps skipped: {skipped}")
     still = {k for k, v in model.state_dict().items() if torch.equal(before[k], v)}
     check(still <= may_stay, f"parameters {sorted(still)} did not move in the {label} steps")
     step_s = statistics.median(seconds)
     batch_size = batches[0][next(k for k in batches[0] if k.endswith("_image"))].shape[0]
-    row = {"batch": batch_size, "steps": n, "launches": dict(zip(launches.totals, got)), "losses": losses,
+    row = {"batch": batch_size, "steps": n, "launches": dict(zip(launches.totals, got + launches.depthwise)),
+           "losses": losses,
            "seconds": seconds, "ms_per_step": step_s * 1e3, "samples_per_s": batch_size / step_s,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     print(label, json.dumps(row), f"on {smi}", flush=True)
@@ -4633,13 +4794,15 @@ def main() -> None:
     heads_fwd_rows, heads_bwd_rows = check_heads_shapes(gen)
     report["heads_attention"], report["heads_attention_bwd"] = heads_fwd_rows, heads_bwd_rows
     report["kv_gradient"] = check_kv_gradient(gen)
+    dw_rows = check_depthwise_shapes(gen)
+    report["depthwise"] = dw_rows
     report["kernels_s"] = time.perf_counter() - t0
     print(f"kernels checked and timed in {report['kernels_s']:.1f} s", flush=True)
 
     # 4. to 15. the paths at full width, launch counts set to 0 before each and read after
     t0 = time.perf_counter()
-    serve_launches = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
-    train_fwd, train_bwd = train_phase(report, smi, args.profile)
+    serve_launches, serve_dw = serve_phase(report, smi, torch.Generator().manual_seed(1), args.profile)
+    train_fwd, train_bwd, train_dw = train_phase(report, smi, args.profile)
     tune = finetune_phase(report, smi, args.profile)
     seg = segmentation_phase(report, smi, args.profile)
     lmk = landmark_phase(report, smi, args.profile)
@@ -4683,6 +4846,16 @@ def main() -> None:
                    "cinema_tpu/ops/pallas/flash_attention.py:285", tune["heads_bwd"],
                    {"finetune": tune["heads_bwd"]}, heads_bwd_rows),
     ]
+    dw_src = "cinema_tpu_torch/csrc/depthwise_conv.cu"
+    dw_replaces = "none: cuDNN's depthwise convolution (MaskedConvBlock.dw_conv)"
+    # serving runs the forward alone; the timed MAE steps and every path counted through Launches all three
+    dw_paths = {"finetune": tune, "segmentation": seg, "landmark": lmk, "mnms": mnms, "cine": cine,
+                "examples": examples, "preprocess": prep, "distribution": dist_launches, "last_slice": last}
+    for i, name in enumerate(("fwd", "dgrad", "wgrad")):
+        by_path = {"serve": serve_dw if i == 0 else 0, "train": train_dw[i],
+                   **{path: counts[f"depthwise_{name}"] for path, counts in dw_paths.items()}}
+        kernels.append(kernel_row(f"depthwise_conv_{name}", dw_src, dw_replaces, sum(by_path.values()), by_path,
+                                  dw_rows[name]))
     check(all(k["launches"] > 0 for k in kernels), "a kernel of the main paths was never launched")
     check(all(k["launches_by_path"]["landmark"] > 0 for k in kernels[:2]), "the landmark path launched no packed kernel")
     check(all(k["launches_by_path"]["mnms"] > 0 for k in kernels[:2]), "the M&Ms path launched no packed kernel")
@@ -4692,6 +4865,9 @@ def main() -> None:
     check(kernels[0]["launches_by_path"]["last_slice"] > 0, "the converted landmark PNG launched no packed forward")
     check(all(k["launches_by_path"][p] > 0 for k in kernels[:2] for p in ("distribution", "distribution_rank0")),
           "the distribution phase launched no packed kernel")
+    check(all(k["launches_by_path"][p] > 0 for k in kernels[4:]
+              for p in ("train", "finetune", "segmentation", "landmark", "mnms", "cine")),
+          "a training path ran its conv stems without one of the depthwise kernels")
     # the f32 backward (split TF32) runs in the f32 check steps only: its launches there, apart
     f32_bwd = {key: sum(step[key] for step in F32_STEPS.values()) for key in ("packed_bwd", "heads_bwd")}
     report["f32_steps"] = {"steps": F32_STEPS, **f32_bwd}

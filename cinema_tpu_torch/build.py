@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "flash_attention_fwd": "flash_attention_fwd.cu",  # the forward of both layouts
     "flash_attention_bwd": "flash_attention_bwd.cu",  # the backward of both layouts
+    "depthwise_conv": "depthwise_conv.cu",  # the stems' depthwise 5^nd convolution, forward and gradients
 }
 # headers the sources include: hashed into every library's name
 HEADERS = ("flash_attention_common.cuh", "hopper.cuh", "tf32.cuh")

@@ -26,6 +26,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from cinema_tpu_torch.ops.depthwise_conv import depthwise_conv
+
 KernelSize = Union[int, Sequence[int]]
 
 gelu = F.gelu
@@ -144,6 +146,26 @@ def Conv(nd: int, in_chans: int, out_chans: int, kernel_size: KernelSize, **kwar
     return {2: Conv2d, 3: Conv3d}[nd](in_chans, out_chans, kernel_size, **kwargs)
 
 
+class _DepthwiseConv:
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return depthwise_conv(x, self.weight, self.bias, stride=self.stride, padding=self.padding,
+                              dilation=self.dilation, groups=self.groups)
+
+
+class DepthwiseConv2d(_DepthwiseConv, nn.Conv2d):
+    pass
+
+
+class DepthwiseConv3d(_DepthwiseConv, nn.Conv3d):
+    pass
+
+
+def DepthwiseConv(nd: int, chans: int) -> nn.Module:
+    """The 5^nd depthwise convolution ("same" padding) on the hand-written kernels (ops.depthwise_conv): the
+    parameters, their names and their initialisation are torch's Conv{2,3}d's."""
+    return {2: DepthwiseConv2d, 3: DepthwiseConv3d}[nd](chans, chans, 5, padding="same", groups=chans)
+
+
 def ConvTranspose(nd: int, in_chans: int, out_chans: int, kernel_size: Sequence[int]) -> nn.Module:
     """Upsampling transposed convolution with stride == kernel size."""
     kernel_size = tuple(kernel_size)
@@ -238,7 +260,7 @@ class MaskedConvBlock(nn.Module):
         super().__init__()
         self.norm1 = get_conv_norm(norm, chans)
         self.conv1 = Conv(nd, chans, chans, 1)
-        self.dw_conv = Conv(nd, chans, chans, 5, padding="same", groups=chans)
+        self.dw_conv = DepthwiseConv(nd, chans)
         self.conv2 = Conv(nd, chans, chans, 1)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = get_conv_norm(norm, chans)

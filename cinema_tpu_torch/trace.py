@@ -57,6 +57,9 @@ COUNTERS = (
     "attention.heads.launches",  # forward launches of the per-head attention kernel
     "attention.heads.bwd_launches",
     "attention.heads.grad_copies",
+    "depthwise.launches",  # forward launches of the depthwise 5^nd convolution kernel
+    "depthwise.dgrad_launches",  # its data-gradient launches (the forward's kernel, the filter flipped)
+    "depthwise.wgrad_launches",  # its weight-gradient calls (partials, then their sum)
 )
 
 _DECLARED = frozenset(SPANS)

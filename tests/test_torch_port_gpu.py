@@ -409,3 +409,115 @@ def test_a_nan_batch_leaves_the_resnet_running_statistics_on_the_card(card):
     assert float(metrics["skipped_nan"]) == 1.0
     assert all(torch.equal(a, b) for a, b in zip(snapshot, (*model.state_dict().values(), *state.opt_state.mu,
                                                             *state.opt_state.nu)))
+
+
+DEPTHWISE_COUNTERS = ("depthwise.launches", "depthwise.dgrad_launches", "depthwise.wgrad_launches")
+
+
+def _depthwise_inputs(shape, dtype, device, seed, layout="channels_last"):
+    rng = np.random.default_rng(seed)
+    nd = len(shape) - 2
+
+    def tensor(*s):
+        return torch.from_numpy(rng.normal(size=s).astype(np.float32))
+
+    x, g = tensor(*shape).to(device, dtype), tensor(*shape).to(device, dtype)
+    if layout == "densified":  # (batch, z, x, y, chans) in memory, as the sparse MAE stem hands it over
+        x = x.permute(0, 4, 2, 3, 1).contiguous().permute(0, 4, 2, 3, 1)
+    else:
+        x = x.contiguous(memory_format=torch.channels_last_3d if nd == 3 else torch.channels_last)
+    w = (tensor(shape[1], 1, *(5,) * nd) * 0.2).to(device)
+    b = tensor(shape[1]).to(device)
+    return x, g, w, b
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0**-8)])
+@pytest.mark.parametrize("shape,layout", [
+    ((2, 40, 9, 7, 18), "channels_last"), ((2, 64, 12, 8, 16), "densified"), ((3, 5, 7, 5, 1), "channels_last"),
+    ((2, 40, 19, 21), "channels_last"), ((2, 128, 32, 32), "channels_last"), ((1, 1, 6, 5), "channels_last"),
+])
+def test_depthwise_kernels_agree_with_their_plain_versions(card, dtype, rel, shape, layout):
+    """Forward, data gradient and weight gradient (with the bias gradient) of the depthwise op through autograd
+    on the card against the plain versions in f32 from the same inputs, 2-D and 3-D, at ragged tiles, channel
+    counts that are not a multiple of 32, one channel, z = 1, and the sparse stem's strided layout. Each
+    direction counts one kernel call; the gradients of weight and bias are f32."""
+    from cinema_tpu_torch.ops import depthwise_conv as dc
+
+    x, g, w, b = _depthwise_inputs(shape, dtype, card, seed=sum(shape))
+    x.requires_grad_()
+    w.requires_grad_()
+    b.requires_grad_()
+    before = tuple(map(trace.counter, DEPTHWISE_COUNTERS))
+    out = dc.depthwise_conv(x, w, b)
+    dx, dw, db = torch.autograd.grad(out, (x, w, b), g)
+    assert tuple(map(trace.counter, DEPTHWISE_COUNTERS)) == tuple(n + 1 for n in before)
+    assert out.dtype == dx.dtype == dtype and dw.dtype == db.dtype == torch.float32
+    wd = w.detach().to(dtype).float()
+    xf = x.detach().float()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        want = dc.depthwise_conv_plain(xf, wd, b.detach().to(dtype).float())
+        want_dx = dc.depthwise_conv_dgrad_plain(g.float(), wd)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    want_dw, want_db = dc.depthwise_conv_wgrad_plain(xf, g.float())
+    for got, ref, tol in ((out, want, rel), (dx, want_dx, rel), (dw, want_dw, 1e-5), (db, want_db, 1e-5)):
+        assert (got.float() - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(4, 64, 48, 48, 16), (16, 128, 32, 32)])
+def test_depthwise_weight_gradient_is_bit_identical_over_two_calls(card, shape):
+    """No atomics: the weight and bias gradients of two calls on the same inputs are equal bit for bit."""
+    from cinema_tpu_torch.ops import depthwise_conv as dc
+
+    x, g, _, _ = _depthwise_inputs(shape, torch.bfloat16, card, seed=11)
+    first, second = dc.depthwise_conv_wgrad(x, g), dc.depthwise_conv_wgrad(x, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid,cell", [((4, 4, 2), (4, 4, 8)), ((4, 4), (8, 8))])
+def test_masked_conv_block_on_the_sparse_path_equals_the_dense_one_on_the_card(card, grid, cell):
+    """A MaskedConvBlock in f32 on the card: its outputs at the visible cells and the gradients of its
+    parameters are the same on the sparse MAE path (the visible cells, densified around the depthwise
+    kernels) as on the dense path with the mask multiply."""
+    from cinema_tpu_torch.models.layers import MaskedConvBlock
+    from cinema_tpu_torch.ops.sparse_cells import CellDenseCtx, gather_cells, image_to_cells
+
+    torch.manual_seed(0)
+    nd, batch, chans = len(grid), 2, 32
+    block = MaskedConvBlock(nd, chans).to(card)
+    n_cells = int(np.prod(grid))
+    rng = np.random.default_rng(3)
+    keep = np.sort(np.stack([rng.permutation(n_cells)[: n_cells // 4] for _ in range(batch)]), axis=1)
+    keep_ids = torch.from_numpy(keep).to(card)
+    spatial = tuple(g * c for g, c in zip(grid, cell))
+    x = torch.randn((batch, chans, *spatial), device=card)
+    x = x.contiguous(memory_format=torch.channels_last_3d if nd == 3 else torch.channels_last)
+    visible = torch.zeros((batch, n_cells), dtype=torch.bool, device=card).scatter_(1, keep_ids, True)
+    mask = visible.reshape(batch, *grid)
+    for axis, c in enumerate(cell):
+        mask = mask.repeat_interleave(c, dim=axis + 1)
+
+    def cells(t):  # (batch, chans, *spatial) -> the visible cells (batch * k, chans, *cell)
+        return gather_cells(image_to_cells(t.movedim(1, -1), grid), keep_ids).flatten(0, 1).movedim(-1, 1)
+
+    r = torch.randn_like(cells(x))
+    params = list(block.parameters())
+    before = trace.counter("depthwise.launches")
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False  # the block's 1x1 convolutions in full f32 on both paths
+    try:
+        dense = cells(block(x, mask))
+        sparse = block(cells(x), None, dense_ctx=CellDenseCtx(grid_size=grid, keep_ids=keep_ids))
+        grads_dense = torch.autograd.grad((dense * r).sum(), params)
+        grads_sparse = torch.autograd.grad((sparse * r).sum(), params)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    assert trace.counter("depthwise.launches") == before + 2
+    torch.testing.assert_close(sparse, dense, rtol=1e-5, atol=1e-5)
+    for a, b in zip(grads_sparse, grads_dense):
+        assert (a - b).abs().max().item() <= 1e-5 * b.abs().max().item() + 1e-6
