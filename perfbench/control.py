@@ -42,7 +42,7 @@ def main(argv=None) -> int:
     seeds = [int(s) for s in args.seeds.split(",") if s]
     control_seeds = [int(s) for s in args.control_seeds.split(",") if s]
     kind = registry.workload(args.workload)["kind"]
-    planted = (faults.TRAIN if kind == "train_pool" else faults.SERVE) if args.faults else ()
+    planted = faults.BY_KIND[kind] if args.faults else ()
     runs = [("program", s, None) for s in seeds] + [("control", s, faults.CONTROL) for s in control_seeds]
     runs += [(f, s, f) for f in planted for s in control_seeds]
     readings = []

@@ -62,7 +62,7 @@ class Cell:
         device = {
             "platform": "gpu" if self.device.type == "cuda" else self.device.type,
             "kind": torch.cuda.get_device_name(self.device) if self.device.type == "cuda" else "cpu",
-            "count": 1,
+            "count": int(result.get("chips", 1)),
             "memory_peak_bytes": int(result["memory_peak_bytes"]),
         }
         out = {"correct": correct, "attempted": result["attempted"], "failed": result["failed"], "metrics": metrics, "device": device}

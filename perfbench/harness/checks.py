@@ -47,14 +47,15 @@ def kept_elements(ref: dict) -> Dict[str, torch.Tensor]:
 
 def _per_leaf(prog: dict, ref: dict) -> Dict[str, tuple]:
     keep = kept_elements(ref)
-    return {key: (kept_norms(prog[f"{key}_t"], keep), kept_norms(ref[f"{key}_t"], keep)) for key in ("change", "acc")}
+    return {key: (kept_norms(prog[f"{key}_t"], keep), kept_norms(ref[f"{key}_t"], keep))
+            for key in ("change", "acc") if f"{key}_t" in prog}
 
 
 def training_numbers(prog: dict, ref: dict) -> Dict[str, float]:
     """``loss_gap`` (worst call); ``grad_gap`` (first gradient), ``change_gap`` and ``acc_gap`` (kept
-    elements, where the reference moved or accumulated anything), each of the worst leaf and, as
-    ``*_gap_median``, of the median leaf; and ``moved_leaves``: leaves that one side changed and the
-    other did not."""
+    elements, where the reference moved or accumulated anything; ``acc_gap`` where the program
+    accumulates), each of the worst leaf and, as ``*_gap_median``, of the median leaf; and
+    ``moved_leaves``: leaves that one side changed and the other did not."""
     numbers = {"loss_gap": max(abs(p - r) / abs(r) for p, r in zip(prog["loss"], ref["loss"]))}
     per_leaf = _per_leaf(prog, ref)
     for key, (p, r) in {"grad": (prog["grad"], ref["grad"]), **per_leaf}.items():

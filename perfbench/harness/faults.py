@@ -3,7 +3,12 @@
 Train steps: ``state_unchanged`` (the step computes its loss but hands back the parameters, the
 optimizer's state and the counters as they were) and ``half_batch`` (half of the batch left out, the
 mean taken over the rest). Serving: ``altered_label`` (each study's first frame comes back with
-every label moved to the next class, where the labels are produced).
+every label moved to the next class, where the labels are produced). Data-parallel train steps,
+besides the train steps' faults on every rank: ``replica_drift`` (rank 1 scales its largest leaf's
+reduced gradient by 1 + 2^-8 before the update; every collective still runs, so the ranks' replicas
+part without a hang). ``rank_raises`` and ``rank_loads_jax`` are no faults of the results: rank 1
+raises before it joins the group, to show that a dead rank ends the run, or puts a module named
+``jax`` into its ``sys.modules``, to show that a rank's guard against the JAX package ends it too.
 
 ``CONTROL`` is planted by the drivers themselves, after the window: the plain reference computed
 with fp8 products (``reference.lowp.FP8``, the step below the configurations' bfloat16) takes the
@@ -20,7 +25,12 @@ import torch
 
 TRAIN = ("state_unchanged", "half_batch")
 SERVE = ("altered_label",)
+DDP = ("replica_drift",)
+# the faults that a cell of each kind of traffic can have
+BY_KIND = {"train_pool": TRAIN, "train_ddp": TRAIN + DDP, "serve_cine": SERVE}
 CONTROL = "fp8_control"
+RANK_RAISES = "rank_raises"
+RANK_LOADS_JAX = "rank_loads_jax"
 
 
 def wrap_step(fault: str, step_fn: Callable, model: torch.nn.Module) -> Callable:
@@ -46,6 +56,23 @@ def wrap_step(fault: str, step_fn: Callable, model: torch.nn.Module) -> Callable
             return state, metrics
         return unchanged
     raise ValueError(f"Unknown train-step fault {fault!r}.")
+
+
+def plant_ddp(fault: str, parallel, rank: int) -> None:
+    """Plants a data-parallel fault in this rank's ``parallel.mesh.Parallel``."""
+    if fault != "replica_drift":
+        raise ValueError(f"Unknown data-parallel fault {fault!r}.")
+    if rank != 1:
+        return
+    reduce = parallel.gradients
+
+    def drifted(loss, model):
+        grads = reduce(loss, model)
+        largest = max(range(len(grads)), key=lambda j: grads[j].numel())
+        grads[largest].mul_(1.0 + 2.0**-8)
+        return grads
+
+    parallel.gradients = drifted
 
 
 def wrap_serve(fault: str, serve_fn: Callable, n_classes: int) -> Callable:

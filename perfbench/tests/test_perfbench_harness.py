@@ -1,7 +1,7 @@
 """CPU tests of the benchmark: its files and their contract, the frozen arithmetic, the result line,
 the imports, and ``correct`` at a size the CPU holds (sound runs pass; the control and every planted
-fault fail). Run with ``python -m pytest perfbench/tests -q``; the test marked ``gpu`` runs the
-cells on the card and skips elsewhere."""
+fault fail; the data-parallel cell on two gloo ranks). Run with ``python -m pytest perfbench/tests
+-q``; the test marked ``gpu`` runs the cells on the card and skips elsewhere."""
 
 from __future__ import annotations
 
@@ -61,7 +61,10 @@ def test_benchmark_json_keeps_to_the_contract():
     assert len(set(cells)) == len(cells) and sorted(cells) == WORKLOADS
     for w in BENCH["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"} and w["config"] in names
-        assert w["chips"] == 1 and 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+        assert w["chips"] in (1, 4) and 1 <= len(w["why"]) <= 200 and NAME.match(w["traffic"])
+        # a cell takes the chips its configuration's ranks run on
+        assert w["chips"] == registry.config(w["config"]).get("n_devices", 1)
+    assert sum(w["chips"] == 4 for w in BENCH["workloads"]) <= max(1, len(cells) // 4)
     metrics = BENCH["end_to_end"] + BENCH["per_layer"]
     assert len({m["name"] for m in metrics}) == len(metrics)
     assert any(m["name"] == "setup_s" and m["bound"] <= 0.25 for m in BENCH["end_to_end"])
@@ -113,12 +116,14 @@ def test_attention_work_agrees_with_a_hand_count(name):
     cfg = registry.config(w["config"])
     if w["kind"] == "train_pool":
         calls = yardstick.attention_calls(cfg, w["step"], w["traffic"]["batch"], train=True)
+    elif w["kind"] == "train_ddp":  # one rank's rows
+        calls = yardstick.attention_calls(cfg, w["step"], w["traffic"]["batch"] // cfg["n_devices"], train=True)
     else:
         calls = yardstick.attention_calls(cfg, "segmentation", 8, train=False)
     if name.startswith("mae"):
         # 2304 SAX tokens and 3 x 256 LAX tokens at mask ratio 0.75: 576 + 3 x 64 kept, 1728 + 3 x 192 masked
         hand = 12 * _hand_attention_min_s(16, 769, 769, 768, True) + 8 * _hand_attention_min_s(16, 2305, 768, 512, True)
-    elif w["kind"] == "train_pool":
+    elif w["kind"].startswith("train"):
         hand = 12 * _hand_attention_min_s(4, 2305, 2305, 768, True)
     else:
         hand = 12 * _hand_attention_min_s(8, 2305, 2305, 768, False)
@@ -192,7 +197,7 @@ def test_the_result_line_has_the_keys_of_the_contract():
     assert out["correct"] is True and out["attempted"] >= 1 and out["failed"] == 0
     assert set(out["metrics"]) == {"clips_per_s", "setup_s"}
     assert all(set(v) == {"value", "unit"} and v["value"] > 0 for v in out["metrics"].values())
-    assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"}
+    assert set(out["device"]) == {"platform", "kind", "count", "memory_peak_bytes"} and out["device"]["count"] == 1
     limits = registry.workload("mae-pretrain-b16")["correct"]["limits"]
     assert set(out["checks"]) == set(limits) == {line.split()[0] for line in lines}
     json.dumps(out)
@@ -203,9 +208,7 @@ def test_a_sound_run_is_correct(name):
     assert tiny_cell(name).run(BENCH)["correct"] is True
 
 
-@pytest.mark.parametrize("name,fault", [(n, f) for n in WORKLOADS
-                                        for f in (faults.TRAIN if registry.workload(n)["kind"] == "train_pool"
-                                                  else faults.SERVE)])
+@pytest.mark.parametrize("name,fault", [(n, f) for n in WORKLOADS for f in faults.BY_KIND[registry.workload(n)["kind"]]])
 def test_every_planted_fault_makes_correct_false(name, fault):
     assert tiny_cell(name, fault=fault).run(BENCH)["correct"] is False
 
@@ -267,6 +270,9 @@ def card():
 @pytest.mark.gpu
 @pytest.mark.parametrize("name", WORKLOADS)
 def test_each_cell_runs_correct_on_the_card(card, name):
+    chips = next(w["chips"] for w in BENCH["workloads"] if w["name"] == name)
+    if torch.cuda.device_count() < chips:
+        pytest.skip(f"the cell needs {chips} CUDA devices")
     out = subprocess.run([sys.executable, "-m", "perfbench.run", "--workload", name, "--seed", "2147483659",
                           "--seconds", "3", "--trace", "1"], cwd=CHECKOUT, capture_output=True, text=True, timeout=900)
     assert out.returncode == 0, out.stderr[-4000:]
