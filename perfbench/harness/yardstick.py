@@ -26,7 +26,7 @@ AttentionCall = Tuple[int, int, int, int, bool]
 def attention_calls(cfg: dict, step: str, batch: int, train: bool) -> List[AttentionCall]:
     """The attention layers that one unit of ``step`` runs, at the configuration's shapes."""
     if step == "mae":
-        m, vit = cfg["model"], ref.VIT[cfg["model"]["size"]]
+        m, vit = cfg["model"], ref.vit_widths(cfg["model"])
         ratio = cfg["train"]["enc_mask_ratio"]
         keep = masked = 0
         for v in m["views"]:
@@ -40,7 +40,7 @@ def attention_calls(cfg: dict, step: str, batch: int, train: bool) -> List[Atten
         dec = [(batch, 1 + masked, keep, vit["dec_embed_dim"], train)] * vit["dec_depth"]
         return enc + dec
     m = cfg["model"]["convunetr"]
-    vit = ref.VIT[m["size"]]
+    vit = ref.vit_widths(m)
     eff = [p * s ** len(m["enc_conv_chans"]) for p, s in zip(m["enc_patch_size"], m["enc_scale_factor"])]
     n = math.prod(s // e for s, e in zip(cfg["data"]["sax"]["patch_size"], eff))
     return [(batch, 1 + n, 1 + n, vit["enc_embed_dim"], train)] * vit["enc_depth"]

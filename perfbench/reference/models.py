@@ -183,6 +183,23 @@ class ConvResBlock(nn.Module):
 # ---------------------------------------------------------------- ViT (cinema/vit.py)
 
 
+# The size presets (cinema/vit.py:784-831): the encoder's and the decoder's width, depth and heads.
+VIT = {
+    "tiny": dict(enc_embed_dim=16, enc_depth=1, enc_n_heads=2, dec_embed_dim=16, dec_depth=1, dec_n_heads=2),
+    "base": dict(enc_embed_dim=768, enc_depth=12, enc_n_heads=12, dec_embed_dim=512, dec_depth=8, dec_n_heads=16),
+    "large": dict(enc_embed_dim=1024, enc_depth=24, enc_n_heads=16, dec_embed_dim=512, dec_depth=8, dec_n_heads=16),
+    "huge": dict(enc_embed_dim=1280, enc_depth=32, enc_n_heads=16, dec_embed_dim=512, dec_depth=8, dec_n_heads=16),
+}
+
+
+def vit_widths(model: dict) -> Dict[str, int]:
+    """The preset that a configuration's model block (``model``, or ``model.convunetr``) names by its ``size``."""
+    size = model["size"]
+    if size not in VIT:
+        raise ValueError(f"The model size must be one of {list(VIT)}, got {size!r}.")
+    return VIT[size]
+
+
 def sincos_pos_embed(dim: int, grid_size: Sequence[int]) -> np.ndarray:
     """(prod(grid), dim) float32: per axis dim // n (floored to even) of sin | cos, the rest zeros;
     the position grid of np.meshgrid's default 'xy' indexing, as the published code builds it."""
@@ -389,7 +406,7 @@ def draw_masks(gen: torch.Generator, rows: int, n_patches: int, ratio: float, de
 class CineMA(nn.Module):
     def __init__(self, cfg: dict) -> None:
         super().__init__()
-        m, vit = cfg["model"], VIT[cfg["model"]["size"]]
+        m, vit = cfg["model"], vit_widths(cfg["model"])
         self.views = list(m["views"])
         self.images, self.dec_patch = {}, {}
         stems, fusions, heads, tokens = {}, {}, {}, {}
@@ -446,12 +463,6 @@ class CineMA(nn.Module):
 # ---------------------------------------------------------------- ConvUNetR (cinema/segmentation/convunetr.py)
 
 
-VIT = {
-    "tiny": dict(enc_embed_dim=16, enc_depth=1, enc_n_heads=2, dec_embed_dim=16, dec_depth=1, dec_n_heads=2),
-    "base": dict(enc_embed_dim=768, enc_depth=12, enc_n_heads=12, dec_embed_dim=512, dec_depth=8, dec_n_heads=16),
-}
-
-
 class UpDecoder(nn.Module):
     def __init__(self, nd: int, chans: Sequence[int], patch: Sequence[int], scale: Sequence[int],
                  dropout: float) -> None:
@@ -486,7 +497,7 @@ class ConvUNetR(nn.Module):
     def __init__(self, cfg: dict) -> None:
         super().__init__()
         m = cfg["model"]["convunetr"]
-        vit = VIT[m["size"]]
+        vit = vit_widths(m)
         data = cfg["data"]["sax"]
         nd, dim = 3, vit["enc_embed_dim"]
         dec, dec_patch, scale = list(m["dec_chans"]), tuple(m["dec_patch_size"]), tuple(m["dec_scale_factor"])

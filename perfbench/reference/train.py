@@ -34,7 +34,7 @@ def optimizer_settings(cfg: dict, step: str, n_batches: int, batch: int) -> dict
     }
     if step == "segmentation" and t.get("layer_decay") is not None:
         settings["layer_decay"] = float(t["layer_decay"])
-        settings["n_blocks"] = ref.VIT[cfg["model"]["convunetr"]["size"]]["enc_depth"]
+        settings["n_blocks"] = ref.vit_widths(cfg["model"]["convunetr"])["enc_depth"]
     return settings
 
 

@@ -6,6 +6,8 @@ fault fail; the data-parallel cell on two gloo ranks). Run with ``python -m pyte
 from __future__ import annotations
 
 import ast
+import copy
+import hashlib
 import json
 import math
 import re
@@ -17,7 +19,9 @@ from pathlib import Path
 import pytest
 import torch
 
-from perfbench.harness import faults, registry, trace, yardstick
+from perfbench.harness import faults, registry, trace, weights, yardstick
+from perfbench.reference import models as ref
+from perfbench.reference import train as ref_train
 from perfbench.run import FORBIDDEN
 from perfbench.tests.tiny import tiny_cell
 
@@ -26,6 +30,19 @@ CHECKOUT = registry.CHECKOUT
 BENCH = registry.benchmark()
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 WORKLOADS = registry.workload_names()
+# mae-pretrain-b16 on cinema-mae-base at the ViT-H/14 preset, which no cell runs yet: files that a later cell can drop in
+HUGE = "mae-pretrain-huge-b16"
+
+
+def _huge_config() -> dict:
+    cfg = copy.deepcopy(registry.config("cinema-mae-base"))
+    cfg["name"] = "cinema-mae-huge"
+    cfg["model"]["size"] = "huge"
+    return cfg
+
+
+def _huge_workload() -> dict:
+    return dict(registry.workload("mae-pretrain-b16"), config="cinema-mae-huge")
 
 
 # ---------------------------------------------------------------- files and contract
@@ -101,7 +118,82 @@ def test_a_dropped_in_cell_metric_and_kernel_class_are_found_without_an_edit(tmp
     assert all(p.read_bytes() == b for p, b in before.items())
 
 
+def test_a_dropped_in_configuration_at_another_vit_preset_needs_no_edit(tmp_path):
+    root = tmp_path / "perfbench"
+    shutil.copytree(ROOT, root, ignore=shutil.ignore_patterns("__pycache__"))
+    before = {p: p.read_bytes() for p in root.rglob("*") if p.is_file()}
+    (root / "configs" / "cinema-mae-huge.json").write_text(json.dumps(_huge_config()))
+    (root / "workloads" / f"{HUGE}.json").write_text(json.dumps(_huge_workload()))
+    assert HUGE in registry.workload_names(root)
+    w = registry.workload(HUGE, root)
+    cfg = registry.config(w["config"], root)
+    assert cfg["name"] == w["config"] and cfg["model"]["size"] == "huge"
+    batch, n_batches = w["traffic"]["batch"], w["traffic"]["n_batches"]
+    scheme = weights._scheme(weights.on_meta(w["step"], cfg))
+    assert ("encoder.blocks.31.mlp.fc1.weight", torch.Size([5120, 1280]), "uniform", math.sqrt(6.0 / 6400)) in scheme
+    assert yardstick.attention_calls(cfg, w["step"], batch, train=True) == (
+        [(16, 769, 769, 1280, True)] * 32 + [(16, 2305, 768, 512, True)] * 8)
+    assert yardstick.model_flop(cfg, w["step"], batch, train=True) > yardstick.model_flop(
+        registry.config("cinema-mae-base"), w["step"], batch, train=True)
+    assert ref_train.optimizer_settings(cfg, w["step"], n_batches, batch) == ref_train.optimizer_settings(
+        registry.config("cinema-mae-base"), w["step"], n_batches, batch)
+    after = {p for p in root.rglob("*") if p.is_file() and "__pycache__" not in p.parts}
+    assert after - set(before) == {root / "configs" / "cinema-mae-huge.json", root / "workloads" / f"{HUGE}.json"}
+    assert all(p.read_bytes() == b for p, b in before.items())
+
+
+@pytest.mark.parametrize("size", ["tiny", "base", "large", "huge"])
+def test_the_reference_s_vit_presets_are_the_program_s(size):
+    from cinema_tpu_torch.models.vit import get_vit_config
+
+    assert list(ref.VIT) == ["tiny", "base", "large", "huge"]
+    assert ref.vit_widths({"size": size}) == get_vit_config(size)
+
+
+def test_an_unknown_vit_size_is_refused_with_the_presets():
+    with pytest.raises(ValueError, match=r"\['tiny', 'base', 'large', 'huge'\], got 'giant'"):
+        ref.vit_widths({"size": "giant"})
+
+
 # ---------------------------------------------------------------- frozen arithmetic
+
+
+def _readings(name: str) -> dict:
+    """What a cell reads from the reference and the yardstick, as its driver asks for it: the weight scheme,
+    the attention calls of a unit and, in training, the update's settings."""
+    w = registry.workload(name)
+    cfg = registry.config(w["config"])
+    step = w.get("step", "segmentation")
+    if w["kind"] == "serve_cine":
+        rows, train, settings = 8, False, None
+    else:
+        rows, train = w["traffic"]["batch"] // cfg.get("n_devices", 1), True
+        settings = ref_train.optimizer_settings(cfg, step, w["traffic"]["n_batches"], w["traffic"]["batch"])
+    scheme = [(n, list(shape), kind, repr(float(scale))) for n, shape, kind, scale in weights._scheme(
+        weights.on_meta(step, cfg))]
+    return {"scheme": scheme, "calls": yardstick.attention_calls(cfg, step, rows, train), "settings": settings}
+
+
+# taken on the tree before the reference's table of presets held more than tiny and base
+FROZEN = {
+    "mae-pretrain-b16": "b161cb3edeeec476bec951479dfb1f8367f05f38962d430f0a441083b0c9fbf1",
+    "mae-pretrain-ddp4": "01d04b7aaece6e8217463adc9f28d3eb0f43fed7877711b1353e8a0bf0b0034d",
+    "seg-finetune-b4": "7562f98e5341fd76cac76f46b6f42baabd1a550dbb549df9d7ea7e4da309c644",
+    "seg-serve-cine": "5d7dfabd37e360078bd6760b14ca805e039b5856384d69d19eee494689991e72",
+}
+
+
+@pytest.mark.parametrize("name", sorted(FROZEN))
+def test_the_cells_readings_of_the_reference_are_frozen(name):
+    digest = hashlib.sha256(json.dumps(_readings(name)).encode("utf-8")).hexdigest()
+    assert digest == FROZEN[name]
+
+
+def test_the_huge_reference_s_encoder_blocks_hold_vit_h_s_parameters():
+    model = weights.on_meta("mae", _huge_config())
+    blocks = [sum(p.numel() for p in b.parameters()) for b in model.encoder.blocks]
+    assert blocks == [12 * 1280**2 + 13 * 1280] * 32
+    assert sum(blocks) == 629_678_080
 
 
 def _hand_attention_min_s(b, tq, tk, e, train):
@@ -110,17 +202,21 @@ def _hand_attention_min_s(b, tq, tk, e, train):
     return max(flop / 989e12, nbytes / 3.35e12)
 
 
-@pytest.mark.parametrize("name", WORKLOADS)
+@pytest.mark.parametrize("name", WORKLOADS + [HUGE])
 def test_attention_work_agrees_with_a_hand_count(name):
-    w = registry.workload(name)
-    cfg = registry.config(w["config"])
+    w = _huge_workload() if name == HUGE else registry.workload(name)
+    cfg = _huge_config() if name == HUGE else registry.config(w["config"])
     if w["kind"] == "train_pool":
         calls = yardstick.attention_calls(cfg, w["step"], w["traffic"]["batch"], train=True)
     elif w["kind"] == "train_ddp":  # one rank's rows
         calls = yardstick.attention_calls(cfg, w["step"], w["traffic"]["batch"] // cfg["n_devices"], train=True)
     else:
         calls = yardstick.attention_calls(cfg, "segmentation", 8, train=False)
-    if name.startswith("mae"):
+    if name == HUGE:
+        # as below, through 32 encoder blocks 1280 wide (16 heads of 80)
+        assert calls == [(16, 769, 769, 1280, True)] * 32 + [(16, 2305, 768, 512, True)] * 8
+        hand = 32 * _hand_attention_min_s(16, 769, 769, 1280, True) + 8 * _hand_attention_min_s(16, 2305, 768, 512, True)
+    elif name.startswith("mae"):
         # 2304 SAX tokens and 3 x 256 LAX tokens at mask ratio 0.75: 576 + 3 x 64 kept, 1728 + 3 x 192 masked
         hand = 12 * _hand_attention_min_s(16, 769, 769, 768, True) + 8 * _hand_attention_min_s(16, 2305, 768, 512, True)
     elif w["kind"].startswith("train"):
@@ -171,6 +267,21 @@ def test_model_flop_agrees_with_a_hand_count_at_the_cells_shapes():
     train = yardstick.model_flop(cfg, "segmentation", 4, train=True)
     # the backward is two forwards, less the input gradient of the first layers, which nothing needs
     assert 2.9 * 4 * forward < train <= 3 * 4 * forward
+
+
+def test_the_huge_step_s_extra_work_agrees_with_a_hand_count():
+    """model_flop(huge) - model_flop(base) for a training micro-batch of 16: only the layers of the encoder's
+    width differ, each training pass three forwards."""
+    def forward(e, depth):
+        t, n = 769, 2304 + 3 * 256  # tokens through the encoder; patches of the four views, dense in the stems
+        blocks = depth * (24 * t * e * e + 4 * t * t * e)
+        # per view: the patch embed (512 in), the stem's linear layer and the fusion's two strided convolutions
+        # (64 channels by 4x4, 128 by 2x2); then the decoder's linear layer on the encoder's tokens
+        projections = n * (2 * 512 * e + 2 * e * e + 2 * (64 * 16 + 128 * 4) * e) + 2 * t * e * 512
+        return blocks + projections
+    base = yardstick.model_flop(registry.config("cinema-mae-base"), "mae", 16, train=True)
+    huge = yardstick.model_flop(_huge_config(), "mae", 16, train=True)
+    assert math.isclose(huge - base, 3 * 16 * (forward(1280, 32) - forward(768, 12)), rel_tol=1e-9)
 
 
 def test_busy_time_is_the_union_of_intervals_and_gaps_are_named_by_the_host():
